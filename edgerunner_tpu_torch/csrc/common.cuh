@@ -1,0 +1,59 @@
+// Shared helpers of the port's hand-written Hopper kernels.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace edgerunner {
+
+// The masking constant of the JAX package (ops/attention.py NEG_INF): a
+// finite value, so a row whose keys are all masked averages V uniformly,
+// exactly as the reference softmax over -1e30 logits does.
+constexpr float kNegInf = -1e30f;
+
+// dtype codes shared with the Python wrappers
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// A probability rounded to the operand type of the PV product: the TPU kernels
+// cast p to the input dtype before that dot and accumulate in f32.
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// Loads 16 bytes (8 bf16 or 4 f32 values) and widens them to float.
+template <typename T> struct Vec16 {
+  static constexpr int N = 16 / sizeof(T);
+  float v[N];
+  __device__ __forceinline__ void load(const T* p) {
+    uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = to_float(e[i]);
+  }
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+}  // namespace edgerunner
