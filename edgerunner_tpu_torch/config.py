@@ -13,6 +13,7 @@ import argparse
 import dataclasses
 import sys
 import typing
+import urllib.parse
 from dataclasses import dataclass
 from typing import Dict, List, Literal, Optional, Tuple
 
@@ -378,6 +379,7 @@ _NOT_PORTED = {
     "kv_quant": False, "w_quant": False, "spec_decode": False,
     "mtp_heads": 0, "moe_experts": 0, "lora_rank": 0, "tp_size": 1,
     "sp_size": 1, "pp_size": 1, "ep_size": 1, "scan_layers": False,
+    "ema_decay": 0.0, "async_checkpointing": False, "resume2": None, "use_wandb": False,
 }
 
 
@@ -398,6 +400,14 @@ def validate(opt: Options) -> Options:
     for name, off in _NOT_PORTED.items():
         if getattr(opt, name) != off:
             raise ValueError(f"the port does not implement --{name} yet")
+    if opt.dp_size > 1:
+        raise ValueError("the port runs on one device: it does not implement "
+                         "--dp_size > 1 yet")
+    if opt.eval_mode == "generate":
+        raise ValueError("the port does not implement --eval_mode generate yet")
+    if len(urllib.parse.urlparse(opt.data_root).scheme) > 1 or ":" in opt.data_root:
+        raise ValueError("the port reads one local --data_root; remote and "
+                         "multi-root data are not implemented yet")
     return opt
 
 

@@ -40,7 +40,7 @@
 namespace edgerunner {
 namespace {
 
-constexpr int kBlockQ = 64;            // query rows per block
+constexpr int kBlockQ = kFwdBlockQ;    // query rows per block
 constexpr int kBlockK = 32;            // keys per shared-memory tile
 constexpr int kThreads = 2 * kBlockQ;  // two threads per query row
 

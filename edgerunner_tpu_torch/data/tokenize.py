@@ -1,4 +1,4 @@
-"""Mesh detokenization glue (reference: core/provider.py:39-147).
+"""Mesh (de)tokenization glue (reference: core/provider.py:39-147).
 
 Token streams carry a +3 special-token offset at the model layer
 (0=PAD, 1=BOS, 2=EOS; reference: provider.py:108,115).
@@ -12,6 +12,29 @@ import numpy as np
 
 from edgerunner_tpu_torch.config import Options
 from edgerunner_tpu_torch.data import mesh_io
+
+
+def tokenize_mesh(vertices: np.ndarray, faces: np.ndarray, discrete_bins: int,
+                  tokenizer=None) -> np.ndarray:
+    """vertices [N,3] in [-1,1], faces [M,3] -> int tokens (with the +3
+    offset), as edgerunner_tpu/data/tokenize.py:17-39 makes them."""
+    if tokenizer is None:
+        # naive scheme: canonical-sorted faces flattened to 9 coords each
+        sort_inds = np.lexsort(vertices.T)
+        vertices = vertices[sort_inds]
+        vertices = vertices[:, [2, 1, 0]]  # xyz -> zyx
+        inv_inds = np.argsort(sort_inds)
+        faces = inv_inds[faces]
+        start_inds = faces.argmin(axis=1)
+        take = start_inds[:, None] + np.arange(3)[None, :]
+        faces = np.take_along_axis(
+            np.concatenate([faces, faces[:, :2]], axis=1), take, axis=1)
+        faces = np.array(sorted(faces.tolist()))
+        coords = (vertices[faces] + 1) * 0.5 * discrete_bins
+        tokens = coords.clip(0, discrete_bins - 1).astype(np.int64).reshape(-1)
+    else:
+        tokens, _, _ = tokenizer.encode(vertices, faces)
+    return tokens + 3
 
 
 def detokenize_mesh(tokens: np.ndarray, discrete_bins: Optional[int] = None,

@@ -2,11 +2,14 @@
 
 Prefill fills preallocated per-layer KV caches, then a decode loop takes one
 token per step: the grammar mask, the greedy or sampled choice, the FSM
-update and the decoder step all stay on the device. The host looks at the
-device's EOS flags only at segment boundaries (every DECODE_CHUNK steps), as
-the JAX package's bounded `lax.while_loop` segments do, so a step costs no
-host synchronisation. Rows that ended emit PAD, which gives the same tokens
-as the JAX loop that stops stepping them.
+update and the decoder step all stay on the device. The loop ends, as the
+JAX package's `lax.while_loop` does, once every row has emitted EOS, without
+a host synchronisation per step: every DECODE_CHUNK steps it starts an
+asynchronous copy of the device's "all rows ended" flag to the host and
+reads the copy started one check earlier, which has long arrived. So it
+stops at most 2 * DECODE_CHUNK steps after the last row's EOS. Rows that
+ended emit PAD, which gives the same tokens as the JAX loop that stops
+stepping them.
 """
 
 from __future__ import annotations
@@ -20,8 +23,8 @@ from edgerunner_tpu_torch.config import vocab_size_for
 from edgerunner_tpu_torch.models.lmm import LMM
 from edgerunner_tpu_torch.ops import sampling as S
 
-# steps between two host checks of the EOS flags (tests shrink it)
-DECODE_CHUNK = 2048
+# steps between two reads of the EOS flags (tests widen it)
+DECODE_CHUNK = 16
 
 
 def round_up_bucket(n: int, bucket: int) -> int:
@@ -51,15 +54,18 @@ def generate_tokens(model: LMM, conds, *, num_faces: int = 1000,
 
     conds: [B, N, 3] points (numpy array or tensor) for point conditioning.
     Returns np.ndarray [B, T] of generated tokens (BOS excluded), PAD after
-    each row's EOS. `generator` drives sampling (generate_mode 'sample');
-    greedy decoding ignores it. `bench_no_eos` forbids EOS so that every
-    row decodes the full budget.
+    each row's EOS. `generator` drives sampling (generate_mode 'sample'): a
+    generator seeded with `opt.seed` on the model's device when None, as the
+    JAX package defaults to PRNGKey(opt.seed); greedy decoding ignores it.
+    `bench_no_eos` forbids EOS so that every row decodes the full budget.
     """
     opt = model.opt
     device = next(model.parameters()).device
     conds = torch.as_tensor(conds, device=device)
     B = conds.shape[0]
     vocab = vocab_size_for(opt)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(opt.seed)
     G = S.get_grammar(opt.meto_backend)
 
     prompt = np.full((B, 1), opt.bos_token_id, np.int64)
@@ -77,6 +83,7 @@ def generate_tokens(model: LMM, conds, *, num_faces: int = 1000,
     tokens = torch.zeros((B, num_new), dtype=torch.int64, device=device)
     done = torch.zeros(B, dtype=torch.bool, device=device)
     no_eos = torch.arange(vocab, device=device)[None] != S.EOS_ID
+    ended = None  # the host copy of done.all() in flight, and its event
     for i in range(num_new):
         step_logits = logits[:, 0].float()
         mask = (G.mask(state, vocab) if use_grammar
@@ -93,13 +100,36 @@ def generate_tokens(model: LMM, conds, *, num_faces: int = 1000,
         state = G.advance(state, nxt)
         done |= nxt == S.EOS_ID
         tokens[:, i] = nxt
-        if i + 1 == num_new or ((i + 1) % DECODE_CHUNK == 0 and bool(done.all())):
+        if i + 1 == num_new:
             break
+        if (i + 1) % DECODE_CHUNK == 0:
+            if ended is not None and _arrived(ended):
+                break
+            ended = _copy_to_host(done.all())
         logits = model.step(nxt[:, None], caches, plen + i)
     out = tokens.cpu().numpy()
     if resume_ids is not None:
         out = np.concatenate([np.asarray(resume_ids, np.int64), out], axis=1)
     return out
+
+
+def _copy_to_host(flag: torch.Tensor):
+    """Start a copy of a device flag to the host; returns (host flag, event)."""
+    if flag.device.type != "cuda":
+        return flag.clone(), None
+    host = torch.empty((), dtype=flag.dtype, pin_memory=True)
+    host.copy_(flag, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _arrived(copy) -> bool:
+    """The value of a copy started by `_copy_to_host` (waits for it)."""
+    host, event = copy
+    if event is not None:
+        event.synchronize()
+    return bool(host)
 
 
 def trim_eos(tokens: np.ndarray, eos_id: int = S.EOS_ID) -> np.ndarray:

@@ -1,0 +1,145 @@
+"""ArAE training CLI of the port (the counterpart of main.py:40-270).
+
+    python -m edgerunner_tpu_torch.main ArAE --data_root ./data \\
+        --workspace ./workspace [--device cuda|cpu] [--flags]
+
+Data: a local directory of .obj/.ply meshes (optionally listed with their
+face counts in a manifest.json); the synthetic procedural dataset when
+data_root does not exist. Weights start from `--seed`, or from a
+`.safetensors` file the port wrote (`--resume`, loaded strictly); with
+`--resume_train_state` the step, the optimizer state and the loader's
+position come back too, and training continues exactly. Each epoch saves a
+checkpoint (train/checkpoint.py); with `--eval_mode loss` the held-out loss
+is logged and one batch's ground-truth and argmax meshes are written. The
+model trains on the card unless `--device cpu` is given; without a card and
+without `--device cpu` it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import List, Optional
+
+import numpy as np
+
+from edgerunner_tpu_torch.config import parse_cli, validate
+from edgerunner_tpu_torch.data import save_mesh
+from edgerunner_tpu_torch.data.dataset import DataLoader, MeshFolderDataset, SyntheticMeshDataset
+from edgerunner_tpu_torch.infer import resolve_device
+from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+from edgerunner_tpu_torch.train.checkpoint import CheckpointManager, find_train_state
+from edgerunner_tpu_torch.train.trainer import Trainer
+from edgerunner_tpu_torch.utils import get_tokenizer, init_logger
+from edgerunner_tpu_torch.weights import load_state, read_safetensors
+
+
+def save_eval_meshes(trainer: Trainer, test_loader, opt, tokenizer, epoch: int):
+    """Ground-truth and argmax-predicted meshes of one held-out batch
+    (reference: main.py:253-264)."""
+    batch = next(iter(test_loader))
+    logits = trainer.eval_step(batch)["logits"]
+    C = opt.num_cond_tokens
+    n_tok = int(batch["num_tokens"][0])
+    coords = np.asarray(batch["labels"][0])[C + 1:n_tok - 1]
+    pred = logits[0].argmax(-1).cpu().numpy()[C:n_tok - 2]
+    save_mesh(coords, opt, os.path.join(opt.workspace, f"test_ep{epoch}_gt.obj"),
+              tokenizer=tokenizer)
+    save_mesh(pred, opt, os.path.join(opt.workspace, f"test_ep{epoch}.obj"),
+              tokenizer=tokenizer)
+
+
+def main(argv: Optional[List[str]] = None) -> Trainer:
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", default="cuda")
+    args, rest = pre.parse_known_args(argv)
+    device = resolve_device(args.device)
+    opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.main"))
+
+    os.makedirs(opt.workspace, exist_ok=True)
+    logger = init_logger(os.path.join(opt.workspace, "log.txt"))
+    logger.info(str(opt))
+    if opt.resume is None and opt.warmup_ratio == 0 and opt.lr > 1.5e-4:
+        logger.warning(
+            "training from scratch with warmup_ratio=0 and lr "
+            f"{opt.lr:g}: the post-LN decoder is likely to collapse to "
+            "unigram predictions (see evidence/warmup_study.md). "
+            "Recommended: --warmup_ratio 0.01 or more, or lr <= 1e-4.")
+
+    tokenizer, _ = get_tokenizer(opt)
+    if os.path.isdir(opt.data_root):
+        train_dataset = MeshFolderDataset(opt, training=True, tokenizer=tokenizer)
+        test_dataset = MeshFolderDataset(opt, training=False, tokenizer=tokenizer)
+    else:
+        logger.warning(f"data_root {opt.data_root} not found; using synthetic data")
+        train_dataset = SyntheticMeshDataset(opt, size=opt.synthetic_size, training=True,
+                                             tokenizer=tokenizer)
+        test_dataset = SyntheticMeshDataset(opt, size=max(opt.synthetic_size // 16, 4),
+                                            training=False, tokenizer=tokenizer)
+    logger.info(f"train dataset size: {len(train_dataset)}")
+    logger.info(f"test dataset size: {len(test_dataset)}")
+    train_loader = DataLoader(train_dataset, opt, opt.batch_size, shuffle=True, seed=opt.seed)
+    test_loader = DataLoader(test_dataset, opt, opt.batch_size, shuffle=False,
+                             drop_last=False, seed=opt.seed)
+
+    total_steps = opt.num_epochs * len(train_loader) // opt.gradient_accumulation_steps
+    model = init_weights(LMM(opt, device=device), opt.seed)
+    trainer = Trainer(model, opt, total_steps, logger=logger)
+    manager = CheckpointManager(opt.workspace, keep=2)
+
+    start_epoch, resume_step, opt_state_path = 0, 0, None
+    if opt.resume is not None:
+        load_state(model, read_safetensors(opt.resume))
+        logger.info(f"loaded weights from {opt.resume}")
+        if opt.resume_train_state:
+            ts = find_train_state(opt.resume)
+            if ts is None:
+                logger.warning("[resume] --resume_train_state set but no "
+                               "train_state.json next to the checkpoint")
+            else:
+                resume_step = int(ts.get("step", 0))
+                if ts.get("loader"):
+                    train_loader.restore_state(ts["loader"])
+                    start_epoch = train_loader.epoch
+                opt_state_path = ts.get("opt_state_path")
+                if ts.get("best_loss") is not None:
+                    manager.best_loss = float(ts["best_loss"])
+                logger.info(f"[resume] exact continuation: step {resume_step}, "
+                            f"epoch {start_epoch}, loader {ts.get('loader')}, "
+                            f"opt_state {'yes' if opt_state_path else 'no'}")
+    num_params = sum(p.numel() for p in model.parameters())
+    logger.info(f"total param count: {num_params / 1e6:.3f} M")
+    trainer.init_state(step=resume_step, opt_state_path=opt_state_path)
+
+    def on_step(step, metrics):
+        if opt.save_every_steps and step % opt.save_every_steps == 0:
+            manager.save_step(step, model,
+                              trainer.optimizer if opt.save_optimizer_state else None,
+                              train_state={"step": step, "loader": train_loader.state()},
+                              log=logger.info)
+
+    for epoch in range(start_epoch, opt.num_epochs):
+        if not opt.debug_eval:
+            avg_loss = trainer.train_epoch(train_loader, epoch, on_step=on_step)
+            if (opt.save_every_epochs <= 1 or (epoch + 1) % opt.save_every_epochs == 0
+                    or epoch == opt.num_epochs - 1):
+                manager.save_epoch(
+                    epoch, model, trainer.optimizer if opt.save_optimizer_state else None,
+                    loss=avg_loss,
+                    train_state={"step": trainer.step, "loader": train_loader.state()},
+                    log=logger.info)
+        else:
+            logger.info(f"epoch: {epoch} skip training for debug !!!")
+        if opt.eval_mode == "loss":
+            trainer.eval_epoch(test_loader, epoch)
+            # meto streams may be invalid early in training: a failed dump is
+            # logged and training goes on, as in the reference
+            try:
+                save_eval_meshes(trainer, test_loader, opt, tokenizer, epoch)
+            except Exception as e:  # noqa: BLE001
+                logger.warning(f"failed to save validation mesh: {e}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from edgerunner_tpu_torch.ops.attention import attention, attention_reference
 
@@ -94,19 +95,34 @@ class FeedForward(nn.Module):
         return self.net(x)
 
 
+def maybe_checkpoint(remat: bool, fn, *args):
+    """fn(*args), under gradient checkpointing when `remat` is on and a
+    gradient is being recorded (the port's `nn.remat`): the activations inside
+    fn are recomputed in the backward pass instead of kept. The default
+    `preserve_rng_state` replays dropout identically."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 class ResCrossAttBlock(nn.Module):
-    """Pre-LN residual cross-attention block (reference: point.py:108-126)."""
+    """Pre-LN residual cross-attention block (reference: point.py:108-126);
+    `remat` checkpoints the whole block (edgerunner_tpu/models/layers.py:196-217)."""
 
     def __init__(self, dim: int, num_heads: int, *, use_kernels: bool = True,
-                 device=None, dtype=None):
+                 remat: bool = False, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.remat = remat
         self.ln1 = nn.LayerNorm(dim, eps=LN_EPS, **kw)
         self.att = CrossAttention(dim, dim, dim, num_heads,
                                   use_kernels=use_kernels, **kw)
         self.ln2 = nn.LayerNorm(dim, eps=LN_EPS, **kw)
         self.mlp = FeedForward(dim, **kw)
 
-    def forward(self, x, context):
+    def _body(self, x, context):
         x = x + self.att(self.ln1(x), context)
         return x + self.mlp(self.ln2(x))
+
+    def forward(self, x, context):
+        return maybe_checkpoint(self.remat, self._body, x, context)

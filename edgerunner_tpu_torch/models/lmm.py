@@ -1,14 +1,18 @@
 """LMM, the ArAE top-level model of the port (edgerunner_tpu/models/lmm.py:36-196).
 
 Point-cloud conditioner (point encoder -> proj_cond -> norm_cond), the
-num-face bucket token, and the ShapeOPT decoder, with the `prefill` / `step`
+num-face bucket token, and the ShapeOPT decoder: the teacher-forcing
+`forward` with its loss, which training drives, and the `prefill` / `step`
 pair that generate.py drives. Conditioning modes 'point' and 'none' are
-ported; 'image' and 'point_latent' wait for later slices.
+ported; 'image' and 'point_latent' wait for later slices. `checkpointing`
+turns on gradient checkpointing of the point encoder's block and of each
+decoder layer, as in the JAX package (lmm.py:50-58, :80-82).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -35,7 +39,8 @@ class LMM(nn.Module):
         if opt.cond_mode == "point":
             self.point_encoder = PointEncoderEmbed(
                 opt.point_hidden_dim, opt.point_num_heads, opt.point_latent_size,
-                opt.point_latent_dim, use_kernels=use_kernels, **kw)
+                opt.point_latent_dim, use_kernels=use_kernels,
+                remat=opt.checkpointing, **kw)
             self.proj_cond = nn.Linear(opt.point_latent_dim, opt.hidden_dim, **kw)
             self.norm_cond = nn.LayerNorm(opt.hidden_dim, eps=LN_EPS, **kw)
         if opt.use_num_face_cond:
@@ -49,6 +54,7 @@ class LMM(nn.Module):
             num_attention_heads=opt.num_heads,
             max_position_embeddings=opt.max_seq_length + opt.num_cond_tokens + 10,
             pad_token_id=opt.pad_token_id,
+            remat=opt.checkpointing,
         )
         self.mesh_decoder = ShapeOPT(self.cfg, use_kernels=use_kernels, **kw)
 
@@ -65,6 +71,35 @@ class LMM(nn.Module):
             nf = self.embed_num_face(quantize_num_faces(num_faces))[:, None]
             cond_embeds = nf if cond_embeds is None else torch.cat([cond_embeds, nf], 1)
         return cond_embeds, kl
+
+    def forward(self, conds, tokens, labels, num_faces, lengths, *,
+                train: bool = False, generator: Optional[torch.Generator] = None):
+        """Teacher-forcing forward and loss (edgerunner_tpu/models/lmm.py:134-170).
+
+        tokens [B, 1+M+1] (BOS, coords, EOS, PAD); labels [B, C+1+M+1] with
+        -100 on cond, BOS and pad; lengths [B] valid total lengths. In
+        training, num-face dropout draws from `generator` and the decoder
+        applies dropout. Returns dict(loss, loss_ce, loss_kl, logits).
+        """
+        opt = self.opt
+        if train and opt.use_num_face_cond and opt.nof_dropout_ratio > 0:
+            # num-face dropout: train the unconditional bucket some of the time
+            device = num_faces.device if generator is None else generator.device
+            drop = torch.rand(num_faces.shape[0], generator=generator, device=device)
+            num_faces = torch.where(drop.to(num_faces.device) < opt.nof_dropout_ratio,
+                                    -1, num_faces)
+        cond_embeds, kl = self.encode_cond(conds, num_faces)
+        embeds = self.mesh_decoder.embed_tokens(tokens)
+        if cond_embeds is not None:
+            embeds = torch.cat([cond_embeds.to(embeds.dtype), embeds], dim=1)
+        logits, loss_ce = self.mesh_decoder(embeds, lengths, labels=labels, train=train)
+        out = {"loss_ce": loss_ce, "logits": logits}
+        loss = loss_ce
+        if opt.cond_mode == "point":
+            out["loss_kl"] = kl
+            loss = loss + opt.kl_weight * kl
+        out["loss"] = loss
+        return out
 
     def prefill(self, conds, num_faces, prompt_ids, max_len: int):
         """Encode cond + prompt ids [B, P]; fill max_len caches. Returns

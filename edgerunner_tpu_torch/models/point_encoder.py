@@ -42,25 +42,29 @@ class PointEmbed(nn.Module):
         self.mlp = nn.Linear(freq_embed_dim + 3, dim, device=device, dtype=dtype)
 
     def forward(self, pts):
-        proj = pts @ self.basis.to(pts.dtype)
+        # f32 under autocast too: a bf16 product would lose the high frequencies
+        with torch.autocast(pts.device.type, enabled=False):
+            proj = pts @ self.basis.to(pts.dtype)
         feats = torch.cat([torch.sin(proj), torch.cos(proj), pts], dim=-1)
         return self.mlp(feats.to(self.mlp.weight.dtype))
 
 
 class PointEncoderEmbed(nn.Module):
     """Learned-query cross-attention encoder (point_encoder_mode='embed',
-    reference: point.py:172-205)."""
+    reference: point.py:172-205). `remat` checkpoints the cross-attention
+    block, as the JAX package does under `checkpointing` (lmm.py:50-58)."""
 
     def __init__(self, hidden_dim: int = 1024, num_heads: int = 16,
                  latent_size: int = 2048, latent_dim: int = 64, *,
-                 use_kernels: bool = True, device=None, dtype=None):
+                 use_kernels: bool = True, remat: bool = False, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.query_embed = nn.Parameter(torch.empty(1, latent_size, hidden_dim, **kw))
         self.point_embed = PointEmbed(hidden_dim, **kw)
         self.ln = nn.LayerNorm(hidden_dim, eps=LN_EPS, **kw)
         self.cross_att = ResCrossAttBlock(hidden_dim, num_heads,
-                                          use_kernels=use_kernels, **kw)
+                                          use_kernels=use_kernels, remat=remat, **kw)
         self.linear = nn.Linear(hidden_dim, latent_dim, **kw)
 
     def forward(self, pts):
@@ -71,5 +75,6 @@ class PointEncoderEmbed(nn.Module):
 
 
 def latent_kl(latent: torch.Tensor) -> torch.Tensor:
-    """Deterministic-"VAE" regularizer: 0.5 * sum(latent^2) (reference: point.py:33-35)."""
-    return 0.5 * latent.float().square().sum()
+    """Deterministic-"VAE" regularizer: 0.5 * sum(latent^2), in f32 or wider
+    (reference: point.py:33-35)."""
+    return 0.5 * latent.to(torch.promote_types(latent.dtype, torch.float32)).square().sum()

@@ -4,6 +4,8 @@ Learned absolute positions from 0, post-LN blocks LN(x + attn(x)) and
 LN(x + fc2(relu(fc1(x)))), an `lm_head` without bias. Three modes:
 
 * ``forward``  full-sequence teacher forcing, causal, with prefix `lengths`;
+               in training, residual dropout and per-layer gradient
+               checkpointing, and the shifted cross-entropy loss;
 * ``prefill``  runs the prompt and returns per-layer packed caches
                [B, max_len, hidden] (zero past the prompt);
 * ``step``     one token: writes its K/V row at `index` into the caches,
@@ -24,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from edgerunner_tpu_torch.models.layers import LN_EPS, attention_fn
+from edgerunner_tpu_torch.models.layers import LN_EPS, attention_fn, maybe_checkpoint
 from edgerunner_tpu_torch.ops.decode_attention import (
     fused_decode_attention,
     fused_decode_attention_reference,
@@ -41,8 +43,11 @@ class ShapeOPTConfig:
     intermediate_dim: int = 4096
     num_hidden_layers: int = 24
     num_attention_heads: int = 16
+    dropout: float = 0.1
     init_std: float = 0.02
     pad_token_id: int = 0
+    # gradient checkpointing of each decoder layer in training
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -106,12 +111,17 @@ class OPTDecoderLayer(nn.Module):
         self.fc1 = nn.Linear(c.hidden_dim, c.intermediate_dim, **kw)
         self.fc2 = nn.Linear(c.intermediate_dim, c.hidden_dim, **kw)
         self.final_layer_norm = nn.LayerNorm(c.hidden_dim, eps=LN_EPS, **kw)
+        self.dropout = c.dropout
 
-    def _mlp(self, h):
-        return self.final_layer_norm(h + self.fc2(F.relu(self.fc1(h))))
+    def _mlp(self, h, train: bool = False):
+        m = F.dropout(self.fc2(F.relu(self.fc1(h))), self.dropout, training=train)
+        return self.final_layer_norm(h + m)
 
-    def forward(self, h, lengths=None):
-        return self._mlp(self.self_attn_layer_norm(h + self.self_attn(h, lengths)))
+    def forward(self, h, lengths=None, train: bool = False):
+        """Residual dropout on the attention and MLP branches in training
+        (edgerunner_tpu/models/shape_opt.py:412-426)."""
+        a = F.dropout(self.self_attn(h, lengths), self.dropout, training=train)
+        return self._mlp(self.self_attn_layer_norm(h + a), train)
 
     def prefill(self, h):
         a, k, v = self.self_attn.prefill(h)
@@ -130,19 +140,22 @@ class ShapeOPTDecoder(nn.Module):
                  device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.remat = c.remat
         self.embd = nn.Embedding(c.vocab_size, c.hidden_dim, **kw)
         self.embed_positions = nn.Embedding(c.max_position_embeddings, c.hidden_dim, **kw)
         self.layers = nn.ModuleList(
             OPTDecoderLayer(c, use_kernels=use_kernels, **kw)
             for _ in range(c.num_hidden_layers))
 
-    def forward(self, inputs_embeds, lengths=None):
+    def forward(self, inputs_embeds, lengths=None, train: bool = False):
+        """With `cfg.remat`, each layer is checkpointed
+        (edgerunner_tpu/models/shape_opt.py:524-538)."""
         if not inputs_embeds.is_floating_point():
             inputs_embeds = self.embd(inputs_embeds)
         T = inputs_embeds.shape[1]
         h = inputs_embeds + self.embed_positions.weight[:T]
         for layer in self.layers:
-            h = layer(h, lengths)
+            h = maybe_checkpoint(self.remat, layer, h, lengths, train)
         return h
 
     def prefill(self, inputs_embeds, max_len: int):
@@ -179,9 +192,13 @@ class ShapeOPT(nn.Module):
         self.lm_head = nn.Linear(c.hidden_dim, c.vocab_size, bias=False,
                                  device=device, dtype=dtype)
 
-    def forward(self, inputs_embeds, lengths=None):
-        """Teacher-forcing logits [B, T, V]."""
-        return self.lm_head(self.model(inputs_embeds, lengths))
+    def forward(self, inputs_embeds, lengths=None, labels=None, train: bool = False):
+        """Teacher-forcing logits [B, T, V]; with `labels`, (logits, loss)
+        (edgerunner_tpu/models/shape_opt.py:673-686)."""
+        logits = self.lm_head(self.model(inputs_embeds, lengths, train))
+        if labels is None:
+            return logits
+        return logits, shifted_cross_entropy(logits, labels)
 
     def embed_tokens(self, ids):
         return self.model.embd(ids)
@@ -193,3 +210,15 @@ class ShapeOPT(nn.Module):
 
     def step(self, token_ids, caches: Caches, index: int):
         return self.lm_head(self.model.step(token_ids, caches, index))
+
+
+def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          shift: int = 1) -> torch.Tensor:
+    """Mean cross-entropy of logits[:, :-shift] against labels[:, shift:] in
+    f32 (or wider), ignoring label -100 (edgerunner_tpu/models/shape_opt.py:707-719)."""
+    shift_logits = logits[:, :-shift].to(torch.promote_types(logits.dtype, torch.float32))
+    shift_labels = labels[:, shift:].long()
+    valid = shift_labels != -100
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    nll = -logp.gather(-1, torch.where(valid, shift_labels, 0)[..., None])[..., 0]
+    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)

@@ -32,6 +32,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # q, k, v, o, lse, q_len, kv_len, B, N, M, H, D, dtype, causal, stream
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, dout, lse, delta, dq, dk, dv, q_len, kv_len, B, N, M, H, D, dtype,
+    # causal, stream
+    "flash_attention_bwd": [_P] * 11 + [_I] * 7 + [_P],
     # q, k, v, out, part_o, part_m, part_l, B, L, H, D, index, chunk, dtype, stream
     "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }

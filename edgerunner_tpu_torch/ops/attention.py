@@ -6,9 +6,11 @@ logits are NEG_INF = -1e30, causal masking applies only when N == M, and
 rows past `q_len` are zeroed. Shapes follow the JAX package: q [B, N, H, D],
 k/v [B, M, H, D].
 
-`attention` sends a CUDA tensor to the hand-written flash-attention kernel
-(ops/flash_attention.py) and a CPU tensor to `attention_reference`. The
-sequence-parallel ring branch of the JAX dispatch is not ported yet.
+`attention` is differentiable: it sends a CUDA tensor to the hand-written
+flash-attention kernels, the forward and, for its gradient, the backward
+(ops/flash_attention.py `FlashAttention`), and a CPU tensor to their plain
+versions. The sequence-parallel ring branch of the JAX dispatch is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -29,16 +31,18 @@ def _length_mask(lengths: torch.Tensor, size: int) -> torch.Tensor:
 def attention_reference_lse(q, k, v, *, causal: bool = False,
                             q_len: Optional[torch.Tensor] = None,
                             kv_len: Optional[torch.Tensor] = None):
-    """Masked softmax attention in f32, and its row log-sum-exp.
+    """Masked softmax attention in f32 (or wider), and its row log-sum-exp.
 
     Returns (out [B, N, H, D] in q's dtype with rows past q_len zeroed,
-    lse [B, N, H] f32). The plain version of the flash-attention kernel.
+    lse [B, N, H] in the compute dtype). The plain version of the
+    flash-attention kernel.
     """
     B, N, H, D = q.shape
     M = k.shape[1]
     if causal and N != M:
         raise ValueError(f"causal attention needs N == M, got {N} and {M}")
-    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) / math.sqrt(D)
+    ct = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.to(ct), k.to(ct)) / math.sqrt(D)
     if causal:
         cols = torch.arange(M, device=q.device)
         keep = cols[None, :] <= torch.arange(N, device=q.device)[:, None]
@@ -47,7 +51,7 @@ def attention_reference_lse(q, k, v, *, causal: bool = False,
         keep = _length_mask(kv_len, M)[:, None, None, :]
         logits = logits.masked_fill(~keep, NEG_INF)
     lse = torch.logsumexp(logits, dim=-1)                      # [B, H, N]
-    out = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(logits, dim=-1), v.float())
+    out = torch.einsum("bhnm,bmhd->bnhd", torch.softmax(logits, dim=-1), v.to(ct))
     if q_len is not None:
         out = torch.where(_length_mask(q_len, N)[:, :, None, None], out, 0.0)
     return out.to(q.dtype), lse.permute(0, 2, 1)
@@ -81,8 +85,8 @@ def decode_attention(q, k_cache, v_cache, cur_index) -> torch.Tensor:
 def attention(q, k, v, *, causal: bool = False,
               q_len: Optional[torch.Tensor] = None,
               kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Dispatching attention entry point: the flash-attention kernel for a
-    CUDA tensor, `attention_reference` for a CPU tensor."""
-    from edgerunner_tpu_torch.ops.flash_attention import flash_attention
+    """Dispatching, differentiable attention entry point: the flash-attention
+    kernels for a CUDA tensor, their plain versions for a CPU tensor."""
+    from edgerunner_tpu_torch.ops.flash_attention import FlashAttention
 
-    return flash_attention(q, k, v, causal=causal, q_len=q_len, kv_len=kv_len)[0]
+    return FlashAttention.apply(q, k, v, causal, q_len, kv_len)

@@ -1,28 +1,33 @@
-"""Flash-attention forward: the wrapper of the hand-written CUDA kernel
-(csrc/flash_fwd.cu) and its plain version.
+"""Flash attention: the wrappers of the hand-written CUDA kernels
+(csrc/flash_fwd.cu, csrc/flash_bwd.cu), their plain versions, and the
+differentiable attention that joins them.
 
-Replaces the TPU kernels `_fwd` / `_fwd_t` reached from
-edgerunner_tpu/ops/flash_attention.py:1336 (`flash_attention`). On a CUDA
-tensor the wrapper launches the kernel or raises; on a CPU tensor it runs
-the plain version, `attention_reference_lse`. The kernel is bound by
-operations at the main path's shapes (see the source's note).
+Replaces the TPU kernels `_fwd` / `_fwd_t` and `_bwd` / `_bwd_t` reached from
+edgerunner_tpu/ops/flash_attention.py:1336 (`flash_attention`, a
+`jax.custom_vjp`). On a CUDA tensor each wrapper launches its kernel or
+raises; on a CPU tensor it runs its plain version. `FlashAttention` is the
+`torch.autograd.Function` whose forward is the forward kernel and whose
+backward is the backward kernel. Both kernels are bound by operations at the
+main path's shapes (see the sources' notes).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from edgerunner_tpu_torch.ops import _build
-from edgerunner_tpu_torch.ops.attention import attention_reference_lse
+from edgerunner_tpu_torch.ops.attention import _length_mask, attention_reference_lse
 
-__all__ = ["flash_attention", "flash_attention_reference"]
+__all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_reference", "flash_attention_reference"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 96)
 
-# the plain version: same function, f32 math, no kernel
+# the plain version of the forward: same function, f32 math, no kernel
 flash_attention_reference = attention_reference_lse
 
 
@@ -33,6 +38,27 @@ def _lengths(x: Optional[torch.Tensor], B: int, device) -> Optional[torch.Tensor
     if x.shape != (B,):
         raise ValueError(f"length vector must have shape ({B},), got {tuple(x.shape)}")
     return x
+
+
+def _check(q, k, v, causal: bool, name: str, *more):
+    """Raise on what the kernels do not take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    if k.shape != (B, M, H, D) or v.shape != k.shape:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if causal and N != M:
+        raise ValueError(f"causal attention needs N == M, got {N} and {M}")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name} takes f32 or bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name} has kernels for head dims {HEAD_DIMS}, got {D}")
+    for label, t in (("q", q), ("k", k), ("v", v), *more):
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{label} must be a contiguous, 16-byte aligned "
+                             f"tensor on {q.device}")
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -46,24 +72,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, q_len=q_len,
                                          kv_len=kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    _check(q, k, v, causal, "flash_attention")
     B, N, H, D = q.shape
     M = k.shape[1]
-    if k.shape != (B, M, H, D) or v.shape != k.shape:
-        raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
-    if causal and N != M:
-        raise ValueError(f"causal attention needs N == M, got {N} and {M}")
-    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention takes f32 or bf16, got {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention has kernels for head dims {HEAD_DIMS}, got {D}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"tensor on {q.device}")
     q_len = _lengths(q_len, B, q.device)
     kv_len = _lengths(kv_len, B, q.device)
     out = torch.empty_like(q)
@@ -81,3 +92,108 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
 
 flash_attention.launches = 0
+
+
+def _dout_and_delta(o, do, q_len):
+    """dO with rows past q_len zeroed (the forward zeroes those output rows,
+    so they take no gradient), and delta = rowsum(dO * O) [B, N, H] in f32,
+    as the JAX package forms it outside its kernels (flash_attention.py:539)."""
+    if q_len is not None:
+        do = torch.where(_length_mask(q_len, do.shape[1])[:, :, None, None], do, 0)
+    return do, (do.float() * o.float()).sum(-1)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal: bool = False,
+                                  q_len: Optional[torch.Tensor] = None,
+                                  kv_len: Optional[torch.Tensor] = None):
+    """The plain version of the backward kernel: (dq, dk, dv) in q's dtype.
+
+    Recomputes p = exp(s - lse) from the forward's f32 lse and forms
+    delta = rowsum(dO * O), as `_bwd` does (edgerunner_tpu/ops/
+    flash_attention.py:520-545); for bf16 inputs p and ds are rounded to bf16
+    before the products that take them. A row without any valid key
+    (kv_len 0) averaged V uniformly over the M keys in the forward, so it
+    gets the weights 1/M and no gradient to q or k, as autograd through
+    `attention_reference` gives. Runs head by head to bound its memory.
+    """
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    do, delta = _dout_and_delta(o, do, q_len)
+    if q.dtype == torch.float32:
+        rnd = lambda x: x  # noqa: E731
+    else:
+        rnd = lambda x: x.to(q.dtype).float()  # noqa: E731
+    valid = torch.ones((B, N, M), dtype=torch.bool, device=q.device)
+    if causal:
+        valid = valid & torch.ones((N, M), dtype=torch.bool, device=q.device).tril()
+    if kv_len is not None:
+        valid = valid & _length_mask(kv_len, M)[:, None, :]
+        dead = (torch.as_tensor(kv_len, device=q.device) == 0)[:, None, None]
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    for h in range(H):
+        qh, kh, vh, doh = (x[:, :, h].float() for x in (q, k, v, do))
+        s = torch.einsum("bnd,bmd->bnm", qh, kh) * scale
+        p = torch.where(valid, torch.exp(s - lse[:, :, h, None]), 0.0)
+        if kv_len is not None:
+            p = torch.where(dead, 1.0 / M, p)
+        dp = torch.einsum("bnd,bmd->bnm", doh, vh)
+        ds = torch.where(valid, p * (dp - delta[:, :, h, None]), 0.0)
+        dv[:, :, h] = torch.einsum("bnm,bnd->bmd", rnd(p), doh).to(v.dtype)
+        dq[:, :, h] = (scale * torch.einsum("bnm,bmd->bnd", rnd(ds), kh)).to(q.dtype)
+        dk[:, :, h] = (scale * torch.einsum("bnm,bnd->bmd", rnd(ds), qh)).to(k.dtype)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
+                        q_len: Optional[torch.Tensor] = None,
+                        kv_len: Optional[torch.Tensor] = None):
+    """Gradients (dq, dk, dv) of `flash_attention`'s output, given its out
+    `o`, its lse and the output gradient `do` [B,N,H,D]."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal,
+                                             q_len=q_len, kv_len=kv_len)
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    q_len = _lengths(q_len, B, q.device)
+    kv_len = _lengths(kv_len, B, q.device)
+    do, delta = _dout_and_delta(o, do.to(q.dtype), q_len)
+    do = do.contiguous()
+    if lse.shape != (B, N, H) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous f32 [{B}, {N}, {H}] tensor")
+    _check(q, k, v, causal, "flash_attention_bwd", ("do", do))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    lib = _build.load_library()
+    err = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        0 if q_len is None else q_len.data_ptr(),
+        0 if kv_len is None else kv_len.data_ptr(),
+        B, N, M, H, D, DTYPE_CODES[q.dtype], int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel, and the backward
+    kernel for its gradient (the port's counterpart of `_flash_core`'s
+    custom_vjp). On CPU tensors both run their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_len, kv_len):
+        out, lse = flash_attention(q, k, v, causal=causal, q_len=q_len, kv_len=kv_len)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse, q_len, kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, q_len, kv_len = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         causal=ctx.causal, q_len=q_len, kv_len=kv_len)
+        return dq, dk, dv, None, None, None

@@ -49,6 +49,8 @@ def _load():
             fn = getattr(lib, name)
             fn.restype = rtype
             fn.argtypes = [ctypes.c_void_p, ip]
+        lib.metok_decimate.restype = ctypes.c_void_p
+        lib.metok_decimate.argtypes = [fp, ctypes.c_int, ip, ctypes.c_int, ctypes.c_int]
         lib.metok_free.restype = None
         lib.metok_free.argtypes = [ctypes.c_void_p]
         _lib = lib
@@ -118,18 +120,43 @@ class Engine:
             self._backend_id, self.discrete_bins, int(self.verbose),
             t.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), t.shape[0])
         try:
-            nv = ctypes.c_int(0)
-            vp = lib.metok_get_verts(handle, ctypes.byref(nv))
-            verts = (np.ctypeslib.as_array(vp, shape=(nv.value, 3)).astype(np.float32)
-                     if nv.value else np.empty((0, 3), np.float32))
-            nf = ctypes.c_int(0)
-            fp = lib.metok_get_faces(handle, ctypes.byref(nf))
-            faces = (np.ctypeslib.as_array(fp, shape=(nf.value, 3)).astype(np.int64)
-                     if nf.value else np.empty((0, 3), np.int64))
+            verts, faces = _read_mesh(lib, handle)
             face_type = _read_ints(lib.metok_get_face_type, handle)
         finally:
             lib.metok_free(handle)
         return verts, faces, face_type
 
 
-__all__ = ["Engine", "build_metok"]
+def _read_mesh(lib, handle):
+    """(vertices [N,3] f32, faces [M,3] i64) held by a metok handle."""
+    nv = ctypes.c_int(0)
+    vp = lib.metok_get_verts(handle, ctypes.byref(nv))
+    verts = (np.ctypeslib.as_array(vp, shape=(nv.value, 3)).astype(np.float32)
+             if nv.value else np.empty((0, 3), np.float32))
+    nf = ctypes.c_int(0)
+    fp = lib.metok_get_faces(handle, ctypes.byref(nf))
+    faces = (np.ctypeslib.as_array(fp, shape=(nf.value, 3)).astype(np.int64)
+             if nf.value else np.empty((0, 3), np.int64))
+    return verts, faces
+
+
+def decimate(vertices, faces, target_faces: int):
+    """Quadric-error-metric edge-collapse decimation (C++), the counterpart
+    of edgerunner_tpu/tokenizer/__init__.py:152-180: greedy collapses ordered
+    by Garland-Heckbert quadric cost until the face count reaches
+    target_faces. Returns (vertices f32, faces i64)."""
+    lib = _load()
+    v = np.ascontiguousarray(vertices, dtype=np.float32)
+    f = np.ascontiguousarray(faces, dtype=np.int32)
+    if v.ndim != 2 or v.shape[1] != 3 or f.ndim != 2 or f.shape[1] != 3:
+        raise ValueError(f"bad mesh shapes {v.shape}, {f.shape}")
+    handle = lib.metok_decimate(
+        v.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), v.shape[0],
+        f.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), f.shape[0], int(target_faces))
+    try:
+        return _read_mesh(lib, handle)
+    finally:
+        lib.metok_free(handle)
+
+
+__all__ = ["Engine", "build_metok", "decimate"]

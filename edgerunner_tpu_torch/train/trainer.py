@@ -1,0 +1,131 @@
+"""Training harness of the port (edgerunner_tpu/train/trainer.py).
+
+One device: f32 master parameters, the forward and backward under bf16
+autocast on the card (the counterpart of flax's `dtype=bf16` with f32
+params) and in f32 on the CPU, then the JAX package's optimizer
+(train/state.py). Each step's random draws come from its own seeds, derived
+from (opt.seed, step), the counterpart of `fold_in(rng, step)`: a generator
+for num-face dropout, and the default generators, forked for the step, for
+the decoder's dropout (gradient checkpointing replays them identically).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from edgerunner_tpu_torch.train.state import make_optimizer
+
+METRICS = ("loss", "loss_ce", "loss_kl")
+
+
+def step_seeds(seed: int, step: int) -> tuple:
+    """(num-face dropout seed, dropout seed) of one training step."""
+    return tuple(int(x) for x in np.random.SeedSequence((seed, step)).generate_state(2))
+
+
+def device_mem_gb(device: torch.device) -> str:
+    """'used/total G' like the reference's memory log (main.py:192-193);
+    empty off the card."""
+    if device.type != "cuda":
+        return ""
+    used = torch.cuda.memory_allocated(device) / 1024 ** 3
+    total = torch.cuda.get_device_properties(device).total_memory / 1024 ** 3
+    return f"{used:.2f}/{total:.2f}G"
+
+
+class Trainer:
+    def __init__(self, model, opt, total_steps: int, logger=None):
+        self.model = model
+        self.opt = opt
+        self.logger = logger
+        self.device = next(model.parameters()).device
+        self.params = dict(model.named_parameters())
+        self.optimizer, self.schedule = make_optimizer(opt, self.params, total_steps)
+        self.autocast = self.device.type == "cuda" and opt.mixed_precision == "bf16"
+        self.step = 0
+        self.losses: list[float] = []  # every training step's loss, in order
+
+    def log(self, msg: str):
+        if self.logger is not None:
+            self.logger.info(msg)
+        else:
+            print(msg)
+
+    def init_state(self, step: int = 0, opt_state_path: Optional[str] = None):
+        """`step` restarts the schedule and the step seeds where a run left
+        off; `opt_state_path` restores a saved optimizer state."""
+        self.step = step
+        if opt_state_path:
+            self.optimizer.load_state_dict(
+                torch.load(opt_state_path, map_location=self.device, weights_only=True))
+
+    def forward(self, batch: dict, *, train: bool, generator=None) -> dict:
+        b = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()
+             if k in ("conds", "tokens", "labels", "num_faces", "lengths")}
+        with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.autocast):
+            return self.model(b["conds"], b["tokens"], b["labels"], b["num_faces"],
+                              b["lengths"], train=train, generator=generator)
+
+    def train_step(self, batch: dict) -> dict:
+        """One forward, backward and optimizer (micro-)step; host floats."""
+        nof_seed, drop_seed = step_seeds(self.opt.seed, self.step)
+        generator = torch.Generator(device=self.device).manual_seed(nof_seed)
+        cuda = self.device.type == "cuda"
+        with torch.random.fork_rng(devices=[self.device.index or 0] if cuda else []):
+            torch.manual_seed(drop_seed)
+            out = self.forward(batch, train=True, generator=generator)
+            grads = torch.autograd.grad(out["loss"], list(self.params.values()))
+        gnorm = self.optimizer.update(dict(zip(self.params, grads)))
+        self.step += 1
+        metrics = {k: float(out[k].detach()) for k in METRICS if k in out}
+        metrics["grad_norm"] = float(gnorm)
+        self.losses.append(metrics["loss"])
+        return metrics
+
+    @torch.no_grad()
+    def eval_step(self, batch: dict) -> dict:
+        return self.forward(batch, train=False)
+
+    def train_epoch(self, loader, epoch: int,
+                    on_step: Optional[Callable[[int, dict], None]] = None) -> float:
+        """One pass over the loader; logs every 10 steps in the JAX package's
+        format (trainer.py:262-287). Returns the mean loss."""
+        t_start = t_step = time.time()
+        total, n = 0.0, 0
+        num_batches = len(loader)
+        for i, batch in enumerate(loader):
+            m = self.train_step(batch)
+            total += m["loss"]
+            n += 1
+            if on_step is not None:
+                on_step(self.step, m)
+            if i % 10 == 0:
+                dt_step = (time.time() - t_step) / 10 if i else time.time() - t_step
+                t_step = time.time()
+                log = (f"{epoch:03d}:{i}/{num_batches} lr: {self.schedule(self.step):.7f} "
+                       f"loss: {m['loss']:.6f} ({dt_step:.2f}s/it)")
+                mem = device_mem_gb(self.device)
+                if mem:
+                    log = log.replace(" lr:", f" mem: {mem} lr:", 1)
+                log += f" gnorm: {m['grad_norm']:.3f}"
+                for k in ("loss_ce", "loss_kl"):
+                    if k in m:
+                        log += f" {k}: {m[k]:.6f}"
+                self.log(log)
+        avg = total / max(n, 1)
+        self.log(f"Train epoch: {epoch} loss: {avg:.6f} "
+                 f"time: {(time.time() - t_start) / 60:.2f}min")
+        return avg
+
+    def eval_epoch(self, loader, epoch: int) -> float:
+        total, n = 0.0, 0
+        for batch in loader:
+            total += float(self.eval_step(batch)["loss"])
+            n += 1
+        avg = total / max(n, 1)
+        self.log(f"Eval epoch: {epoch} loss: {avg:.6f}")
+        return avg

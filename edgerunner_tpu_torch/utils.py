@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import logging
+
 import torch
 
 from edgerunner_tpu_torch.config import vocab_size_for
@@ -25,3 +27,19 @@ def quantize_num_faces(n: torch.Tensor) -> torch.Tensor:
     5 above (reference: core/utils.py:89-116)."""
     bounds = torch.tensor(_FACE_BOUNDS, device=n.device)
     return (n[..., None] > bounds).sum(-1)
+
+
+def init_logger(filename: str) -> logging.Logger:
+    """A logger that writes to `filename` and to the terminal
+    (edgerunner_tpu/utils/misc.py:57-71)."""
+    logger = logging.getLogger("edgerunner_tpu_torch")
+    logger.setLevel(logging.DEBUG)
+    logger.propagate = False
+    for handler in logger.handlers:
+        handler.close()
+    logger.handlers.clear()
+    fmt = logging.Formatter("%(asctime)s [%(levelname)s] %(message)s")
+    for handler in (logging.FileHandler(filename, mode="w"), logging.StreamHandler()):
+        handler.setFormatter(fmt)
+        logger.addHandler(handler)
+    return logger

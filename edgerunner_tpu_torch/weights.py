@@ -1,5 +1,8 @@
 """Weights of the port: the JAX package's parameter tree, or the
-reference-format `.safetensors` file, into an LMM's state_dict.
+reference-format `.safetensors` file, into an LMM's state_dict; and the
+port's own weights out, in the same naming, to a `.safetensors` file that
+loads back through `read_safetensors` + `load_state` (and into the JAX
+package's tree through `flax_from_state_dict`).
 
 The naming is the reference state_dict naming that
 tools/export_reference_ckpt.py:export_lmm emits (:116-128, `_shape_opt`
@@ -10,6 +13,7 @@ mapping. Flax kernels are [in, out], torch weights [out, in].
 from __future__ import annotations
 
 import json
+import os
 import struct
 
 import numpy as np
@@ -117,3 +121,88 @@ def load_state(model: torch.nn.Module, state: dict) -> torch.nn.Module:
     model.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in state.items()},
                           strict=True)
     return model
+
+
+def reference_state_dict(model: torch.nn.Module) -> dict:
+    """The model's weights as {reference name: f32 numpy array}: the port's
+    parameter names are the reference naming, so this is the state_dict that
+    `state_dict_from_flax` would give for the same weights."""
+    return {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+
+
+def _unlinear(tree, sd, prefix):
+    tree["kernel"] = sd[prefix + ".weight"].T
+    if prefix + ".bias" in sd:
+        tree["bias"] = sd[prefix + ".bias"]
+    return tree
+
+
+def _unlayernorm(sd, prefix):
+    return {"scale": sd[prefix + ".weight"], "bias": sd[prefix + ".bias"]}
+
+
+def flax_from_state_dict(sd: dict) -> dict:
+    """The inverse of `state_dict_from_flax`: {reference name: array} -> the
+    JAX package's LMM parameter tree {'params': ...} (the point basis, a
+    fixed table rather than a weight, has no place in it)."""
+    params: dict = {}
+    if "point_encoder.linear.weight" in sd:
+        p, cross = "point_encoder", "point_encoder.cross_att"
+        att = {n: _unlinear({}, sd, f"{cross}.att.{n}")
+               for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
+        params["point_encoder"] = {
+            "point_embed": {"mlp": _unlinear({}, sd, p + ".point_embed.mlp")},
+            "ln": _unlayernorm(sd, p + ".ln"),
+            "cross_att": {"ln1": _unlayernorm(sd, cross + ".ln1"),
+                          "ln2": _unlayernorm(sd, cross + ".ln2"), "att": att,
+                          "mlp": {"fc_in": _unlinear({}, sd, cross + ".mlp.net.0"),
+                                  "fc_out": _unlinear({}, sd, cross + ".mlp.net.2")}},
+            "linear": _unlinear({}, sd, p + ".linear"),
+            "query_embed": sd[p + ".query_embed"],
+        }
+    if "proj_cond.weight" in sd:
+        params["proj_cond"] = _unlinear({}, sd, "proj_cond")
+        params["norm_cond"] = _unlayernorm(sd, "norm_cond")
+    if "embed_num_face.weight" in sd:
+        params["embed_num_face"] = {"embedding": sd["embed_num_face.weight"]}
+    m = "mesh_decoder.model"
+    model = {"embd": {"embedding": sd[m + ".embd.weight"]},
+             "embed_positions": {"embedding": sd[m + ".embed_positions.weight"]}}
+    i = 0
+    while f"{m}.layers.{i}.fc1.weight" in sd:
+        lp = f"{m}.layers.{i}"
+        model[f"layers_{i}"] = {
+            "self_attn": {n: _unlinear({}, sd, f"{lp}.self_attn.{n}")
+                          for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "self_attn_layer_norm": _unlayernorm(sd, lp + ".self_attn_layer_norm"),
+            "fc1": _unlinear({}, sd, lp + ".fc1"),
+            "fc2": _unlinear({}, sd, lp + ".fc2"),
+            "final_layer_norm": _unlayernorm(sd, lp + ".final_layer_norm"),
+        }
+        i += 1
+    params["mesh_decoder"] = {"model": model,
+                              "lm_head": _unlinear({}, sd, "mesh_decoder.lm_head")}
+    return {"params": params}
+
+
+def write_safetensors(path: str, tensors: dict):
+    """Write {name: numpy array} as a .safetensors file, without the
+    `safetensors` package; the file is written whole, then moved into place."""
+    codes = {np.dtype(v): k for k, v in _ST_DTYPES.items()}
+    header, offset, blobs = {}, 0, []
+    for name in sorted(tensors):
+        arr = np.ascontiguousarray(tensors[name])
+        raw = arr.astype(arr.dtype.newbyteorder("<")).tobytes()
+        header[name] = {"dtype": codes[arr.dtype], "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+    os.replace(tmp, path)

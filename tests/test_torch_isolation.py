@@ -41,7 +41,8 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import edgerunner_tpu_torch.infer, edgerunner_tpu_torch.generate, "
-            "edgerunner_tpu_torch.weights, edgerunner_tpu_torch.ops.decode_attention; "
+            "edgerunner_tpu_torch.weights, edgerunner_tpu_torch.ops.decode_attention, "
+            "edgerunner_tpu_torch.main; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -72,3 +73,18 @@ def test_validate_refuses_options_the_port_does_not_run():
         with pytest.raises(ValueError):
             validate(dataclasses.replace(config_defaults["ArAE"], **change))
     validate(dataclasses.replace(config_defaults["ArAE"]))
+
+
+def test_validate_refuses_dp_size_and_the_training_options_not_ported_yet():
+    from edgerunner_tpu_torch.config import config_defaults, validate
+
+    import dataclasses
+
+    for change in (dict(dp_size=2), dict(ema_decay=0.999), dict(eval_mode="generate"),
+                   dict(async_checkpointing=True), dict(resume2="clip.safetensors"),
+                   dict(use_wandb=True), dict(data_root="https://example.com/meshes"),
+                   dict(data_root="s3://bucket/meshes"), dict(data_root="dir_a:dir_b")):
+        with pytest.raises(ValueError):
+            validate(dataclasses.replace(config_defaults["ArAE"], **change))
+    for ok in (dict(dp_size=-1), dict(dp_size=1), dict(data_root="./data")):
+        validate(dataclasses.replace(config_defaults["ArAE"], **ok))
