@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: the quickest proof that
-the port still builds, agrees with its plain versions, generates meshes
-and trains.
+the port still builds, agrees with its plain versions, generates meshes,
+serves them over HTTP and trains.
 
     python3 chip_smoke.py [--phases build,kernels,...]
 
@@ -9,28 +9,41 @@ Phases, one JSON line each:
 
 1. build     nvcc builds every kernel from edgerunner_tpu_torch/csrc.
 2. kernels   each CUDA kernel against its plain PyTorch version on the card,
-             at the main paths' shapes (generation and training) and at
-             ragged ones, bf16 and f32, with its tolerance; at the main-path
-             shapes also its time, the plain version's, one PyTorch library
-             call's (a yardstick the port never calls) and the least time
-             the card could take.
+             at the main paths' shapes (generation, serving and training)
+             and at ragged ones, bf16, f32 and int8 caches, with its
+             tolerance; at the main-path shapes also its time, the plain
+             version's, one PyTorch library call's (a yardstick the port
+             never calls; none attends over the int8 cache) and the least
+             time the card could take.
 3. generate  the main path: `generate_tokens` at full ArAE width (24 layers,
              hidden 1536, 8192 points, 2049 condition tokens), bf16, random
              weights from a seed, 12 rows, 1000 faces, bench.py's 4096-token
              budget with EOS forbidden; the kernels' launch counts are zeroed
              just before and read just after; row 0 is detokenised into a
              mesh with the port's metok copy.
-4. parity    2 layers at full width in f32 (TF32 off for matmuls and cuDNN):
+4. generate_q8  the same path over the int8 KV cache (--kv_quant true) with
+             a 2048-token budget; its decode kernel's launches held exactly.
+5. parity    2 layers at full width in f32 (TF32 off for matmuls and cuDNN):
              the kernel path and the plain path decode greedily in lockstep
              on the same tokens, and must choose the same token at every
              step where the plain logits' top-2 gap is at least NEAR_TIE.
-5. train     the training path: `Trainer.train_step` at full ArAE width,
+6. serve     the server as the README starts it (--test_batch_size 8), full
+             width, bf16, random weights from seed 0: HTTP requests through
+             `build_server` (JAX's JSON, a malformed body answered 400), then
+             the continuous-batching engine alone with the bf16 cache and
+             with --kv_quant true --w_quant true: tokens/s, ms per engine
+             step, peak memory, a profiled segment, and exactly one launch of
+             the multi-query kernel per layer and step.
+7. serve_parity  2 layers at full width in f32: every stream the engine
+             delivers equals its request's solo `generate_tokens` stream up
+             to near-ties, kernel and plain paths, exact and int8 caches.
+8. train     the training path: `Trainer.train_step` at full ArAE width,
              bf16 autocast, gradient checkpointing and dropout on, on
              bench.py's train batch (2 rows of 6147 positions): one warm-up
              and TRAIN_STEPS timed steps (s/it, tokens/s, peak memory), each
              step's kernel launches counted from 0 and held to their exact
              counts, the last loss below the first; then one profiled step.
-6. train_parity  2 layers at full width in f32: the training loss and every
+9. train_parity  2 layers at full width in f32: the training loss and every
              parameter's gradient of the kernel path against the plain path.
 
 Then one JSON line with every kernel's numbers, the card's name and power
@@ -57,6 +70,7 @@ import torch  # noqa: E402
 
 SEED = 0
 ROWS = 12                # bench.py's headline batch
+SERVE_ROWS = 8           # the README's serve command: --test_batch_size 8
 FACES = 1000
 PARITY_STEPS = 512
 TRAIN_ROWS = 2           # bench.py's train probe: batch 2 ...
@@ -64,7 +78,17 @@ TRAIN_MESH_TOKENS = 4096  # ... of BOS + 4096 mesh tokens + EOS after the condit
 TRAIN_RAGGED_LEN = 5000  # a shorter second row for the kernels' ragged train cases
 TRAIN_STEPS = 3          # timed training steps after one warm-up step
 GRAD_TOL = 2e-2          # train parity: gradient error over the tensor's largest value
-PHASES = ("build", "kernels", "generate", "parity", "train", "train_parity")
+PHASES = ("build", "kernels", "generate", "generate_q8", "parity", "serve", "serve_parity",
+          "train", "train_parity")
+Q8_BUDGET = 2048         # generate_q8: a shorter budget than the bf16 generate phase
+SERVE_FACES = (100, 200)  # the HTTP requests' face counts (budgets 1024 and 2048 tokens)
+SERVE_HTTP_REQUESTS = 10  # 8 at once, 2 more while they decode
+SERVE_BENCH_REQUESTS = 16  # into SERVE_ROWS slots, EOS forbidden ...
+SERVE_BENCH_FACES = 100    # ... 1024 tokens each
+SERVE_BENCH_Q8_REQUESTS = 8  # one wave: the int8 + w_quant engine is slower
+PROFILE_STEPS = 16       # engine steps in a profiled segment
+SERVE_PARITY_FACES = (10, 20, 10, 20, 10, 20)  # 6 staggered requests into 4 slots
+SERVE_PARITY_BUCKET = 128
 NEAR_TIE = 1e-3          # plain top-2 logit gap under which a flip is allowed
 # the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_PER_S = 3.35e12
@@ -259,6 +283,80 @@ def decode_case(dev, B, L, hidden, H, index, dtype, timed=False):
     return res
 
 
+def engine_indices(L: int, T: int) -> list:
+    """Per-row positions of the engine-shape cases: 7 spread over [2050,
+    7000] (a freshly admitted row sits at 2050) and one at L - T, the last
+    position a verify pass may start at."""
+    return [int(i) for i in np.linspace(2050, 7000, 7)] + [L - T]
+
+
+def multi_inputs(dev, kind, B, L, hidden, T, seed):
+    """q [B, T, hidden] and the caches of one kind: bf16 or f32 K and V, or
+    the int8 values and their bf16 scale plane quantised from rows of q's
+    dtype (bf16, or f32 for kind "int8 f32 q")."""
+    from edgerunner_tpu_torch.ops.kv_quant import pack_scales, quantize_rows
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dtype = torch.float32 if kind in ("f32", "int8 f32 q") else torch.bfloat16
+    q = torch.randn(B, T, hidden, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(B, L, hidden, device=dev, generator=g).to(dtype) for _ in range(2))
+    if not kind.startswith("int8"):
+        return q, (k, v)
+    (kq, ks), (vq, vs) = quantize_rows(k), quantize_rows(v)
+    del k, v
+    return q, (torch.cat([kq, vq], -1), pack_scales(ks, vs))
+
+
+def multi_case(dev, kind, B, L, hidden, H, T, indices, timed=False, single=False):
+    """Rows 9 (kind bf16 / f32), 11 (int8) and, with `single`, 8 (int8, one
+    query per row and one position for all rows) against their plain
+    versions on the same inputs."""
+    from edgerunner_tpu_torch.ops import decode_attention as DA
+
+    q, caches = multi_inputs(dev, kind, B, L, hidden, T, seed=L + T + len(indices))
+    if single:  # the decode step's position vector, built once per step
+        q = q[:, 0].contiguous()
+        index = torch.full((B,), indices[0], dtype=torch.int32, device=dev)
+        kernel, plain = DA.fused_decode_attention_q8, DA.fused_decode_attention_q8_reference
+    else:
+        index = torch.tensor(indices, dtype=torch.int32, device=dev)
+        quant = kind.startswith("int8")
+        kernel = DA.fused_decode_attention_q8_multi if quant else DA.fused_decode_attention_multi
+        plain = (DA.fused_decode_attention_q8_multi_reference if quant
+                 else DA.fused_decode_attention_multi_reference)
+    out = kernel(q, *caches, index, num_heads=H)
+    ref = plain(q, *caches, index, num_heads=H)
+    torch.cuda.synchronize()
+    res = {"shape": [B, L, hidden], "heads": H, "T": T, "kind": kind,
+           "index": indices if not single else indices[0], **compare(out, ref, q.dtype)}
+    del ref
+    if timed:
+        import torch.nn.functional as F
+
+        res["ms"] = time_ms(lambda: kernel(q, *caches, index, num_heads=H), 50, 3)
+        res["plain_ms"] = time_ms(lambda: plain(q, *caches, index, num_heads=H), 5, 1)
+        starts = [indices[0]] * B if single else indices
+        rows = sum(i + T for i in starts)  # cache rows [0, index[b] + T) of each row
+        pairs = sum(i + t + 1 for i in starts for t in range(T))  # (query, key) pairs
+        if kind.startswith("int8"):
+            # no one PyTorch call attends over an int8 cache with row scales
+            res["library_ms"] = None
+            row_bytes = 2 * hidden + 4  # K and V values, and plane lanes 0 and 1
+        else:
+            D = hidden // H
+            last = index[:, None] + torch.arange(T, device=dev)
+            mask = torch.arange(L, device=dev)[None, None, None] <= last[:, None, :, None]
+            qh = q.reshape(B, T, H, D).transpose(1, 2)
+            kh, vh = (c.reshape(B, L, H, D).transpose(1, 2) for c in caches)
+            res["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask), 20, 2)
+            row_bytes = 2 * hidden * q.element_size()
+        # those cache rows once, q and out once, the positions once
+        nbytes = rows * row_bytes + 2 * q.numel() * q.element_size() + 4 * B
+        res.update(bound(4.0 * hidden * pairs, nbytes, q.dtype))
+    return res
+
+
 def main_path_shapes():
     """Prompt length, new tokens and cache length of the generate phase."""
     from edgerunner_tpu_torch.config import config_defaults
@@ -334,8 +432,30 @@ def phase_kernels(dev):
     decode.append(dict(case="f32", **decode_case(dev, 2, 1024, hd, H, 700, f32)))
     decode.append(dict(case="d64", **decode_case(dev, 3, 1024, 1024, 16, 300, bf)))
     decode.append(dict(case="d64 f32", **decode_case(dev, 3, 1024, 1024, 16, 1023, f32)))
-    ok = all(c["ok"] for c in flash + flash_bwd + decode)
-    return {"ok": ok, "flash": flash, "flash_bwd": flash_bwd, "decode": decode}
+    # the multi-query kernel: rows 9 and 11 at the serving engine's shape
+    # (SERVE_ROWS slots of its cache length), row 8 at the generate path's
+    from edgerunner_tpu_torch.serve_engine import engine_shape
+
+    eng_L = engine_shape(opt)[2]
+    multi = [dict(case=f"engine {kind} T={T}" + (" (main path)" if T == 1 else ""),
+                  **multi_case(dev, kind, SERVE_ROWS, eng_L, hd, H, T,
+                               engine_indices(eng_L, T), timed=True))
+             for kind in ("bf16", "f32", "int8") for T in (1, 3)]
+    multi += [
+        dict(case="ragged d64", **multi_case(dev, "bf16", 3, 300, 1024, 16, 5, [0, 255, 295])),
+        dict(case="ragged f32 T=8", **multi_case(dev, "f32", 3, 1000, 192, 2, 8, [0, 500, 992])),
+        dict(case="ragged int8 d64", **multi_case(dev, "int8", 3, 700, 1024, 16, 2,
+                                                  [0, 256, 698])),
+        dict(case="ragged int8 f32 q", **multi_case(dev, "int8 f32 q", 2, 520, 192, 2, 4,
+                                                    [3, 516])),
+        dict(case=f"generate q8 index {mid} (main path, mean position)", **multi_case(
+            dev, "int8", ROWS, L, hd, H, 1, [mid], timed=True, single=True)),
+        dict(case="generate q8 index 0", **multi_case(dev, "int8", ROWS, L, hd, H, 1, [0],
+                                                      single=True)),
+    ]
+    ok = all(c["ok"] for c in flash + flash_bwd + decode + multi)
+    return {"ok": ok, "flash": flash, "flash_bwd": flash_bwd, "decode": decode,
+            "decode_multi": multi}
 
 
 def build_model(opt, dev, dtype, seed, use_kernels=True):
@@ -499,6 +619,346 @@ def phase_parity(dev):
             "min_gap": float(gaps.min()), "logits_max_abs_diff": max_diff}
 
 
+def phase_generate_q8(dev):
+    """The generate path over the int8 KV cache (--kv_quant true): full
+    width, bf16, 12 rows, Q8_BUDGET tokens with EOS forbidden. Each decode
+    step launches the int8 kernel once per layer: exactly 24 x (steps - 1)."""
+    from edgerunner_tpu_torch.generate import decode_shape, generate_tokens
+    from edgerunner_tpu_torch.ops import decode_attention as DA
+    from edgerunner_tpu_torch.ops.flash_attention import flash_attention
+
+    opt, *_ = main_path_shapes()
+    opt = dataclasses.replace(opt, generate_mode="greedy", kv_quant=True)
+    num_new, max_len = decode_shape(opt, 1, FACES, Q8_BUDGET)
+    model = build_model(opt, dev, torch.bfloat16, SEED)
+    points = np.random.default_rng(SEED).normal(size=(ROWS, opt.point_num, 3)).astype(np.float32)
+    nf = torch.full((ROWS,), FACES, device=dev)
+    prompt = torch.full((ROWS, 1), opt.bos_token_id, device=dev)
+    with torch.no_grad():  # warm-up, then the prefill's time
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(torch.tensor(points, device=dev), nf, prompt, max_len)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = DA.fused_decode_attention_q8.launches = 0
+    t1 = time.perf_counter()
+    tokens = generate_tokens(model, points, num_faces=FACES, max_new_tokens=Q8_BUDGET,
+                             bench_no_eos=True)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t1
+    launches = {"flash_attention_fwd": flash_attention.launches,
+                "fused_decode_attention_q8": DA.fused_decode_attention_q8.launches}
+    want = {"flash_attention_fwd": opt.num_layers + 1,
+            "fused_decode_attention_q8": opt.num_layers * (num_new - 1)}
+    ok = (tokens.shape == (ROWS, num_new) and launches == want
+          and not (tokens == 0).any() and not (tokens == 2).any())
+    return {"ok": ok, "rows": ROWS, "num_faces": FACES, "num_new": num_new,
+            "max_len": max_len, "layers": opt.num_layers, "hidden": opt.hidden_dim,
+            "dtype": "bfloat16", "kv_cache": "int8", "prefill_s": prefill_s,
+            "generate_s": gen_s, "ms_per_step": (gen_s - prefill_s) / (num_new - 1) * 1e3,
+            "tokens_per_s": ROWS * num_new / gen_s,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches, "launches_expected": want, "card": card_line()}
+
+
+def http(port: int, path: str, body=None):
+    """(status, JSON answer) of one request to the server on localhost."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else (body if isinstance(body, bytes) else
+                                      json.dumps(body).encode())
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_http(opt, dev) -> tuple:
+    """Start `build_server` on port 0 and send it /healthz, /statz, a
+    malformed /generate, and SERVE_HTTP_REQUESTS concurrent /generate
+    requests (8 at once, the rest while those decode, so that they are
+    admitted mid-flight). Returns (report, the server's model)."""
+    import threading
+
+    from edgerunner_tpu_torch.serve import build_server
+
+    t0 = time.perf_counter()
+    server, frontend = build_server(opt, port=0, device=str(dev))
+    setup_s = time.perf_counter() - t0
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    try:
+        health, statz0 = http(port, "/healthz"), http(port, "/statz")
+        bad = http(port, "/generate", b"{not json")
+        rng = np.random.default_rng(SEED)
+        bodies = [{"points": rng.normal(size=(3000, 3)).tolist(),
+                   "num_faces": SERVE_FACES[i % 2], "seed": i}
+                  for i in range(SERVE_HTTP_REQUESTS)]
+        answers = [None] * len(bodies)
+
+        def send(i):
+            time.sleep(0 if i < SERVE_ROWS else 2.0)
+            answers[i] = http(port, "/generate", bodies[i])
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        http_s = time.perf_counter() - t1
+        statz = http(port, "/statz")
+    finally:
+        server.shutdown()
+        server.server_close()
+        frontend.shutdown()
+        frontend.engine.thread.join()
+    keys = {"vertices", "faces", "tokens", "wall_s"}
+    stat_keys = {"requests_done", "queue_depth", "slots_busy", "slots_total",
+                 "mean_wall_s", "tokens_out", "uptime_s"}
+    good = [a is not None and a[0] == 200 and set(a[1]) == keys
+            and bool(np.isfinite(np.asarray(a[1]["vertices"], np.float64)).all())
+            for a in answers]
+    ok = (health == (200, {"ok": True, "cond_mode": "point", "batch": SERVE_ROWS,
+                           "pipeline": False})
+          and statz0[0] == 200 and set(statz0[1]) == stat_keys and bad[0] == 400
+          and all(good) and statz[1]["requests_done"] == len(bodies))
+    return {"ok": ok, "setup_s": setup_s, "requests": len(bodies),
+            "num_faces": list(SERVE_FACES), "answers_ok": sum(good), "http_s": http_s,
+            "tokens": [len(a[1]["tokens"]) for a in answers if a and a[0] == 200],
+            "faces": [len(a[1]["faces"]) for a in answers if a and a[0] == 200],
+            "malformed_status": bad[0], "statz": statz[1]}, frontend.engine.model
+
+
+def serve_bench(model, opt, dev, kernel, requests) -> tuple:
+    """The engine alone, EOS forbidden: `requests` requests of
+    SERVE_BENCH_FACES faces into SERVE_ROWS slots. The kernels' counts are
+    zeroed just before and read just after; `kernel` (the wrapper the
+    engine's decode goes through) must have run exactly once per layer and
+    engine step, and the others not at all. Returns (report, the stopped
+    engine)."""
+    import threading
+
+    from edgerunner_tpu_torch.generate import round_up_bucket
+    from edgerunner_tpu_torch.ops import decode_attention as DA
+    from edgerunner_tpu_torch.serve_engine import ContinuousEngine
+
+    engine = ContinuousEngine(model, opt, batch=SERVE_ROWS, bench_no_eos=True)
+    points = serve_points(opt, requests)
+    results = [None] * requests
+    wrappers = (DA.fused_decode_attention_multi, DA.fused_decode_attention_q8_multi,
+                DA.fused_decode_attention_q8, DA.fused_decode_attention)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers:
+        fn.launches = 0
+    steps0, t0 = engine.steps, time.perf_counter()
+    threads = [threading.Thread(target=lambda i=i: results.__setitem__(
+        i, engine.submit(points[i], SERVE_BENCH_FACES, i))) for i in range(requests)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    steps = engine.steps - steps0
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    engine.shutdown()
+    engine.thread.join()
+    tokens = sum(len(r["tokens"]) for r in results if r)
+    expected = {name: (opt.num_layers * steps if name == kernel.__name__ else 0)
+                for name in launches}
+    budget = round_up_bucket(min(SERVE_BENCH_FACES * 5 + 64, engine.N), opt.decode_bucket)
+    ok = (all(r is not None and len(r["tokens"]) == budget for r in results)
+          and launches == expected)
+    return {"ok": ok, "requests": requests, "slots": SERVE_ROWS, "budget": budget,
+            "tokens": tokens, "engine_steps": steps, "wall_s": wall,
+            "tokens_per_s": tokens / wall, "ms_per_step": wall / steps * 1e3,
+            "peak_mem_gib": peak, "launches": launches,
+            "launches_expected": expected}, engine
+
+
+def serve_points(opt, n):
+    return np.random.default_rng(SEED + 5).normal(size=(n, opt.point_num, 3)).astype(
+        np.float32)
+
+
+def profile_segment(engine, dev, ms_per_step) -> dict:
+    """Device time by kernel over a decode segment of PROFILE_STEPS steps of
+    a stopped engine, driven on this thread (torch.profiler traces the
+    kernels of the thread it runs on; run from another thread it read no
+    kernels in one run and left that engine's later steps five times slower
+    in another): SERVE_ROWS requests admitted, then one profiled segment of
+    the engine's own `_segment`, warm from the timed run. The busy share divides
+    the device time per step by the timed run's `ms_per_step` (the profiler
+    itself slows the host about twofold; the share over the profiled wall
+    time is reported too)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from edgerunner_tpu_torch.serve_engine import Request
+
+    t_start = time.perf_counter()
+    points = serve_points(engine.opt, engine.B)
+    engine.segment_steps = PROFILE_STEPS
+    with torch.inference_mode():
+        for slot in range(engine.B):
+            engine._admit_one(slot, Request(points[slot], SERVE_BENCH_FACES, slot))
+        active = torch.ones(engine.B, dtype=torch.bool, device=dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            s0, t0 = engine.steps, time.perf_counter()
+            engine._segment(active)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            steps = engine.steps - s0
+    kernels = sorted(((e.key[:60], e.device_time_total / 1e3 / steps)
+                      for e in prof.key_averages()
+                      if e.device_type.name == "CUDA" and e.device_time_total > 0),
+                     key=lambda x: -x[1])
+    device_ms = sum(ms for _, ms in kernels)
+    return {"profiled_steps": steps, "profiled_wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms, "device_busy_share": device_ms / ms_per_step,
+            "profiled_busy_share": device_ms * steps / wall_ms,
+            "top_kernels_ms_per_step": kernels[:10],
+            "profile_ok": any("multi_chunk_kernel" in k for k, _ in kernels),
+            "profile_s": time.perf_counter() - t_start}
+
+
+def phase_serve(dev):
+    """The server as the README starts it (`--test_batch_size 8`), at full
+    ArAE width in bf16 with random weights from seed 0: HTTP requests
+    through `build_server`, then the engine alone with the bf16 cache
+    (row 9's kernel), then with `--kv_quant true --w_quant true` (row 11's
+    kernel)."""
+    import gc
+
+    from edgerunner_tpu_torch.config import config_defaults
+    from edgerunner_tpu_torch.infer import load_model
+    from edgerunner_tpu_torch.ops import decode_attention as DA
+    from edgerunner_tpu_torch.serve_engine import engine_shape
+
+    opt = dataclasses.replace(config_defaults["ArAE"], test_batch_size=SERVE_ROWS)
+    res = {"layers": opt.num_layers, "hidden": opt.hidden_dim, "dtype": "bfloat16",
+           "generate_mode": opt.generate_mode, "cache_len": engine_shape(opt)[2],
+           "card": card_line()}
+    res["http"], model = serve_http(opt, dev)
+    gc.collect()  # the HTTP engine's state
+    torch.cuda.empty_cache()
+    res["bench_bf16"], engine = serve_bench(model, opt, dev, DA.fused_decode_attention_multi,
+                                            SERVE_BENCH_REQUESTS)
+    res["bench_bf16"].update(profile_segment(engine, dev, res["bench_bf16"]["ms_per_step"]))
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    q_opt = dataclasses.replace(opt, kv_quant=True, w_quant=True)
+    model = load_model(q_opt, dev)
+    res["bench_int8_wquant"], engine = serve_bench(
+        model, q_opt, dev, DA.fused_decode_attention_q8_multi, SERVE_BENCH_Q8_REQUESTS)
+    res["bench_int8_wquant"].update(
+        profile_segment(engine, dev, res["bench_int8_wquant"]["ms_per_step"]))
+    res["ok"] = all(res[k]["ok"] for k in ("http", "bench_bf16", "bench_int8_wquant")) and all(
+        res[k]["profile_ok"] for k in ("bench_bf16", "bench_int8_wquant"))
+    return res
+
+
+def solo_with_gaps(model, opt, dev, points, num_faces) -> tuple:
+    """A request's solo greedy stream (`generate_tokens`, batch 1, EOS
+    forbidden) and, replayed on that stream, the top-2 gap of each step's
+    masked logits, the step after its last token included."""
+    from edgerunner_tpu_torch.config import vocab_size_for
+    from edgerunner_tpu_torch.generate import decode_shape, generate_tokens, trim_eos
+    from edgerunner_tpu_torch.ops import sampling as S
+
+    stream = trim_eos(generate_tokens(model, points[None], num_faces=num_faces,
+                                      bench_no_eos=True)[0])
+    _, max_len = decode_shape(opt, 1, num_faces, None)
+    G, vocab = S.get_grammar(opt.meto_backend), vocab_size_for(opt)
+    no_eos = torch.arange(vocab, device=dev)[None] != S.EOS_ID
+    gaps = []
+    with torch.no_grad():
+        logits, caches, plen = model.prefill(
+            torch.tensor(points[None], device=dev), torch.full((1,), num_faces, device=dev),
+            torch.full((1, 1), opt.bos_token_id, device=dev), max_len)
+        state = G.init(1, dev)
+        for i in range(len(stream) + 1):  # the step after the last token chose EOS
+            mask = G.mask(state, vocab) & no_eos
+            top2 = torch.topk(S.apply_mask(logits[:, 0].float(), mask), 2).values
+            gaps.append((top2[0, 0] - top2[0, 1]).item())
+            if i == len(stream):
+                break
+            t = torch.tensor([stream[i]], device=dev)
+            state = G.advance(state, t)
+            logits = model.step(t[:, None], caches, plen + i)
+    return stream, gaps
+
+
+def phase_serve_parity(dev):
+    """The engine's guarantee (tests/test_continuous.py::
+    test_greedy_identity_with_solo_decode) on the card: 2 layers at full
+    width in f32 (TF32 off), greedy with EOS forbidden (random weights end
+    early otherwise), 4 slots and 6 staggered requests whose budgets of 128
+    and 256 tokens free slots mid-flight; each
+    delivered stream equals the same request's solo `generate_tokens`
+    stream up to near-ties: the first token where they differ must come at
+    a step whose top-2 logit gap on the solo path is under NEAR_TIE. For
+    the kernel path and the plain path, with the bf16-layout (here f32) and
+    the int8 cache."""
+    import threading
+
+    from edgerunner_tpu_torch.config import config_defaults
+    from edgerunner_tpu_torch.generate import trim_eos
+    from edgerunner_tpu_torch.serve_engine import ContinuousEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = dataclasses.replace(config_defaults["ArAE"], num_layers=2, generate_mode="greedy",
+                               decode_bucket=SERVE_PARITY_BUCKET)
+    rng = np.random.default_rng(SEED + 3)
+    points = rng.normal(size=(len(SERVE_PARITY_FACES), base.point_num, 3)).astype(np.float32)
+    runs = {}
+    for kv_quant in (False, True):
+        opt = dataclasses.replace(base, kv_quant=kv_quant)
+        for path, kernels in (("kernel", True), ("plain", False)):
+            model = build_model(opt, dev, torch.float32, SEED + 3, use_kernels=kernels)
+            solo = [solo_with_gaps(model, opt, dev, p, nf)
+                    for p, nf in zip(points, SERVE_PARITY_FACES)]
+            engine = ContinuousEngine(model, opt, batch=4, segment_steps=64, bench_no_eos=True)
+            got = [None] * len(points)
+
+            def send(i):
+                time.sleep(0.3 * i)
+                got[i] = engine.submit(points[i], SERVE_PARITY_FACES[i], None)["tokens"]
+
+            threads = [threading.Thread(target=send, args=(i,)) for i in range(len(points))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            engine.shutdown()
+            engine.thread.join()
+            first, ok = [], True
+            for (stream, gaps), out in zip(solo, got):
+                out = trim_eos(out)
+                n = min(len(out), len(stream))
+                diff = np.nonzero(out[:n] != stream[:n])[0]
+                t = int(diff[0]) if len(diff) else (None if len(out) == len(stream) else n)
+                first.append(t)
+                ok = ok and (t is None or (t < len(gaps) and gaps[t] < NEAR_TIE))
+            runs[f"{path} {'int8' if kv_quant else 'bf16-layout'}"] = {
+                "ok": ok, "identical": sum(t is None for t in first),
+                "first_mismatch": first, "lengths": [len(s) for s, _ in solo],
+                "min_gap": min(min(g) for _, g in solo if g)}
+            del model, engine
+    return {"ok": all(r["ok"] for r in runs.values()), "layers": 2, "dtype": "float32",
+            "tf32": False, "slots": 4, "requests": len(points), "near_tie": NEAR_TIE,
+            "num_faces": list(SERVE_PARITY_FACES), **runs}
+
+
 def train_batch(opt, rows: int, lengths=None) -> dict:
     """The batch of bench.py's train probe (bench.py:166-177): points and
     tokens from np.random.default_rng(0), 1000 faces. With `lengths`, rows
@@ -660,10 +1120,12 @@ def phase_train_parity(dev):
                          "+ 1e-6 * max over tensors of max|g_plain|"}
 
 
-def kernels_line(kern, gen, train):
+def kernels_line(kern, gen, train, gen_q8, serve):
     """One entry per kernel: main-path numbers from this run; launches from
-    the generate path (forward and decode kernels) and the train path
-    (backward kernel), each counted from 0 over its run."""
+    the path that runs it, each counted from 0 over its run: the generate
+    path (forward and decode kernels), the train path (backward kernel), the
+    generate path over the int8 cache (row 8) and the serving engine (rows 9
+    and 11)."""
     def case(cases, prefix):
         return next(c for c in cases if c["case"].startswith(prefix))
 
@@ -672,33 +1134,44 @@ def kernels_line(kern, gen, train):
     def sub(c):
         return {"shape": c["shape"], "max_abs_err": c["max_abs_err"], **{k: c[k] for k in keys}}
 
+    def entry(name, source, replaces, launches, c, **more):
+        return {"name": name, "route": "cuda", "source": f"edgerunner_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": c["max_abs_err"],
+                **{k: c[k] for k in keys}, "shape": c["shape"], **more}
+
     prefill, bwd = case(kern["flash"], "prefill"), case(kern["flash_bwd"], "decoder train")
     dec = next(c for c in kern["decode"] if "main path" in c["case"])
+    multi = kern["decode_multi"]
+    bench_bf16, bench_q8 = serve["bench_bf16"], serve["bench_int8_wquant"]
     return {"kernels": [
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "edgerunner_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "edgerunner_tpu/ops/flash_attention.py:258",
-         "launches": gen["launches"]["flash_attention_fwd"],
-         "max_abs_err": prefill["max_abs_err"], **{k: prefill[k] for k in keys},
-         "shape": prefill["shape"],
-         "launches_by_path": {"generate": gen["launches"]["flash_attention_fwd"],
-                              "train": train["launches"]["flash_attention_fwd"]},
-         "encoder_shape": sub(case(kern["flash"], "encoder (main")),
-         "train_decoder_shape": sub(case(kern["flash"], "decoder train")),
-         "train_encoder_shape": sub(case(kern["flash"], "encoder train"))},
-        {"name": "fused_decode_attention", "route": "cuda",
-         "source": "edgerunner_tpu_torch/csrc/decode_attention.cu",
-         "replaces": "edgerunner_tpu/ops/decode_attention_pallas.py:139",
-         "launches": gen["launches"]["fused_decode_attention"],
-         "max_abs_err": dec["max_abs_err"], **{k: dec[k] for k in keys},
-         "shape": dec["shape"], "index": dec["index"]},
-        {"name": "flash_attention_bwd", "route": "cuda",
-         "source": "edgerunner_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": "edgerunner_tpu/ops/flash_attention.py:520",
-         "launches": train["launches"]["flash_attention_bwd"],
-         "max_abs_err": bwd["max_abs_err"], **{k: bwd[k] for k in keys},
-         "shape": bwd["shape"], "lengths": bwd["kv_len"],
-         "encoder_shape": sub(case(kern["flash_bwd"], "encoder train"))},
+        entry("flash_attention_fwd", "flash_fwd.cu", "edgerunner_tpu/ops/flash_attention.py:258",
+              gen["launches"]["flash_attention_fwd"], prefill,
+              launches_by_path={"generate": gen["launches"]["flash_attention_fwd"],
+                                "train": train["launches"]["flash_attention_fwd"]},
+              encoder_shape=sub(case(kern["flash"], "encoder (main")),
+              train_decoder_shape=sub(case(kern["flash"], "decoder train")),
+              train_encoder_shape=sub(case(kern["flash"], "encoder train"))),
+        entry("fused_decode_attention", "decode_attention.cu",
+              "edgerunner_tpu/ops/decode_attention_pallas.py:139",
+              gen["launches"]["fused_decode_attention"], dec, index=dec["index"]),
+        entry("flash_attention_bwd", "flash_bwd.cu", "edgerunner_tpu/ops/flash_attention.py:520",
+              train["launches"]["flash_attention_bwd"], bwd, lengths=bwd["kv_len"],
+              encoder_shape=sub(case(kern["flash_bwd"], "encoder train"))),
+        entry("fused_decode_attention_multi", "decode_attention_multi.cu",
+              "edgerunner_tpu/ops/decode_attention_pallas.py:585",
+              bench_bf16["launches"]["fused_decode_attention_multi"],
+              case(multi, "engine bf16 T=1"), index=case(multi, "engine bf16 T=1")["index"],
+              t3_shape=sub(case(multi, "engine bf16 T=3")),
+              f32_shape=sub(case(multi, "engine f32 T=1"))),
+        entry("fused_decode_attention_q8_multi", "decode_attention_multi.cu",
+              "edgerunner_tpu/ops/decode_attention_pallas.py:866",
+              bench_q8["launches"]["fused_decode_attention_q8_multi"],
+              case(multi, "engine int8 T=1"), index=case(multi, "engine int8 T=1")["index"],
+              t3_shape=sub(case(multi, "engine int8 T=3"))),
+        entry("fused_decode_attention_q8", "decode_attention_multi.cu",
+              "edgerunner_tpu/ops/decode_attention_pallas.py:445",
+              gen_q8["launches"]["fused_decode_attention_q8"],
+              case(multi, "generate q8 index"), index=case(multi, "generate q8 index")["index"]),
     ]}
 
 
@@ -716,7 +1189,9 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda", 0)
     runs = {"build": phase_build, "kernels": lambda: phase_kernels(dev),
-            "generate": lambda: phase_generate(dev), "parity": lambda: phase_parity(dev),
+            "generate": lambda: phase_generate(dev),
+            "generate_q8": lambda: phase_generate_q8(dev), "parity": lambda: phase_parity(dev),
+            "serve": lambda: phase_serve(dev), "serve_parity": lambda: phase_serve_parity(dev),
             "train": lambda: phase_train(dev), "train_parity": lambda: phase_train_parity(dev)}
     results, ok = {}, True
     for name in PHASES:
@@ -741,7 +1216,8 @@ def main(argv=None) -> int:
         return 1
     if set(PHASES) - set(wanted):
         return 0
-    emit(kernels_line(results["kernels"], results["generate"], results["train"]))
+    emit(kernels_line(results["kernels"], results["generate"], results["train"],
+                      results["generate_q8"], results["serve"]))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -376,7 +376,7 @@ def parse_cli(argv: Optional[List[str]] = None, prog: str = "edgerunner-tpu") ->
 # options whose paths the port does not run yet, with the value that keeps
 # them off
 _NOT_PORTED = {
-    "kv_quant": False, "w_quant": False, "spec_decode": False,
+    "kv_group": 0, "kv_rotate": False, "spec_decode": False,
     "mtp_heads": 0, "moe_experts": 0, "lora_rank": 0, "tp_size": 1,
     "sp_size": 1, "pp_size": 1, "ep_size": 1, "scan_layers": False,
     "ema_decay": 0.0, "async_checkpointing": False, "resume2": None, "use_wandb": False,
@@ -400,6 +400,8 @@ def validate(opt: Options) -> Options:
     for name, off in _NOT_PORTED.items():
         if getattr(opt, name) != off:
             raise ValueError(f"the port does not implement --{name} yet")
+    if opt.kv_quant and opt.kv_bits != 8:
+        raise ValueError("the port implements the int8 KV cache only (--kv_bits 8)")
     if opt.dp_size > 1:
         raise ValueError("the port runs on one device: it does not implement "
                          "--dp_size > 1 yet")

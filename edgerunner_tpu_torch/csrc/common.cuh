@@ -22,6 +22,7 @@ constexpr int kFwdBlockQ = 64;
 // dtype codes shared with the Python wrappers
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kInt8 = 2;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }

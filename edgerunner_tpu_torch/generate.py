@@ -47,7 +47,7 @@ def decode_shape(opt, prompt_len: int, num_faces: int,
 def generate_tokens(model: LMM, conds, *, num_faces: int = 1000,
                     resume_ids: Optional[np.ndarray] = None,
                     max_new_tokens: Optional[int] = None,
-                    generator: Optional[torch.Generator] = None,
+                    generator=None,
                     use_grammar: bool = True,
                     bench_no_eos: bool = False) -> np.ndarray:
     """Generate mesh token streams (reference: LMM.generate, models.py:204-303).
@@ -56,7 +56,10 @@ def generate_tokens(model: LMM, conds, *, num_faces: int = 1000,
     Returns np.ndarray [B, T] of generated tokens (BOS excluded), PAD after
     each row's EOS. `generator` drives sampling (generate_mode 'sample'): a
     generator seeded with `opt.seed` on the model's device when None, as the
-    JAX package defaults to PRNGKey(opt.seed); greedy decoding ignores it.
+    JAX package defaults to PRNGKey(opt.seed); or a list of B generators,
+    one stream per row (the JAX package's batch of B keys); greedy decoding
+    ignores it. The cache's kind (bf16 or, with `kv_quant`, int8) lives
+    inside the model.
     `bench_no_eos` forbids EOS so that every row decodes the full budget.
     """
     opt = model.opt
@@ -94,8 +97,10 @@ def generate_tokens(model: LMM, conds, *, num_faces: int = 1000,
         if opt.generate_mode == "greedy":
             nxt = S.greedy_token(step_logits)
         else:
-            nxt = S.sample_token(step_logits, generator, top_k=opt.top_k,
-                                 temperature=opt.temperature, top_p=opt.top_p)
+            sample = (S.sample_token if isinstance(generator, torch.Generator)
+                      else S.sample_token_per_row)
+            nxt = sample(step_logits, generator, top_k=opt.top_k,
+                         temperature=opt.temperature, top_p=opt.top_p)
         nxt = torch.where(done, S.PAD_ID, nxt)
         state = G.advance(state, nxt)
         done |= nxt == S.EOS_ID
@@ -103,9 +108,9 @@ def generate_tokens(model: LMM, conds, *, num_faces: int = 1000,
         if i + 1 == num_new:
             break
         if (i + 1) % DECODE_CHUNK == 0:
-            if ended is not None and _arrived(ended):
+            if ended is not None and arrived(ended):
                 break
-            ended = _copy_to_host(done.all())
+            ended = copy_to_host(done.all())
         logits = model.step(nxt[:, None], caches, plen + i)
     out = tokens.cpu().numpy()
     if resume_ids is not None:
@@ -113,7 +118,7 @@ def generate_tokens(model: LMM, conds, *, num_faces: int = 1000,
     return out
 
 
-def _copy_to_host(flag: torch.Tensor):
+def copy_to_host(flag: torch.Tensor):
     """Start a copy of a device flag to the host; returns (host flag, event)."""
     if flag.device.type != "cuda":
         return flag.clone(), None
@@ -124,8 +129,8 @@ def _copy_to_host(flag: torch.Tensor):
     return host, event
 
 
-def _arrived(copy) -> bool:
-    """The value of a copy started by `_copy_to_host` (waits for it)."""
+def arrived(copy) -> bool:
+    """The value of a copy started by `copy_to_host` (waits for it)."""
     host, event = copy
     if event is not None:
         event.synchronize()

@@ -7,8 +7,10 @@ Loads the mesh, cleans and normalises it, samples `point_num` surface
 points, generates `test_repeat` meshes per face count and writes
 {name}_{i}[_{nf}f].ply plus the tokens. Weights come from a reference-format
 .safetensors file (tools/export_reference_ckpt.py), or are drawn from
-`--seed` without `--resume`. The model runs on the card unless `--device
-cpu` is given; without a card and without `--device cpu` it raises.
+`--seed` without `--resume`. `--kv_quant true` decodes over the int8 KV
+cache and `--w_quant true` quantises the decoder's projections after the
+weights load. The model runs on the card unless `--device cpu` is given;
+without a card and without `--device cpu` it raises.
 """
 
 from __future__ import annotations
@@ -25,10 +27,10 @@ import torch
 from edgerunner_tpu_torch.config import parse_cli, validate
 from edgerunner_tpu_torch.data import clean_mesh, load_mesh, normalize_mesh, save_mesh, save_mesh_file
 from edgerunner_tpu_torch.generate import generate_tokens, trim_eos
-from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+from edgerunner_tpu_torch.models.lmm import LMM
 from edgerunner_tpu_torch.ops.pointops import sample_surface_points
 from edgerunner_tpu_torch.utils import get_tokenizer
-from edgerunner_tpu_torch.weights import load_state, read_safetensors
+from edgerunner_tpu_torch.weights import load_for_inference
 
 
 def resolve_device(name: str) -> torch.device:
@@ -41,12 +43,10 @@ def resolve_device(name: str) -> torch.device:
 
 
 def load_model(opt, device: torch.device, dtype=torch.bfloat16) -> LMM:
-    model = LMM(opt, dtype=dtype, device=device)
-    if opt.resume:
-        load_state(model, read_safetensors(opt.resume))
-    else:
-        init_weights(model, opt.seed)
-    return model.eval()
+    """The LMM of `opt` with its weights (weights.load_for_inference): with
+    `--kv_quant` it decodes over the int8 cache, with `--w_quant` its decoder
+    projections are quantised after the exact weights are loaded."""
+    return load_for_inference(LMM(opt, dtype=dtype, device=device), opt)
 
 
 def process(opt, model: LMM, tokenizer, path: str, generator: torch.Generator):

@@ -2,8 +2,9 @@
 
 Point-cloud conditioner (point encoder -> proj_cond -> norm_cond), the
 num-face bucket token, and the ShapeOPT decoder: the teacher-forcing
-`forward` with its loss, which training drives, and the `prefill` / `step`
-pair that generate.py drives. Conditioning modes 'point' and 'none' are
+`forward` with its loss, which training drives, the `prefill` / `step`
+pair that generate.py drives, and `verify_step`, through which the serving
+engine decodes. Conditioning modes 'point' and 'none' are
 ported; 'image' and 'point_latent' wait for later slices. `checkpointing`
 turns on gradient checkpointing of the point encoder's block and of each
 decoder layer, as in the JAX package (lmm.py:50-58, :80-82).
@@ -55,6 +56,7 @@ class LMM(nn.Module):
             max_position_embeddings=opt.max_seq_length + opt.num_cond_tokens + 10,
             pad_token_id=opt.pad_token_id,
             remat=opt.checkpointing,
+            kv_quant=opt.kv_quant,
         )
         self.mesh_decoder = ShapeOPT(self.cfg, use_kernels=use_kernels, **kw)
 
@@ -113,6 +115,11 @@ class LMM(nn.Module):
 
     def step(self, token_ids, caches: Caches, index: int):
         return self.mesh_decoder.step(token_ids, caches, index)
+
+    def verify_step(self, token_ids, caches: Caches, index_vec):
+        """T tokens per row at per-row positions (edgerunner_tpu/models/lmm.py:190-192):
+        logits [B, T, V]; the caches are updated in place."""
+        return self.mesh_decoder.verify_step(token_ids, caches, index_vec)
 
 
 @torch.no_grad()

@@ -1,20 +1,27 @@
 """ShapeOPT, the port's post-LN OPT decoder (edgerunner_tpu/models/shape_opt.py:180-719).
 
 Learned absolute positions from 0, post-LN blocks LN(x + attn(x)) and
-LN(x + fc2(relu(fc1(x)))), an `lm_head` without bias. Three modes:
+LN(x + fc2(relu(fc1(x)))), an `lm_head` without bias. Four modes:
 
-* ``forward``  full-sequence teacher forcing, causal, with prefix `lengths`;
-               in training, residual dropout and per-layer gradient
-               checkpointing, and the shifted cross-entropy loss;
-* ``prefill``  runs the prompt and returns per-layer packed caches
-               [B, max_len, hidden] (zero past the prompt);
-* ``step``     one token: writes its K/V row at `index` into the caches,
-               then attends over rows [0, index].
+* ``forward``      full-sequence teacher forcing, causal, with prefix
+                   `lengths`; in training, residual dropout and per-layer
+                   gradient checkpointing, and the shifted cross-entropy loss;
+* ``prefill``      runs the prompt and returns per-layer caches of max_len
+                   rows (zero past the prompt);
+* ``step``         one token per row at one position `index`: writes its
+                   cache row, then attends over rows [0, index];
+* ``verify_step``  T tokens per row at per-row positions `index_vec` [B] (a
+                   device tensor): writes T cache rows per row, then query t
+                   attends over rows [0, index_vec[b] + t]. The serving
+                   engine decodes through it with T = 1.
 
-Unlike the JAX package, whose arrays are immutable, ``step`` writes the
-caches in place: they are preallocated once by ``prefill`` and reused by
-every step, so a step moves no cache bytes beyond the attention's reads.
-Only the non-quantised paths are ported.
+Per layer the two cache lists hold K and V [B, max_len, hidden] in the
+model's dtype or, with `kv_quant`, the int8 values [B, max_len, 2·hidden]
+(K ++ V) and their bf16 scale plane [B, max_len, 128] (ops/kv_quant.py), as
+in the JAX package. Unlike the JAX package, whose arrays are immutable,
+``step`` and ``verify_step`` write the caches in place: they are
+preallocated once by ``prefill`` and reused by every step, so a step moves
+no cache bytes beyond the attention's reads and its own rows.
 """
 
 from __future__ import annotations
@@ -27,10 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from edgerunner_tpu_torch.models.layers import LN_EPS, attention_fn, maybe_checkpoint
-from edgerunner_tpu_torch.ops.decode_attention import (
-    fused_decode_attention,
-    fused_decode_attention_reference,
-)
+from edgerunner_tpu_torch.ops import decode_attention as DA
+from edgerunner_tpu_torch.ops.kv_quant import pack_scales, quantize_rows
 
 Caches = Tuple[List[torch.Tensor], List[torch.Tensor]]
 
@@ -48,10 +53,29 @@ class ShapeOPTConfig:
     pad_token_id: int = 0
     # gradient checkpointing of each decoder layer in training
     remat: bool = False
+    # int8 KV cache (values + a bf16 scale plane) for decoding
+    kv_quant: bool = False
 
     @property
     def head_dim(self) -> int:
         return self.hidden_dim // self.num_attention_heads
+
+
+def _kv_quantize(kf, vf):
+    """Quantise K and V rows [B, T, hidden] into the int8 cache's layout:
+    (values [B, T, 2·hidden], scale plane [B, T, 128]) (shape_opt.py:122-151)."""
+    (kq, ks), (vq, vs) = quantize_rows(kf), quantize_rows(vf)
+    return torch.cat([kq, vq], dim=-1), pack_scales(ks, vs)
+
+
+def _rows_update(cache, rows, index_vec):
+    """Write rows [B, T, C] into cache [B, L, C] at per-row offsets index_vec
+    [B] in place, on the device (shape_opt.py:172-177). Like JAX's
+    dynamic_update_slice, an offset is clamped to [0, L - T]."""
+    B, T = rows.shape[:2]
+    start = index_vec.long().clamp(0, cache.shape[1] - T)
+    cols = start[:, None] + torch.arange(T, device=cache.device)
+    cache[torch.arange(B, device=cache.device)[:, None], cols] = rows.to(cache.dtype)
 
 
 class OPTAttention(nn.Module):
@@ -62,9 +86,16 @@ class OPTAttention(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.num_heads = c.num_attention_heads
+        self.kv_quant = c.kv_quant
         self.attend = attention_fn(use_kernels)
-        self.decode = (fused_decode_attention if use_kernels
-                       else fused_decode_attention_reference)
+        # one-query and multi-query decode over the cache's kind: the kernels'
+        # wrappers, or their plain versions on every device
+        decode = ((DA.fused_decode_attention_q8, DA.fused_decode_attention_q8_multi)
+                  if c.kv_quant else
+                  (DA.fused_decode_attention, DA.fused_decode_attention_multi))
+        if not use_kernels:
+            decode = tuple(getattr(DA, fn.__name__ + "_reference") for fn in decode)
+        self.decode, self.decode_multi = decode
         self.q_proj = nn.Linear(c.hidden_dim, c.hidden_dim, **kw)
         self.k_proj = nn.Linear(c.hidden_dim, c.hidden_dim, **kw)
         self.v_proj = nn.Linear(c.hidden_dim, c.hidden_dim, **kw)
@@ -90,13 +121,37 @@ class OPTAttention(nn.Module):
                         self._heads(vf), causal=True)
         return self.out_proj(o.reshape(B, P, -1)), kf, vf
 
-    def step(self, h, k_cache, v_cache, index: int):
-        """h [B, 1, C]; writes this token's K/V row at `index` in place."""
-        k_cache[:, index] = self.k_proj(h)[:, 0]
-        v_cache[:, index] = self.v_proj(h)[:, 0]
+    def _write_rows(self, h, k_cache, v_cache, index_vec):
+        """Write the K/V rows of h [B, T, C] at per-row offsets, quantised
+        under kv_quant (the caches are then the values and the plane)."""
+        kf, vf = self.k_proj(h), self.v_proj(h)
+        if self.kv_quant:
+            kf, vf = _kv_quantize(kf, vf)
+        _rows_update(k_cache, kf, index_vec)
+        _rows_update(v_cache, vf, index_vec)
+
+    def step(self, h, k_cache, v_cache, index):
+        """h [B, 1, C] at position `index`: a host int, or under kv_quant the
+        step's int32 [B] position vector on the device. Writes this token's
+        cache row in place, then attends over rows [0, index]."""
+        if self.kv_quant:
+            self._write_rows(h, k_cache, v_cache, index)
+        else:
+            k_cache[:, index] = self.k_proj(h)[:, 0]
+            v_cache[:, index] = self.v_proj(h)[:, 0]
         o = self.decode(self.q_proj(h)[:, 0], k_cache, v_cache, index,
                         num_heads=self.num_heads)
         return self.out_proj(o)[:, None]
+
+    def verify_step(self, h, k_cache, v_cache, index_vec):
+        """h [B, T, C], the embeds of T tokens per row at positions
+        index_vec[b] .. index_vec[b]+T-1 (int32 [B] on the device): writes
+        their cache rows in place, then query t attends over rows
+        [0, index_vec[b] + t] (shape_opt.py:289-358)."""
+        self._write_rows(h, k_cache, v_cache, index_vec)
+        o = self.decode_multi(self.q_proj(h), k_cache, v_cache, index_vec,
+                              num_heads=self.num_heads)
+        return self.out_proj(o)
 
 
 class OPTDecoderLayer(nn.Module):
@@ -127,8 +182,12 @@ class OPTDecoderLayer(nn.Module):
         a, k, v = self.self_attn.prefill(h)
         return self._mlp(self.self_attn_layer_norm(h + a)), k, v
 
-    def step(self, h, k_cache, v_cache, index: int):
+    def step(self, h, k_cache, v_cache, index):
         a = self.self_attn.step(h, k_cache, v_cache, index)
+        return self._mlp(self.self_attn_layer_norm(h + a))
+
+    def verify_step(self, h, k_cache, v_cache, index_vec):
+        a = self.self_attn.verify_step(h, k_cache, v_cache, index_vec)
         return self._mlp(self.self_attn_layer_norm(h + a))
 
 
@@ -141,6 +200,7 @@ class ShapeOPTDecoder(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.remat = c.remat
+        self.kv_quant = c.kv_quant
         self.embd = nn.Embedding(c.vocab_size, c.hidden_dim, **kw)
         self.embed_positions = nn.Embedding(c.max_position_embeddings, c.hidden_dim, **kw)
         self.layers = nn.ModuleList(
@@ -159,24 +219,46 @@ class ShapeOPTDecoder(nn.Module):
         return h
 
     def prefill(self, inputs_embeds, max_len: int):
-        """Returns (hidden [B, P, C], caches): per-layer lists of
-        [B, max_len, hidden] K and V buffers, zero past the prompt."""
+        """Returns (hidden [B, P, C], caches): per-layer lists of K and V
+        [B, max_len, hidden] buffers, or under kv_quant of int8 values
+        [B, max_len, 2·hidden] and bf16 planes [B, max_len, 128], zero past
+        the prompt."""
         B, P, C = inputs_embeds.shape
         h = inputs_embeds + self.embed_positions.weight[:P]
         ks, vs = [], []
         for layer in self.layers:
             h, k, v = layer.prefill(h)
+            if self.kv_quant:
+                k, v = _kv_quantize(k, v)
             for cache, rows in ((ks, k), (vs, v)):
-                buf = torch.zeros((B, max_len, C), dtype=h.dtype, device=h.device)
+                buf = torch.zeros((B, max_len) + rows.shape[2:], dtype=rows.dtype,
+                                  device=h.device)
                 buf[:, :P] = rows
                 cache.append(buf)
         return h, (ks, vs)
 
     def step(self, token_ids, caches: Caches, index: int):
-        """token_ids [B, 1] at position `index`; updates the caches in place."""
+        """token_ids [B, 1] at position `index`; updates the caches in place.
+        Under kv_quant the int8 kernel takes the position from the device:
+        the step builds that vector once for all layers."""
         h = self.embd(token_ids) + self.embed_positions.weight[index]
+        if self.kv_quant:
+            index = torch.full((token_ids.shape[0],), index, dtype=torch.int32,
+                               device=h.device)
         for layer, k, v in zip(self.layers, *caches):
             h = layer.step(h, k, v, index)
+        return h
+
+    def verify_step(self, token_ids, caches: Caches, index_vec):
+        """token_ids [B, T] at per-row positions index_vec [B] .. + T-1 (an
+        int32 tensor on the device); one pass for all T tokens, causal within
+        them (shape_opt.py:627-647). Updates the caches in place; returns
+        hidden [B, T, C]."""
+        T = token_ids.shape[1]
+        pos = index_vec.long()[:, None] + torch.arange(T, device=index_vec.device)
+        h = self.embd(token_ids) + self.embed_positions.weight[pos]
+        for layer, k, v in zip(self.layers, *caches):
+            h = layer.verify_step(h, k, v, index_vec)
         return h
 
 
@@ -210,6 +292,11 @@ class ShapeOPT(nn.Module):
 
     def step(self, token_ids, caches: Caches, index: int):
         return self.lm_head(self.model.step(token_ids, caches, index))
+
+    def verify_step(self, token_ids, caches: Caches, index_vec):
+        """Logits [B, T, V] of T tokens per row at per-row positions
+        (shape_opt.py:700-705); updates the caches in place."""
+        return self.lm_head(self.model.verify_step(token_ids, caches, index_vec))
 
 
 def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -82,6 +82,27 @@ def decode_attention(q, k_cache, v_cache, cur_index) -> torch.Tensor:
     return out.to(q.dtype)
 
 
+def decode_attention_multi(q, k_cache, v_cache, base_index) -> torch.Tensor:
+    """T-token attention against a static KV cache at per-row positions
+    (edgerunner_tpu/ops/attention.py:95-121): the T new rows are already
+    written at base_index .. base_index+T-1.
+
+    q [B, T, H, D]; caches [B, L, H, D]; base_index: int or [B]. Query t of
+    row b attends cache columns <= base_index[b] + t. Returns [B, T, H, D].
+    """
+    B, L, H, D = k_cache.shape
+    T = q.shape[1]
+    logits = torch.einsum("bthd,bmhd->bhtm", q.float(), k_cache.float()) / math.sqrt(D)
+    idx = torch.as_tensor(base_index, device=q.device).expand(B)
+    cols = torch.arange(L, device=q.device)
+    last = idx[:, None] + torch.arange(T, device=q.device)[None]     # [B, T]
+    keep = cols[None, None, :] <= last[:, :, None]                     # [B, T, L]
+    logits = logits.masked_fill(~keep[:, None], NEG_INF)
+    out = torch.einsum("bhtm,bmhd->bthd", torch.softmax(logits, dim=-1),
+                       v_cache.float())
+    return out.to(q.dtype)
+
+
 def attention(q, k, v, *, causal: bool = False,
               q_len: Optional[torch.Tensor] = None,
               kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -1,24 +1,44 @@
-"""Decode attention over the packed KV cache: the wrapper of the
-hand-written CUDA kernel (csrc/decode_attention.cu) and its plain version.
+"""Decode attention over the packed KV cache: the wrappers of the
+hand-written CUDA kernels and their plain versions.
 
-Replaces the TPU kernel `fused_decode_attention`
-(edgerunner_tpu/ops/decode_attention_pallas.py:139). On a CUDA tensor the
-wrapper launches the kernel or raises; on a CPU tensor it runs the plain
-version. The kernel is bound by bytes (see the source's note).
+* `fused_decode_attention` (csrc/decode_attention.cu) replaces the TPU
+  kernel `fused_decode_attention` (edgerunner_tpu/ops/decode_attention_pallas.py:139):
+  one query per row, a host int position shared by all rows.
+* `fused_decode_attention_multi`, `fused_decode_attention_q8_multi` and
+  `fused_decode_attention_q8` (csrc/decode_attention_multi.cu, one kernel
+  templated on the cache's kind and on T) replace `fused_decode_attention_multi`
+  (:585), `fused_decode_attention_q8_multi` (:866) and
+  `fused_decode_attention_q8` (:445): T queries per row at per-row positions
+  held in an int32 [B] tensor on the device, over a bf16/f32 cache or the
+  int8 cache with its scale plane (ops/kv_quant.py). The wrappers never read
+  the positions on the host.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
+it runs its plain version. The kernels are bound by bytes (see the sources'
+notes).
 """
 
 from __future__ import annotations
 
 import torch
 
+import math
+
 from edgerunner_tpu_torch.ops import _build
-from edgerunner_tpu_torch.ops.attention import decode_attention
+from edgerunner_tpu_torch.ops.attention import decode_attention, decode_attention_multi
 from edgerunner_tpu_torch.ops.flash_attention import DTYPE_CODES, HEAD_DIMS
+from edgerunner_tpu_torch.ops.kv_quant import SCALE_LANES, dequantize_cache
 
-__all__ = ["fused_decode_attention", "fused_decode_attention_reference"]
+__all__ = ["fused_decode_attention", "fused_decode_attention_multi",
+           "fused_decode_attention_multi_reference", "fused_decode_attention_q8",
+           "fused_decode_attention_q8_multi", "fused_decode_attention_q8_multi_reference",
+           "fused_decode_attention_q8_reference", "fused_decode_attention_reference"]
 
-# cache positions per block of the split-KV pass
+# cache positions per block of the split-KV passes (both kernels)
 CHUNK = 256
+# queries per row that the multi-query kernel takes
+MAX_T = 8
+INT8_CODE = 2
 
 
 def fused_decode_attention_reference(q, k_cache, v_cache, index: int, *,
@@ -79,3 +99,173 @@ def fused_decode_attention(q, k_cache, v_cache, index: int, *,
 
 
 fused_decode_attention.launches = 0
+
+
+# ------------------------------------------------- per-row positions, T queries --
+
+def fused_decode_attention_multi_reference(q, k_cache, v_cache, index, *,
+                                           num_heads: int) -> torch.Tensor:
+    """The plain version: q [B, T, hidden]; query t of row b attends over
+    cache rows [0, index[b] + t] of k/v [B, L, hidden], in f32. Returns
+    [B, T, hidden] in q's dtype."""
+    B, T, hd = q.shape
+    L = k_cache.shape[1]
+    H, D = num_heads, hd // num_heads
+    out = decode_attention_multi(q.reshape(B, T, H, D), k_cache.reshape(B, L, H, D),
+                                 v_cache.reshape(B, L, H, D), index)
+    return out.reshape(B, T, hd)
+
+
+def fused_decode_attention_q8_multi_reference(q, kv_vals, scales, index, *,
+                                              num_heads: int) -> torch.Tensor:
+    """The plain version over the int8 cache: dequantise in f32, then attend."""
+    k, v = dequantize_cache(kv_vals, scales, torch.float32)
+    return fused_decode_attention_multi_reference(q, k, v, index, num_heads=num_heads)
+
+
+def fused_decode_attention_q8_reference(q, kv_vals, scales, index, *,
+                                        num_heads: int) -> torch.Tensor:
+    """Row 8's plain version: q [B, hidden], one query per row."""
+    return fused_decode_attention_q8_multi_reference(q[:, None], kv_vals, scales, index,
+                                                     num_heads=num_heads)[:, 0]
+
+
+def _positions(index, B: int, L: int, T: int, device) -> torch.Tensor:
+    """The int32 [B] position vector for the kernel, without a host read of
+    a device tensor: a host int is range-checked and filled on the device; a
+    tensor (scalar or [B]) is taken as it is, and the kernel reads no cache
+    row at or past L whatever it holds."""
+    if isinstance(index, torch.Tensor):
+        if index.device != device or index.numel() not in (1, B) or index.dim() > 1:
+            raise ValueError(f"index must be a scalar or a [{B}] tensor on {device}, got "
+                             f"{tuple(index.shape)} on {index.device}")
+        return index.to(torch.int32).expand(B).contiguous()
+    index = int(index)
+    if not 0 <= index <= L - T:
+        raise ValueError(f"index {index} with {T} queries outside the cache length {L}")
+    return torch.full((B,), index, dtype=torch.int32, device=device)
+
+
+def _launch_multi(name, q, caches: dict, ptrs, index, num_heads: int,
+                  row_stride: int, cache_code: int) -> torch.Tensor:
+    """Check what the kernel takes, allocate its output and scratch, launch.
+    `caches` names the cache tensors (the first gives L); `ptrs` are the
+    kernel's K, V and scale-plane pointers into them."""
+    B, T, hd = q.shape
+    L = next(iter(caches.values())).shape[1]
+    H = num_heads
+    D = hd // H
+    if hd != H * D or D not in HEAD_DIMS:
+        raise ValueError(f"{name} has kernels for head dims {HEAD_DIMS}, got hidden "
+                         f"{hd} over {H} heads")
+    if not 1 <= T <= MAX_T:
+        raise ValueError(f"{name} takes 1 to {MAX_T} queries per row, got {T}")
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"{name} takes f32 or bf16 queries, got {q.dtype}")
+    for label, t in (("q", q), *caches.items()):
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{label} must be a contiguous, 16-byte aligned "
+                             f"tensor on {q.device}")
+    pos = _positions(index, B, L, T, q.device)
+    splits = -(-L // CHUNK)
+    part_o = torch.empty((splits, B, T, H, D), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((2, splits, B, T, H), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    lib = _build.load_library()
+    err = lib.decode_attention_multi_fwd(
+        q.data_ptr(), *ptrs, pos.data_ptr(), out.data_ptr(), part_o.data_ptr(),
+        part_ml[0].data_ptr(), part_ml[1].data_ptr(), B, L, H, D, T, row_stride,
+        cache_code, DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, name)
+    return out
+
+
+def _on_cuda(name: str, q) -> bool:
+    """False for a CPU tensor (the plain version runs), True for a CUDA one."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+    return True
+
+
+def fused_decode_attention_multi(q, k_cache, v_cache, index, *,
+                                 num_heads: int) -> torch.Tensor:
+    """q [B, T, hidden] (T <= 8); caches [B, L, hidden] of q's dtype already
+    holding the T new rows at index[b] .. index[b]+T-1; index an int32 [B]
+    tensor on q's device (or a host int for every row). Returns [B, T,
+    hidden]; query t of row b attends over cache rows [0, index[b] + t]."""
+    B, T, hd = q.shape
+    if k_cache.dim() != 3 or k_cache.shape[0] != B or k_cache.shape[2] != hd \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, caches {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)} do not fit")
+    if not _on_cuda("fused_decode_attention_multi", q):
+        return fused_decode_attention_multi_reference(q, k_cache, v_cache, index,
+                                                      num_heads=num_heads)
+    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise ValueError(f"fused_decode_attention_multi takes caches of q's dtype "
+                         f"{q.dtype}, got {k_cache.dtype}, {v_cache.dtype}")
+    out = _launch_multi("fused_decode_attention_multi", q,
+                        {"k_cache": k_cache, "v_cache": v_cache},
+                        (k_cache.data_ptr(), v_cache.data_ptr(), None),
+                        index, num_heads, hd, DTYPE_CODES[q.dtype])
+    fused_decode_attention_multi.launches += 1
+    return out
+
+
+def _check_q8(name, q, kv_vals, scales):
+    """Raise on int8-cache shapes and types that do not fit q [B, T, hidden]."""
+    B, T, hd = q.shape
+    L = kv_vals.shape[1] if kv_vals.dim() == 3 else -1
+    if kv_vals.shape != (B, L, 2 * hd) or scales.shape != (B, L, SCALE_LANES):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, values "
+                         f"{tuple(kv_vals.shape)}, scales {tuple(scales.shape)} do not fit")
+    if kv_vals.dtype != torch.int8 or scales.dtype != torch.bfloat16:
+        raise ValueError(f"{name} takes int8 values and a bf16 scale plane, got "
+                         f"{kv_vals.dtype}, {scales.dtype}")
+
+
+def _q8_launch(name, q, kv_vals, scales, index, num_heads: int) -> torch.Tensor:
+    hd = q.shape[-1]
+    return _launch_multi(name, q, {"kv_vals": kv_vals, "scales": scales},
+                         (kv_vals.data_ptr(), kv_vals.data_ptr() + hd, scales.data_ptr()),
+                         index, num_heads, 2 * hd, INT8_CODE)
+
+
+def fused_decode_attention_q8_multi(q, kv_vals, scales, index, *,
+                                    num_heads: int) -> torch.Tensor:
+    """Multi-query decode over the int8 cache: q [B, T, hidden] (bf16/f32);
+    kv_vals int8 [B, L, 2·hidden] (K ++ V) and scales bf16 [B, L, 128]
+    already holding the T new rows at index[b] ..; index an int32 [B] tensor
+    on q's device. Returns [B, T, hidden] in q's dtype."""
+    _check_q8("fused_decode_attention_q8_multi", q, kv_vals, scales)
+    if not _on_cuda("fused_decode_attention_q8_multi", q):
+        return fused_decode_attention_q8_multi_reference(q, kv_vals, scales, index,
+                                                         num_heads=num_heads)
+    out = _q8_launch("fused_decode_attention_q8_multi", q, kv_vals, scales, index,
+                     num_heads)
+    fused_decode_attention_q8_multi.launches += 1
+    return out
+
+
+def fused_decode_attention_q8(q, kv_vals, scales, index, *,
+                              num_heads: int) -> torch.Tensor:
+    """One query per row over the int8 cache: q [B, hidden]; index an int32
+    [B] tensor on q's device (the decode step's position, built once per
+    step) or a host int. Runs the kernel of `fused_decode_attention_q8_multi`
+    at T = 1. Returns [B, hidden]."""
+    _check_q8("fused_decode_attention_q8", q[:, None], kv_vals, scales)
+    if not _on_cuda("fused_decode_attention_q8", q):
+        return fused_decode_attention_q8_reference(q, kv_vals, scales, index,
+                                                   num_heads=num_heads)
+    out = _q8_launch("fused_decode_attention_q8", q[:, None], kv_vals, scales, index,
+                     num_heads)[:, 0]
+    fused_decode_attention_q8.launches += 1
+    return out
+
+
+fused_decode_attention_multi.launches = 0
+fused_decode_attention_q8_multi.launches = 0
+fused_decode_attention_q8.launches = 0

@@ -10,7 +10,7 @@ Token layout after the +3 special offset (reference: models.py:252):
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -144,11 +144,9 @@ def greedy_token(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1)
 
 
-def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
-                 *, top_k: int = 10, temperature: float = 1.0,
-                 top_p: float = 1.0) -> torch.Tensor:
-    """Top-k sampling with temperature and nucleus filtering inside the k
-    candidates (reference: models.py:299-301). logits [B, V] -> [B]."""
+def _shape_topk_vals(logits, top_k: int, temperature: float, top_p: float):
+    """Top-k slice, temperature, then nucleus filtering inside the k
+    candidates; returns (vals, idx) [B, k]."""
     vals, idx = torch.topk(logits, top_k, dim=-1)
     if temperature != 1.0:
         vals = vals / max(float(temperature), 1e-6)
@@ -156,5 +154,29 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator] = No
         p = torch.softmax(vals, dim=-1)
         prefix = torch.cumsum(p, dim=-1) - p  # the argmax always stays
         vals = torch.where(prefix < top_p, vals, NEG_INF)
+    return vals, idx
+
+
+def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 *, top_k: int = 10, temperature: float = 1.0,
+                 top_p: float = 1.0) -> torch.Tensor:
+    """Top-k sampling with temperature and nucleus filtering inside the k
+    candidates (reference: models.py:299-301). logits [B, V] -> [B]."""
+    vals, idx = _shape_topk_vals(logits, top_k, temperature, top_p)
     choice = torch.multinomial(torch.softmax(vals, dim=-1), 1, generator=generator)
+    return torch.gather(idx, 1, choice)[:, 0]
+
+
+def sample_token_per_row(logits: torch.Tensor, generators: Sequence[torch.Generator], *,
+                         top_k: int = 10, temperature: float = 1.0,
+                         top_p: float = 1.0) -> torch.Tensor:
+    """`sample_token` with one generator per batch row
+    (edgerunner_tpu/ops/sampling.py:224-234): row b draws from generators[b]
+    alone, so a row's stream depends on its own seed and not on the rows
+    batched with it; each row draws as `sample_token` does for a batch of
+    one. logits [B, V] -> [B]."""
+    vals, idx = _shape_topk_vals(logits, top_k, temperature, top_p)
+    probs = torch.softmax(vals, dim=-1)
+    choice = torch.cat([torch.multinomial(probs[b:b + 1], 1, generator=g)
+                        for b, g in enumerate(generators)])
     return torch.gather(idx, 1, choice)[:, 0]

@@ -8,6 +8,10 @@ The naming is the reference state_dict naming that
 tools/export_reference_ckpt.py:export_lmm emits (:116-128, `_shape_opt`
 :76-93, `_point_encoder` :58-74); this module keeps its own copy of that
 mapping. Flax kernels are [in, out], torch weights [out, in].
+
+A `w_quant` model loads as the JAX package loads one (serve.py:497-505,
+infer.py:124-133): the exact weights cross over into the plain model and
+its decoder projections are quantised after (`load_for_inference`).
 """
 
 from __future__ import annotations
@@ -121,6 +125,22 @@ def load_state(model: torch.nn.Module, state: dict) -> torch.nn.Module:
     model.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in state.items()},
                           strict=True)
     return model
+
+
+def load_for_inference(model: torch.nn.Module, opt) -> torch.nn.Module:
+    """The exact weights into an LMM, from the `.safetensors` file
+    `opt.resume` or drawn from `opt.seed`; then, with `opt.w_quant`, its
+    decoder projections quantised to int8 in place. Returns it in eval mode."""
+    from edgerunner_tpu_torch.models.lmm import init_weights
+    from edgerunner_tpu_torch.ops.w_quant import quantize_lmm_params
+
+    if opt.resume:
+        load_state(model, read_safetensors(opt.resume))
+    else:
+        init_weights(model, opt.seed)
+    if opt.w_quant:
+        quantize_lmm_params(model)
+    return model.eval()
 
 
 def reference_state_dict(model: torch.nn.Module) -> dict:

@@ -42,7 +42,8 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import edgerunner_tpu_torch.infer, edgerunner_tpu_torch.generate, "
             "edgerunner_tpu_torch.weights, edgerunner_tpu_torch.ops.decode_attention, "
-            "edgerunner_tpu_torch.main; "
+            "edgerunner_tpu_torch.main, edgerunner_tpu_torch.serve, "
+            "edgerunner_tpu_torch.serve_engine, edgerunner_tpu_torch.ops.w_quant; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -68,11 +69,16 @@ def test_validate_refuses_options_the_port_does_not_run():
 
     import dataclasses
 
-    for change in (dict(kv_quant=True), dict(spec_decode=True), dict(cond_mode="image"),
+    for change in (dict(kv_quant=True, kv_bits=4), dict(kv_quant=True, kv_rotate=True),
+                   dict(kv_quant=True, kv_group=96), dict(mtp_heads=2),
+                   dict(spec_decode=True), dict(cond_mode="image"),
                    dict(point_encoder_mode="downsample"), dict(num_cond_tokens=7)):
         with pytest.raises(ValueError):
             validate(dataclasses.replace(config_defaults["ArAE"], **change))
     validate(dataclasses.replace(config_defaults["ArAE"]))
+    # the int8 KV cache and int8 weights are ported
+    for ok in (dict(kv_quant=True), dict(w_quant=True), dict(kv_quant=True, w_quant=True)):
+        validate(dataclasses.replace(config_defaults["ArAE"], **ok))
 
 
 def test_validate_refuses_dp_size_and_the_training_options_not_ported_yet():
