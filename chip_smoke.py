@@ -10,10 +10,11 @@ Phases, one JSON line each:
 1. build     nvcc builds every kernel from edgerunner_tpu_torch/csrc.
 2. kernels   each CUDA kernel against its plain PyTorch version on the card,
              at the main paths' shapes (generation, serving and training)
-             and at ragged ones, bf16, f32 and int8 caches, with its
-             tolerance; at the main-path shapes also its time, the plain
+             and at ragged ones, bf16, f32, int8 and int4 caches (per-row
+             and grouped scales, a head straddling the nibble halves), with
+             its tolerance; at the main-path shapes also its time, the plain
              version's, one PyTorch library call's (a yardstick the port
-             never calls; none attends over the int8 cache) and the least
+             never calls; none attends over a quantised cache) and the least
              time the card could take.
 3. generate  the main path: `generate_tokens` at full ArAE width (24 layers,
              hidden 1536, 8192 points, 2049 condition tokens), bf16, random
@@ -23,27 +24,37 @@ Phases, one JSON line each:
              mesh with the port's metok copy.
 4. generate_q8  the same path over the int8 KV cache (--kv_quant true) with
              a 2048-token budget; its decode kernel's launches held exactly.
-5. parity    2 layers at full width in f32 (TF32 off for matmuls and cuDNN):
+5. generate_q4  bench.py's quant_fast configuration (--kv_quant true
+             --kv_bits 4 --w_quant true, 40 rows) with a 1024-token budget;
+             row 7's launches held exactly; a profiled segment.
+6. parity    2 layers at full width in f32 (TF32 off for matmuls and cuDNN):
              the kernel path and the plain path decode greedily in lockstep
              on the same tokens, and must choose the same token at every
              step where the plain logits' top-2 gap is at least NEAR_TIE.
-6. serve     the server as the README starts it (--test_batch_size 8), full
+7. parity_q4 the same over the int4 cache: per-row, kv_group 96, kv_rotate.
+8. serve     the server as the README starts it (--test_batch_size 8), full
              width, bf16, random weights from seed 0: HTTP requests through
              `build_server` (JAX's JSON, a malformed body answered 400), then
-             the continuous-batching engine alone with the bf16 cache and
-             with --kv_quant true --w_quant true: tokens/s, ms per engine
-             step, peak memory, a profiled segment, and exactly one launch of
-             the multi-query kernel per layer and step.
-7. serve_parity  2 layers at full width in f32: every stream the engine
+             the continuous-batching engine alone with the bf16 cache, with
+             --kv_quant true --w_quant true and with --kv_quant true
+             --kv_bits 4: tokens/s, ms per engine step, peak memory, a
+             profiled segment, and exactly one launch of the multi-query
+             kernel per layer and step.
+9. serve_parity  2 layers at full width in f32: every stream the engine
              delivers equals its request's solo `generate_tokens` stream up
              to near-ties, kernel and plain paths, exact and int8 caches.
-8. train     the training path: `Trainer.train_step` at full ArAE width,
+10. spec     --mtp_heads 2 --spec_decode true with random draft heads, on
+             `generate_tokens` and on the engine, over the bf16 and the int4
+             cache: tokens accepted per verify pass, ms per pass, rows 9 and
+             10 launched exactly once per layer and pass at T = 3; then f32
+             spec streams against vanilla streams up to near-ties.
+11. train    the training path: `Trainer.train_step` at full ArAE width,
              bf16 autocast, gradient checkpointing and dropout on, on
              bench.py's train batch (2 rows of 6147 positions): one warm-up
              and TRAIN_STEPS timed steps (s/it, tokens/s, peak memory), each
              step's kernel launches counted from 0 and held to their exact
              counts, the last loss below the first; then one profiled step.
-9. train_parity  2 layers at full width in f32: the training loss and every
+12. train_parity  2 layers at full width in f32: the training loss and every
              parameter's gradient of the kernel path against the plain path.
 
 Then one JSON line with every kernel's numbers, the card's name and power
@@ -54,6 +65,7 @@ file, or when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -72,20 +84,28 @@ SEED = 0
 ROWS = 12                # bench.py's headline batch
 SERVE_ROWS = 8           # the README's serve command: --test_batch_size 8
 FACES = 1000
-PARITY_STEPS = 512
+PARITY_STEPS = 512       # asked of the parity phases; ArAE's decode bucket makes it 1024
 TRAIN_ROWS = 2           # bench.py's train probe: batch 2 ...
 TRAIN_MESH_TOKENS = 4096  # ... of BOS + 4096 mesh tokens + EOS after the condition
 TRAIN_RAGGED_LEN = 5000  # a shorter second row for the kernels' ragged train cases
 TRAIN_STEPS = 3          # timed training steps after one warm-up step
 GRAD_TOL = 2e-2          # train parity: gradient error over the tensor's largest value
-PHASES = ("build", "kernels", "generate", "generate_q8", "parity", "serve", "serve_parity",
-          "train", "train_parity")
+PHASES = ("build", "kernels", "generate", "generate_q8", "generate_q4", "parity", "parity_q4",
+          "serve", "serve_parity", "spec", "train", "train_parity")
 Q8_BUDGET = 2048         # generate_q8: a shorter budget than the bf16 generate phase
+Q4_ROWS = 40             # bench.py's quant_fast probe: int4 KV + int8 weights at batch 40 ...
+Q4_FULL_BUDGET = 4096    # ... and the headline's 4096-token budget (bench.py:464-469)
+Q4_BUDGET = 1024         # generate_q4: that budget cut for time
 SERVE_FACES = (100, 200)  # the HTTP requests' face counts (budgets 1024 and 2048 tokens)
 SERVE_HTTP_REQUESTS = 10  # 8 at once, 2 more while they decode
 SERVE_BENCH_REQUESTS = 16  # into SERVE_ROWS slots, EOS forbidden ...
 SERVE_BENCH_FACES = 100    # ... 1024 tokens each
 SERVE_BENCH_Q8_REQUESTS = 8  # one wave: the int8 + w_quant engine is slower
+SERVE_BENCH_Q4_REQUESTS = 8  # one wave over the int4 cache (--kv_quant true --kv_bits 4)
+SPEC_HEADS = 2           # --mtp_heads 2 --spec_decode true: verify passes at T = 3
+MTP_STD = 0.02           # the random draft heads' weights (the init's std)
+SPEC_ROWS = ROWS         # spec generate: the headline batch ...
+SPEC_BUDGET = 1024       # ... and a budget cut for time (one decode bucket)
 PROFILE_STEPS = 16       # engine steps in a profiled segment
 SERVE_PARITY_FACES = (10, 20, 10, 20, 10, 20)  # 6 staggered requests into 4 slots
 SERVE_PARITY_BUCKET = 128
@@ -290,58 +310,72 @@ def engine_indices(L: int, T: int) -> list:
     return [int(i) for i in np.linspace(2050, 7000, 7)] + [L - T]
 
 
-def multi_inputs(dev, kind, B, L, hidden, T, seed):
+def multi_inputs(dev, kind, B, L, hidden, T, seed, group=0):
     """q [B, T, hidden] and the caches of one kind: bf16 or f32 K and V, or
-    the int8 values and their bf16 scale plane quantised from rows of q's
-    dtype (bf16, or f32 for kind "int8 f32 q")."""
-    from edgerunner_tpu_torch.ops.kv_quant import pack_scales, quantize_rows
+    the int8 or int4 values and their bf16 scale plane quantised from rows of
+    q's dtype (bf16, or f32 for the kinds "... f32 q"); int4 with per-row
+    scales, or `group` lanes per scale."""
+    from edgerunner_tpu_torch.ops import kv_quant as KQ
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    dtype = torch.float32 if kind in ("f32", "int8 f32 q") else torch.bfloat16
+    dtype = torch.float32 if kind in ("f32", "int8 f32 q", "int4 f32 q") else torch.bfloat16
     q = torch.randn(B, T, hidden, device=dev, generator=g).to(dtype)
     k, v = (torch.randn(B, L, hidden, device=dev, generator=g).to(dtype) for _ in range(2))
-    if not kind.startswith("int8"):
+    if kind.startswith("int8"):
+        (kq, ks), (vq, vs) = KQ.quantize_rows(k), KQ.quantize_rows(v)
+        pack = KQ.pack_scales
+    elif kind.startswith("int4") and group:
+        (kq, ks), (vq, vs) = (KQ.quantize_rows_int4_grouped(x, group) for x in (k, v))
+        pack = KQ.pack_scales_grouped
+    elif kind.startswith("int4"):
+        (kq, ks), (vq, vs) = KQ.quantize_rows_int4(k), KQ.quantize_rows_int4(v)
+        pack = KQ.pack_scales
+    else:
         return q, (k, v)
-    (kq, ks), (vq, vs) = quantize_rows(k), quantize_rows(v)
     del k, v
-    return q, (torch.cat([kq, vq], -1), pack_scales(ks, vs))
+    return q, (torch.cat([kq, vq], -1), pack(ks, vs))
 
 
-def multi_case(dev, kind, B, L, hidden, H, T, indices, timed=False, single=False):
-    """Rows 9 (kind bf16 / f32), 11 (int8) and, with `single`, 8 (int8, one
-    query per row and one position for all rows) against their plain
+def multi_case(dev, kind, B, L, hidden, H, T, indices, timed=False, single=False, group=0):
+    """Rows 9 (kind bf16 / f32), 11 (int8), 10 (int4, per-row scales or
+    `group` lanes per scale) and, with `single`, 8 (int8) or 7 (int4), one
+    query per row and one position for all rows, against their plain
     versions on the same inputs."""
     from edgerunner_tpu_torch.ops import decode_attention as DA
 
-    q, caches = multi_inputs(dev, kind, B, L, hidden, T, seed=L + T + len(indices))
+    q, caches = multi_inputs(dev, kind, B, L, hidden, T, seed=L + T + len(indices), group=group)
+    q4 = kind.startswith("int4")
+    name = {"int8": "q8", "int4": "q4"}.get(kind[:4])
+    kw = {"num_heads": H, **({"group": group} if q4 else {})}
     if single:  # the decode step's position vector, built once per step
         q = q[:, 0].contiguous()
         index = torch.full((B,), indices[0], dtype=torch.int32, device=dev)
-        kernel, plain = DA.fused_decode_attention_q8, DA.fused_decode_attention_q8_reference
+        kernel = getattr(DA, f"fused_decode_attention_{name}")
     else:
         index = torch.tensor(indices, dtype=torch.int32, device=dev)
-        quant = kind.startswith("int8")
-        kernel = DA.fused_decode_attention_q8_multi if quant else DA.fused_decode_attention_multi
-        plain = (DA.fused_decode_attention_q8_multi_reference if quant
-                 else DA.fused_decode_attention_multi_reference)
-    out = kernel(q, *caches, index, num_heads=H)
-    ref = plain(q, *caches, index, num_heads=H)
+        kernel = getattr(DA, "fused_decode_attention_" + (f"{name}_multi" if name else "multi"))
+    plain = getattr(DA, kernel.__name__ + "_reference")
+    out = kernel(q, *caches, index, **kw)
+    ref = plain(q, *caches, index, **kw)
     torch.cuda.synchronize()
-    res = {"shape": [B, L, hidden], "heads": H, "T": T, "kind": kind,
+    res = {"shape": [B, L, hidden], "heads": H, "T": T, "kind": kind, "group": group,
            "index": indices if not single else indices[0], **compare(out, ref, q.dtype)}
     del ref
     if timed:
         import torch.nn.functional as F
 
-        res["ms"] = time_ms(lambda: kernel(q, *caches, index, num_heads=H), 50, 3)
-        res["plain_ms"] = time_ms(lambda: plain(q, *caches, index, num_heads=H), 5, 1)
+        res["ms"] = time_ms(lambda: kernel(q, *caches, index, **kw), 50, 3)
+        res["plain_ms"] = time_ms(lambda: plain(q, *caches, index, **kw), 5, 1)
         starts = [indices[0]] * B if single else indices
         rows = sum(i + T for i in starts)  # cache rows [0, index[b] + T) of each row
         pairs = sum(i + t + 1 for i in starts for t in range(T))  # (query, key) pairs
-        if kind.startswith("int8"):
-            # no one PyTorch call attends over an int8 cache with row scales
+        if name:
+            # no one PyTorch call attends over a quantised cache with its scales
             res["library_ms"] = None
-            row_bytes = 2 * hidden + 4  # K and V values, and plane lanes 0 and 1
+            # K and V values (int4: hidden bytes of nibbles), and the plane
+            # lanes read: 0 and 1 per row, or G each for K and V when grouped
+            row_bytes = (2 * hidden if name == "q8" else hidden) + (
+                4 * (hidden // group) if group else 4)
         else:
             D = hidden // H
             last = index[:, None] + torch.arange(T, device=dev)
@@ -374,6 +408,8 @@ def train_positions(opt) -> int:
 
 
 def phase_kernels(dev):
+    from edgerunner_tpu_torch.generate import decode_shape
+
     opt, _, plen, num_new, L = main_path_shapes()
     bf, f32 = torch.bfloat16, torch.float32
     hd, H = opt.hidden_dim, opt.num_heads
@@ -453,6 +489,36 @@ def phase_kernels(dev):
         dict(case="generate q8 index 0", **multi_case(dev, "int8", ROWS, L, hd, H, 1, [0],
                                                       single=True)),
     ]
+    # the int4 kind: rows 10 and 7 at the engine's shape, per-row and one
+    # scale per head (group 96); row 7 at the quant_fast generate shape (40
+    # rows of bench.py's 4096-token cache at its mean position); f32 queries;
+    # a head straddling the nibble halves (3 heads of 32: hidden/2 = 48);
+    # groups that are not the head dim, one of which splits an 8-lane load
+    q4_mid = plen + Q4_FULL_BUDGET // 2
+    q4_L = decode_shape(opt, 1, FACES, Q4_FULL_BUDGET)[1]
+    multi += [dict(case=f"engine int4{' g96' if grp else ''} T={T}"
+                   + (" (main path)" if T == 1 else ""),
+                   **multi_case(dev, "int4", SERVE_ROWS, eng_L, hd, H, T,
+                                engine_indices(eng_L, T), timed=True, group=grp))
+              for grp in (0, hd // H) for T in (1, 3)]
+    multi += [
+        dict(case=f"generate q4 index {q4_mid} (main path, mean position)", **multi_case(
+            dev, "int4", Q4_ROWS, q4_L, hd, H, 1, [q4_mid], timed=True, single=True)),
+        dict(case=f"generate q4 g96 index {q4_mid}", **multi_case(
+            dev, "int4", Q4_ROWS, q4_L, hd, H, 1, [q4_mid], single=True, group=hd // H)),
+        dict(case="generate q4 index 0", **multi_case(dev, "int4", Q4_ROWS, q4_L, hd, H, 1,
+                                                      [0], single=True)),
+        dict(case="int4 f32 q T=3", **multi_case(dev, "int4 f32 q", 3, 1000, hd, H, 3,
+                                                 [0, 500, 997])),
+        dict(case="int4 f32 q g96 T=1", **multi_case(dev, "int4 f32 q", 2, 520, hd, H, 1,
+                                                     [7, 519], group=hd // H)),
+        dict(case="int4 straddling 3x32 T=2", **multi_case(dev, "int4", 3, 300, 96, 3, 2,
+                                                           [0, 150, 298])),
+        dict(case="int4 straddling 3x32 g12 f32 q T=1", **multi_case(
+            dev, "int4 f32 q", 3, 300, 96, 3, 1, [1, 255, 299], group=12)),
+        dict(case="int4 ragged d64 g32 T=5", **multi_case(dev, "int4", 3, 700, 1024, 16, 5,
+                                                          [0, 256, 695], group=32)),
+    ]
     ok = all(c["ok"] for c in flash + flash_bwd + decode + multi)
     return {"ok": ok, "flash": flash, "flash_bwd": flash_bwd, "decode": decode,
             "decode_multi": multi}
@@ -521,15 +587,16 @@ def phase_generate(dev):
 
 def profile_decode(model, opt, dev, points, max_len, index, steps=32):
     """Device busy share and device time by kernel over `steps` decode steps
-    of the main path from position `index` on (torch.profiler's CUDA
-    activity)."""
+    of a generate path (one row per point cloud) from position `index` on
+    (torch.profiler's CUDA activity)."""
     from torch.profiler import ProfilerActivity, profile
 
-    nf = torch.full((ROWS,), FACES, device=dev)
-    prompt = torch.full((ROWS, 1), opt.bos_token_id, device=dev)
+    rows = len(points)
+    nf = torch.full((rows,), FACES, device=dev)
+    prompt = torch.full((rows, 1), opt.bos_token_id, device=dev)
     with torch.no_grad():
         _, caches, _ = model.prefill(torch.tensor(points, device=dev), nf, prompt, max_len)
-        ids = torch.full((ROWS, 1), 5, device=dev)
+        ids = torch.full((rows, 1), 5, device=dev)
         model.step(ids, caches, index)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -550,29 +617,44 @@ def profile_decode(model, opt, dev, points, max_len, index, steps=32):
 
 
 def phase_parity(dev):
+    return parity_run(dev, PARITY_STEPS)
+
+
+def phase_parity_q4(dev):
+    """`parity_run` over the int4 KV cache in three variants: per-row scales,
+    one scale per head (kv_group 96 at hidden 1536) and rotated rows."""
+    runs = {name: parity_run(dev, PARITY_STEPS, kv_quant=True, kv_bits=4, **changes)
+            for name, changes in (("per-row", {}), ("kv_group 96", {"kv_group": 96}),
+                                  ("kv_rotate", {"kv_rotate": True}))}
+    return {"ok": all(r["ok"] for r in runs.values()), **runs}
+
+
+def parity_run(dev, steps, **changes):
     """Kernel path against plain path, 2 layers at full width in f32: both
     models generate their own greedy streams through `generate_tokens`; a
     lockstep replay on the plain stream's tokens reads the plain logits'
     top-2 gap and both paths' choices at every step. The streams must agree
     up to the first step whose gap is under NEAR_TIE, the paths may choose
     differently only at such steps, and the logits may differ by less than
-    1e-2 (f32 sums in another order differ by ~1e-5)."""
+    1e-2 (f32 sums in another order differ by ~1e-5). `changes` set options
+    (the KV cache's kind)."""
     from edgerunner_tpu_torch.config import config_defaults, vocab_size_for
     from edgerunner_tpu_torch.generate import decode_shape, generate_tokens
     from edgerunner_tpu_torch.ops import sampling as S
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    opt = dataclasses.replace(config_defaults["ArAE"], num_layers=2, generate_mode="greedy")
+    opt = dataclasses.replace(config_defaults["ArAE"], num_layers=2, generate_mode="greedy",
+                              **changes)
     kernel = build_model(opt, dev, torch.float32, SEED + 1)
     plain = build_model(opt, dev, torch.float32, SEED + 1, use_kernels=False)
     rows = 2
     points = np.random.default_rng(SEED + 1).normal(
         size=(rows, opt.point_num, 3)).astype(np.float32)
-    kw = dict(num_faces=FACES, max_new_tokens=PARITY_STEPS, bench_no_eos=True)
+    kw = dict(num_faces=FACES, max_new_tokens=steps, bench_no_eos=True)
     stream_k = generate_tokens(kernel, points, **kw)
     stream_p = generate_tokens(plain, points, **kw)
-    steps, max_len = decode_shape(opt, 1, FACES, PARITY_STEPS)
+    steps, max_len = decode_shape(opt, 1, FACES, steps)
 
     vocab = vocab_size_for(opt)
     G = S.get_grammar(opt.meto_backend)
@@ -608,7 +690,8 @@ def phase_parity(dev):
     streams_ok = all(t is None or gaps[r, t] < NEAR_TIE for r, t in enumerate(first))
     ok = (streams_ok and bool(np.array_equal(replay, stream_p))
           and not (flips & (gaps >= NEAR_TIE)).any() and max_diff < 1e-2)
-    return {"ok": ok, "layers": 2, "rows": rows, "steps": steps, "dtype": "float32",
+    return {"ok": ok, "options": changes, "layers": 2, "rows": rows, "steps": steps,
+            "dtype": "float32",
             "tf32": False, "near_tie": NEAR_TIE,
             "streams_identical": bool(np.array_equal(stream_k, stream_p)),
             "first_mismatch": first,
@@ -619,21 +702,19 @@ def phase_parity(dev):
             "min_gap": float(gaps.min()), "logits_max_abs_diff": max_diff}
 
 
-def phase_generate_q8(dev):
-    """The generate path over the int8 KV cache (--kv_quant true): full
-    width, bf16, 12 rows, Q8_BUDGET tokens with EOS forbidden. Each decode
-    step launches the int8 kernel once per layer: exactly 24 x (steps - 1)."""
-    from edgerunner_tpu_torch.generate import decode_shape, generate_tokens
-    from edgerunner_tpu_torch.ops import decode_attention as DA
+def timed_generate(model, opt, dev, rows, budget) -> dict:
+    """One warm-up prefill and the prefill's time, then one `generate_tokens`
+    call of `rows` rows, 1000 faces, `budget` tokens, EOS forbidden, with
+    the forward kernel's and every decode kernel's launch count zeroed just
+    before and read just after (speculative passes recorded too)."""
+    from edgerunner_tpu_torch.generate import generate_tokens
     from edgerunner_tpu_torch.ops.flash_attention import flash_attention
 
-    opt, *_ = main_path_shapes()
-    opt = dataclasses.replace(opt, generate_mode="greedy", kv_quant=True)
-    num_new, max_len = decode_shape(opt, 1, FACES, Q8_BUDGET)
-    model = build_model(opt, dev, torch.bfloat16, SEED)
-    points = np.random.default_rng(SEED).normal(size=(ROWS, opt.point_num, 3)).astype(np.float32)
-    nf = torch.full((ROWS,), FACES, device=dev)
-    prompt = torch.full((ROWS, 1), opt.bos_token_id, device=dev)
+    points = np.random.default_rng(SEED).normal(size=(rows, opt.point_num, 3)).astype(
+        np.float32)
+    nf = torch.full((rows,), FACES, device=dev)
+    prompt = torch.full((rows, 1), opt.bos_token_id, device=dev)
+    max_len = decode_shape_of(opt, budget)[1]
     with torch.no_grad():  # warm-up, then the prefill's time
         for _ in range(2):
             torch.cuda.synchronize()
@@ -642,25 +723,102 @@ def phase_generate_q8(dev):
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = DA.fused_decode_attention_q8.launches = 0
-    t1 = time.perf_counter()
-    tokens = generate_tokens(model, points, num_faces=FACES, max_new_tokens=Q8_BUDGET,
-                             bench_no_eos=True)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t1
-    launches = {"flash_attention_fwd": flash_attention.launches,
-                "fused_decode_attention_q8": DA.fused_decode_attention_q8.launches}
-    want = {"flash_attention_fwd": opt.num_layers + 1,
-            "fused_decode_attention_q8": opt.num_layers * (num_new - 1)}
-    ok = (tokens.shape == (ROWS, num_new) and launches == want
+    for fn in (flash_attention, *decode_wrappers()):
+        fn.launches = 0
+    with recorded_passes() as passes:
+        t1 = time.perf_counter()
+        tokens = generate_tokens(model, points, num_faces=FACES, max_new_tokens=budget,
+                                 bench_no_eos=True)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t1
+    return {"tokens": tokens, "points": points, "max_len": max_len, "prefill_s": prefill_s,
+            "generate_s": gen_s, "tokens_per_s": tokens.size / gen_s,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "passes": passes,
+            "launches": {"flash_attention_fwd": flash_attention.launches,
+                         **{fn.__name__: fn.launches for fn in decode_wrappers()}}}
+
+
+def decode_shape_of(opt, budget) -> tuple:
+    """(new tokens, cache length) of a generate phase's 1000-face call."""
+    from edgerunner_tpu_torch.generate import decode_shape
+
+    return decode_shape(opt, 1, FACES, budget)
+
+
+def expected_launches(opt, kernel, calls) -> dict:
+    """Exact launch counts of a decode path: the forward kernel once per
+    layer and the encoder, `kernel` once per layer and decode call, no other
+    decode kernel."""
+    want = {fn.__name__: 0 for fn in decode_wrappers()}
+    want.update({"flash_attention_fwd": opt.num_layers + 1,
+                 kernel.__name__: opt.num_layers * calls})
+    return want
+
+
+def phase_generate_q8(dev):
+    """The generate path over the int8 KV cache (--kv_quant true): full
+    width, bf16, 12 rows, Q8_BUDGET tokens with EOS forbidden. Each decode
+    step launches the int8 kernel once per layer: exactly 24 x (steps - 1)."""
+    from edgerunner_tpu_torch.ops import decode_attention as DA
+
+    opt, *_ = main_path_shapes()
+    opt = dataclasses.replace(opt, generate_mode="greedy", kv_quant=True)
+    num_new = decode_shape_of(opt, Q8_BUDGET)[0]
+    run = timed_generate(build_model(opt, dev, torch.bfloat16, SEED), opt, dev, ROWS,
+                         Q8_BUDGET)
+    tokens = run.pop("tokens")
+    want = expected_launches(opt, DA.fused_decode_attention_q8, num_new - 1)
+    ok = (tokens.shape == (ROWS, num_new) and run["launches"] == want
           and not (tokens == 0).any() and not (tokens == 2).any())
     return {"ok": ok, "rows": ROWS, "num_faces": FACES, "num_new": num_new,
-            "max_len": max_len, "layers": opt.num_layers, "hidden": opt.hidden_dim,
-            "dtype": "bfloat16", "kv_cache": "int8", "prefill_s": prefill_s,
-            "generate_s": gen_s, "ms_per_step": (gen_s - prefill_s) / (num_new - 1) * 1e3,
-            "tokens_per_s": ROWS * num_new / gen_s,
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "launches": launches, "launches_expected": want, "card": card_line()}
+            "max_len": run["max_len"], "layers": opt.num_layers, "hidden": opt.hidden_dim,
+            "dtype": "bfloat16", "kv_cache": "int8", "prefill_s": run["prefill_s"],
+            "generate_s": run["generate_s"],
+            "ms_per_step": (run["generate_s"] - run["prefill_s"]) / (num_new - 1) * 1e3,
+            "tokens_per_s": run["tokens_per_s"], "peak_mem_gib": run["peak_mem_gib"],
+            "launches": run["launches"], "launches_expected": want, "card": card_line()}
+
+
+def phase_generate_q4(dev):
+    """bench.py's quant_fast configuration (bench.py:464-469): full width,
+    bf16, --kv_quant true --kv_bits 4 --w_quant true, Q4_ROWS rows, 1000
+    faces, greedy with EOS forbidden, a Q4_BUDGET-token budget (cut from its
+    4096 for time). Each decode step launches row 7's kernel once per layer
+    and no other decode kernel: exactly 24 x (steps - 1). Then the device
+    time by kernel over 32 steps at the budget's mean position."""
+    from edgerunner_tpu_torch.infer import load_model
+    from edgerunner_tpu_torch.ops import decode_attention as DA
+
+    opt, *_ = main_path_shapes()
+    opt = dataclasses.replace(opt, generate_mode="greedy", kv_quant=True, kv_bits=4,
+                              w_quant=True)
+    num_new = decode_shape_of(opt, Q4_BUDGET)[0]
+    model = load_model(opt, dev)
+    run = timed_generate(model, opt, dev, Q4_ROWS, Q4_BUDGET)
+    tokens, points = run.pop("tokens"), run.pop("points")
+    want = expected_launches(opt, DA.fused_decode_attention_q4, num_new - 1)
+    ok = (tokens.shape == (Q4_ROWS, num_new) and run["launches"] == want
+          and not (tokens == 0).any() and not (tokens == 2).any())
+    res = {"ok": ok, "rows": Q4_ROWS, "num_faces": FACES, "num_new": num_new,
+           "max_len": run["max_len"], "layers": opt.num_layers, "hidden": opt.hidden_dim,
+           "dtype": "bfloat16", "kv_cache": "int4", "w_quant": True,
+           "prefill_s": run["prefill_s"], "generate_s": run["generate_s"],
+           "ms_per_step": (run["generate_s"] - run["prefill_s"]) / (num_new - 1) * 1e3,
+           "tokens_per_s": run["tokens_per_s"], "peak_mem_gib": run["peak_mem_gib"],
+           "launches": run["launches"], "launches_expected": want, "card": card_line()}
+    res.update(profile_decode(model, opt, dev, points, run["max_len"],
+                              1 + opt.num_cond_tokens + num_new // 2))
+    res["ok"] = ok and res["device_ms_per_step"] > 0
+    return res
+
+
+def decode_wrappers():
+    """Every decode kernel's wrapper, whose launch counts a path holds."""
+    from edgerunner_tpu_torch.ops import decode_attention as DA
+
+    return (DA.fused_decode_attention, DA.fused_decode_attention_multi,
+            DA.fused_decode_attention_q8, DA.fused_decode_attention_q8_multi,
+            DA.fused_decode_attention_q4, DA.fused_decode_attention_q4_multi)
 
 
 def http(port: int, path: str, body=None):
@@ -740,19 +898,17 @@ def serve_bench(model, opt, dev, kernel, requests) -> tuple:
     SERVE_BENCH_FACES faces into SERVE_ROWS slots. The kernels' counts are
     zeroed just before and read just after; `kernel` (the wrapper the
     engine's decode goes through) must have run exactly once per layer and
-    engine step, and the others not at all. Returns (report, the stopped
-    engine)."""
+    engine step (a speculative pass under spec decoding), and the others not
+    at all. Returns (report, the stopped engine)."""
     import threading
 
     from edgerunner_tpu_torch.generate import round_up_bucket
-    from edgerunner_tpu_torch.ops import decode_attention as DA
     from edgerunner_tpu_torch.serve_engine import ContinuousEngine
 
     engine = ContinuousEngine(model, opt, batch=SERVE_ROWS, bench_no_eos=True)
     points = serve_points(opt, requests)
     results = [None] * requests
-    wrappers = (DA.fused_decode_attention_multi, DA.fused_decode_attention_q8_multi,
-                DA.fused_decode_attention_q8, DA.fused_decode_attention)
+    wrappers = decode_wrappers()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in wrappers:
@@ -833,8 +989,8 @@ def phase_serve(dev):
     """The server as the README starts it (`--test_batch_size 8`), at full
     ArAE width in bf16 with random weights from seed 0: HTTP requests
     through `build_server`, then the engine alone with the bf16 cache
-    (row 9's kernel), then with `--kv_quant true --w_quant true` (row 11's
-    kernel)."""
+    (row 9's kernel), with `--kv_quant true --w_quant true` (row 11's
+    kernel), and with `--kv_quant true --kv_bits 4` (row 10's kernel)."""
     import gc
 
     from edgerunner_tpu_torch.config import config_defaults
@@ -861,8 +1017,168 @@ def phase_serve(dev):
         model, q_opt, dev, DA.fused_decode_attention_q8_multi, SERVE_BENCH_Q8_REQUESTS)
     res["bench_int8_wquant"].update(
         profile_segment(engine, dev, res["bench_int8_wquant"]["ms_per_step"]))
-    res["ok"] = all(res[k]["ok"] for k in ("http", "bench_bf16", "bench_int8_wquant")) and all(
-        res[k]["profile_ok"] for k in ("bench_bf16", "bench_int8_wquant"))
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    q4_opt = dataclasses.replace(opt, kv_quant=True, kv_bits=4)
+    model = load_model(q4_opt, dev)
+    res["bench_int4"], engine = serve_bench(
+        model, q4_opt, dev, DA.fused_decode_attention_q4_multi, SERVE_BENCH_Q4_REQUESTS)
+    res["bench_int4"].update(profile_segment(engine, dev, res["bench_int4"]["ms_per_step"]))
+    benches = ("bench_bf16", "bench_int8_wquant", "bench_int4")
+    res["ok"] = res["http"]["ok"] and all(res[k]["ok"] and res[k]["profile_ok"]
+                                          for k in benches)
+    return res
+
+
+def set_draft_heads(model, seed):
+    """Random non-zero draft-head weights from a numpy seed: zero heads, as
+    init_weights leaves them, would always draft the base head's token."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for head in model.mesh_decoder.mtp_proj:
+            for p in (head.weight, head.bias):
+                p.copy_(torch.from_numpy(rng.normal(0.0, MTP_STD, p.shape).astype(np.float32)))
+    return model
+
+
+@contextlib.contextmanager
+def recorded_passes():
+    """The accepted counts [B] of every speculative pass run inside."""
+    from edgerunner_tpu_torch import generate as TG
+
+    seen, spec_pass = [], TG.spec_pass
+
+    def recording(*args, **kw):
+        out = spec_pass(*args, **kw)
+        seen.append(out[1])
+        return out
+
+    TG.spec_pass = recording
+    try:
+        yield seen
+    finally:
+        TG.spec_pass = spec_pass
+
+
+def acceptance(seen) -> dict:
+    """Tokens accepted per verify pass, over the rows that took tokens."""
+    a = torch.cat([x[x > 0] for x in seen]).float()
+    return {"passes": len(seen), "accepted_per_pass": a.mean().item(),
+            "accepted_histogram": torch.bincount(a.long()).tolist()}
+
+
+def spec_generate(model, opt, dev, kernel) -> dict:
+    """`generate_tokens` with spec decoding at full width, SPEC_ROWS rows,
+    EOS forbidden, SPEC_BUDGET tokens: every pass launches `kernel` (rows
+    9 or 10 at T = 1 + mtp_heads) once per layer, and no other decode
+    kernel runs."""
+    num_new = decode_shape_of(opt, SPEC_BUDGET)[0]
+    run = timed_generate(model, opt, dev, SPEC_ROWS, SPEC_BUDGET)
+    tokens, stats = run["tokens"], acceptance(run["passes"])
+    want = expected_launches(opt, kernel, stats["passes"])
+    ok = (tokens.shape == (SPEC_ROWS, num_new) and run["launches"] == want
+          and not (tokens == 0).any())
+    return {"ok": ok, "rows": SPEC_ROWS, "num_new": num_new, "generate_s": run["generate_s"],
+            "prefill_s": run["prefill_s"], "tokens_per_s": run["tokens_per_s"],
+            "ms_per_pass": (run["generate_s"] - run["prefill_s"]) / stats["passes"] * 1e3,
+            **stats, "peak_mem_gib": run["peak_mem_gib"], "launches": run["launches"],
+            "launches_expected": want}
+
+
+def replay_gaps(model, opt, dev, points, stream, max_len) -> np.ndarray:
+    """The top-2 gap of the masked logits at each step [rows, steps] of the
+    vanilla one-token path replayed on `stream`, EOS forbidden."""
+    from edgerunner_tpu_torch.config import vocab_size_for
+    from edgerunner_tpu_torch.ops import sampling as S
+
+    rows = len(points)
+    G, vocab = S.get_grammar(opt.meto_backend), vocab_size_for(opt)
+    no_eos = torch.arange(vocab, device=dev)[None] != S.EOS_ID
+    gaps = np.zeros(stream.shape)
+    with torch.no_grad():
+        logits, caches, plen = model.prefill(
+            torch.tensor(points, device=dev), torch.full((rows,), FACES, device=dev),
+            torch.full((rows, 1), opt.bos_token_id, device=dev), max_len)
+        state = G.init(rows, dev)
+        for i in range(stream.shape[1]):
+            mask = G.mask(state, vocab) & no_eos
+            top2 = torch.topk(S.apply_mask(logits[:, 0].float(), mask), 2).values
+            gaps[:, i] = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+            t = torch.as_tensor(stream[:, i], device=dev)
+            state = G.advance(state, t)
+            if i + 1 < stream.shape[1]:
+                logits = model.step(t[:, None], caches, plen + i)
+    return gaps
+
+
+def spec_parity(dev, cache: dict) -> dict:
+    """2 layers at full width in f32 (TF32 off), kernel path: speculative
+    greedy streams against the vanilla greedy streams of the same model,
+    EOS forbidden; the first token where a row's streams differ must come
+    at a step whose top-2 gap on the vanilla path is under NEAR_TIE."""
+    from edgerunner_tpu_torch.config import config_defaults
+    from edgerunner_tpu_torch.generate import decode_shape, generate_tokens
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt = dataclasses.replace(config_defaults["ArAE"], num_layers=2, generate_mode="greedy",
+                              mtp_heads=SPEC_HEADS, spec_decode=True, **cache)
+    model = set_draft_heads(build_model(opt, dev, torch.float32, SEED + 4), SEED + 4)
+    points = np.random.default_rng(SEED + 4).normal(size=(2, opt.point_num, 3)).astype(
+        np.float32)
+    kw = dict(num_faces=FACES, max_new_tokens=PARITY_STEPS, bench_no_eos=True)
+    with recorded_passes() as seen:
+        spec = generate_tokens(model, points, **kw)
+    model.opt = dataclasses.replace(opt, spec_decode=False)
+    vanilla = generate_tokens(model, points, **kw)
+    gaps = replay_gaps(model, model.opt, dev, points, vanilla,
+                       decode_shape(model.opt, 1, FACES, PARITY_STEPS)[1])
+    first = [int(np.argmax(a != b)) if (a != b).any() else None for a, b in zip(spec, vanilla)]
+    ok = all(t is None or gaps[r, t] < NEAR_TIE for r, t in enumerate(first))
+    return {"ok": ok, "layers": 2, "dtype": "float32", "tf32": False, "rows": 2,
+            "steps": int(spec.shape[1]), "near_tie": NEAR_TIE,
+            "streams_identical": bool(np.array_equal(spec, vanilla)), "first_mismatch": first,
+            "steps_under_near_tie": int((gaps < NEAR_TIE).sum()),
+            "min_gap": float(gaps.min()), **acceptance(seen)}
+
+
+def phase_spec(dev):
+    """Speculative decoding (--mtp_heads 2 --spec_decode true, greedy) with
+    random draft heads from a numpy seed, at full ArAE width in bf16: on
+    `generate_tokens` and on the engine (SERVE_ROWS slots, SERVE_BENCH_Q4_REQUESTS
+    requests of SERVE_BENCH_FACES faces), over the bf16 cache (row 9 at T =
+    3) and the int4 cache (row 10 at T = 3); tokens accepted per verify
+    pass, ms per pass, each kernel's launches held to 24 per pass. Then the
+    f32 spec streams against vanilla streams (kernel path, both caches) up
+    to near-ties."""
+    import gc
+
+    from edgerunner_tpu_torch.config import config_defaults
+    from edgerunner_tpu_torch.infer import load_model
+    from edgerunner_tpu_torch.ops import decode_attention as DA
+
+    base = dataclasses.replace(config_defaults["ArAE"], generate_mode="greedy",
+                               test_batch_size=SERVE_ROWS, mtp_heads=SPEC_HEADS,
+                               spec_decode=True)
+    res = {"mtp_heads": SPEC_HEADS, "draft_std": MTP_STD, "card": card_line()}
+    for name, cache, kernel in (
+            ("bf16", {}, DA.fused_decode_attention_multi),
+            ("int4", {"kv_quant": True, "kv_bits": 4}, DA.fused_decode_attention_q4_multi)):
+        opt = dataclasses.replace(base, **cache)
+        model = set_draft_heads(load_model(opt, dev), SEED + 6)
+        res[f"generate_{name}"] = spec_generate(model, opt, dev, kernel)
+        with recorded_passes() as seen:
+            bench, engine = serve_bench(model, opt, dev, kernel, SERVE_BENCH_Q4_REQUESTS)
+        bench.update(acceptance(seen))
+        bench["ms_per_pass"] = bench["ms_per_step"]
+        res[f"engine_{name}"] = bench
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["parity_bf16_layout"] = spec_parity(dev, {})
+    res["parity_int4"] = spec_parity(dev, {"kv_quant": True, "kv_bits": 4})
+    res["ok"] = all(v["ok"] for v in res.values() if isinstance(v, dict))
     return res
 
 
@@ -1120,12 +1436,16 @@ def phase_train_parity(dev):
                          "+ 1e-6 * max over tensors of max|g_plain|"}
 
 
-def kernels_line(kern, gen, train, gen_q8, serve):
+def kernels_line(results):
     """One entry per kernel: main-path numbers from this run; launches from
     the path that runs it, each counted from 0 over its run: the generate
     path (forward and decode kernels), the train path (backward kernel), the
-    generate path over the int8 cache (row 8) and the serving engine (rows 9
-    and 11)."""
+    generate path over the int8 cache (row 8) and over the int4 cache (row
+    7), and the serving engine (rows 9, 11 and 10); launches_by_path adds
+    the speculative paths (rows 9 and 10 at T = 3)."""
+    kern, gen, train, serve, spec = (results[k] for k in (
+        "kernels", "generate", "train", "serve", "spec"))
+    gen_q8, gen_q4 = results["generate_q8"], results["generate_q4"]
     def case(cases, prefix):
         return next(c for c in cases if c["case"].startswith(prefix))
 
@@ -1142,7 +1462,11 @@ def kernels_line(kern, gen, train, gen_q8, serve):
     prefill, bwd = case(kern["flash"], "prefill"), case(kern["flash_bwd"], "decoder train")
     dec = next(c for c in kern["decode"] if "main path" in c["case"])
     multi = kern["decode_multi"]
-    bench_bf16, bench_q8 = serve["bench_bf16"], serve["bench_int8_wquant"]
+    bench_bf16, bench_q8, bench_q4 = (serve[k] for k in (
+        "bench_bf16", "bench_int8_wquant", "bench_int4"))
+
+    def by_path(name, **paths):
+        return {path: run["launches"][name] for path, run in paths.items()}
     return {"kernels": [
         entry("flash_attention_fwd", "flash_fwd.cu", "edgerunner_tpu/ops/flash_attention.py:258",
               gen["launches"]["flash_attention_fwd"], prefill,
@@ -1161,6 +1485,9 @@ def kernels_line(kern, gen, train, gen_q8, serve):
               "edgerunner_tpu/ops/decode_attention_pallas.py:585",
               bench_bf16["launches"]["fused_decode_attention_multi"],
               case(multi, "engine bf16 T=1"), index=case(multi, "engine bf16 T=1")["index"],
+              launches_by_path=by_path("fused_decode_attention_multi", serve=bench_bf16,
+                                       spec_generate=spec["generate_bf16"],
+                                       spec_engine=spec["engine_bf16"]),
               t3_shape=sub(case(multi, "engine bf16 T=3")),
               f32_shape=sub(case(multi, "engine f32 T=1"))),
         entry("fused_decode_attention_q8_multi", "decode_attention_multi.cu",
@@ -1172,6 +1499,20 @@ def kernels_line(kern, gen, train, gen_q8, serve):
               "edgerunner_tpu/ops/decode_attention_pallas.py:445",
               gen_q8["launches"]["fused_decode_attention_q8"],
               case(multi, "generate q8 index"), index=case(multi, "generate q8 index")["index"]),
+        entry("fused_decode_attention_q4_multi", "decode_attention_multi.cu",
+              "edgerunner_tpu/ops/decode_attention_pallas.py:824",
+              bench_q4["launches"]["fused_decode_attention_q4_multi"],
+              case(multi, "engine int4 T=1"), index=case(multi, "engine int4 T=1")["index"],
+              launches_by_path=by_path("fused_decode_attention_q4_multi", serve_int4=bench_q4,
+                                       spec_generate_int4=spec["generate_int4"],
+                                       spec_engine_int4=spec["engine_int4"]),
+              t3_shape=sub(case(multi, "engine int4 T=3")),
+              g96_shape=sub(case(multi, "engine int4 g96 T=1")),
+              g96_t3_shape=sub(case(multi, "engine int4 g96 T=3"))),
+        entry("fused_decode_attention_q4", "decode_attention_multi.cu",
+              "edgerunner_tpu/ops/decode_attention_pallas.py:401",
+              gen_q4["launches"]["fused_decode_attention_q4"],
+              case(multi, "generate q4 index"), index=case(multi, "generate q4 index")["index"]),
     ]}
 
 
@@ -1190,8 +1531,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     runs = {"build": phase_build, "kernels": lambda: phase_kernels(dev),
             "generate": lambda: phase_generate(dev),
-            "generate_q8": lambda: phase_generate_q8(dev), "parity": lambda: phase_parity(dev),
-            "serve": lambda: phase_serve(dev), "serve_parity": lambda: phase_serve_parity(dev),
+            "generate_q8": lambda: phase_generate_q8(dev),
+            "generate_q4": lambda: phase_generate_q4(dev), "parity": lambda: phase_parity(dev),
+            "parity_q4": lambda: phase_parity_q4(dev), "serve": lambda: phase_serve(dev),
+            "serve_parity": lambda: phase_serve_parity(dev), "spec": lambda: phase_spec(dev),
             "train": lambda: phase_train(dev), "train_parity": lambda: phase_train_parity(dev)}
     results, ok = {}, True
     for name in PHASES:
@@ -1216,8 +1559,7 @@ def main(argv=None) -> int:
         return 1
     if set(PHASES) - set(wanted):
         return 0
-    emit(kernels_line(results["kernels"], results["generate"], results["train"],
-                      results["generate_q8"], results["serve"]))
+    emit(kernels_line(results))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -376,8 +376,7 @@ def parse_cli(argv: Optional[List[str]] = None, prog: str = "edgerunner-tpu") ->
 # options whose paths the port does not run yet, with the value that keeps
 # them off
 _NOT_PORTED = {
-    "kv_group": 0, "kv_rotate": False, "spec_decode": False,
-    "mtp_heads": 0, "moe_experts": 0, "lora_rank": 0, "tp_size": 1,
+    "moe_experts": 0, "lora_rank": 0, "tp_size": 1,
     "sp_size": 1, "pp_size": 1, "ep_size": 1, "scan_layers": False,
     "ema_decay": 0.0, "async_checkpointing": False, "resume2": None, "use_wandb": False,
 }
@@ -400,8 +399,17 @@ def validate(opt: Options) -> Options:
     for name, off in _NOT_PORTED.items():
         if getattr(opt, name) != off:
             raise ValueError(f"the port does not implement --{name} yet")
-    if opt.kv_quant and opt.kv_bits != 8:
-        raise ValueError("the port implements the int8 KV cache only (--kv_bits 8)")
+    if opt.kv_quant and opt.kv_bits not in (4, 8):
+        raise ValueError(f"--kv_bits is 4 or 8, got {opt.kv_bits}")
+    if opt.kv_quant and opt.kv_bits == 4 and opt.kv_group:
+        # what the JAX package asserts (ops/kv_quant.py:145-148): the group
+        # scales of K and V share the 128-lane plane, 64 lanes each
+        hd, group = opt.hidden_dim, opt.kv_group
+        if group < 0 or hd % group or hd % 2 or hd // group > 64:
+            raise ValueError(f"--kv_group {group} must divide the even hidden width {hd} "
+                             f"into at most 64 groups")
+    if opt.mtp_heads < 0:
+        raise ValueError(f"--mtp_heads must be >= 0, got {opt.mtp_heads}")
     if opt.dp_size > 1:
         raise ValueError("the port runs on one device: it does not implement "
                          "--dp_size > 1 yet")

@@ -8,8 +8,11 @@ points, generates `test_repeat` meshes per face count and writes
 {name}_{i}[_{nf}f].ply plus the tokens. Weights come from a reference-format
 .safetensors file (tools/export_reference_ckpt.py), or are drawn from
 `--seed` without `--resume`. `--kv_quant true` decodes over the int8 KV
-cache and `--w_quant true` quantises the decoder's projections after the
-weights load. The model runs on the card unless `--device cpu` is given;
+cache, with `--kv_bits 4` over the int4 cache (`--kv_group N` lanes per
+scale, `--kv_rotate true` rotated rows); `--w_quant true` quantises the
+decoder's projections after the weights load; `--mtp_heads N --spec_decode
+true --generate_mode greedy` decodes speculatively with the draft heads of
+the weights. The model runs on the card unless `--device cpu` is given;
 without a card and without `--device cpu` it raises.
 """
 
@@ -44,8 +47,8 @@ def resolve_device(name: str) -> torch.device:
 
 def load_model(opt, device: torch.device, dtype=torch.bfloat16) -> LMM:
     """The LMM of `opt` with its weights (weights.load_for_inference): with
-    `--kv_quant` it decodes over the int8 cache, with `--w_quant` its decoder
-    projections are quantised after the exact weights are loaded."""
+    `--kv_quant` it decodes over the int8 or int4 cache, with `--w_quant` its
+    decoder projections are quantised after the exact weights are loaded."""
     return load_for_inference(LMM(opt, dtype=dtype, device=device), opt)
 
 

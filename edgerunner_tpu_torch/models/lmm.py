@@ -3,8 +3,9 @@
 Point-cloud conditioner (point encoder -> proj_cond -> norm_cond), the
 num-face bucket token, and the ShapeOPT decoder: the teacher-forcing
 `forward` with its loss, which training drives, the `prefill` / `step`
-pair that generate.py drives, and `verify_step`, through which the serving
-engine decodes. Conditioning modes 'point' and 'none' are
+pair that generate.py drives, `verify_step`, through which the serving
+engine decodes and speculative decoding verifies its proposals, and
+`mtp_logits`, the draft heads' logits. Conditioning modes 'point' and 'none' are
 ported; 'image' and 'point_latent' wait for later slices. `checkpointing`
 turns on gradient checkpointing of the point encoder's block and of each
 decoder layer, as in the JAX package (lmm.py:50-58, :80-82).
@@ -57,6 +58,10 @@ class LMM(nn.Module):
             pad_token_id=opt.pad_token_id,
             remat=opt.checkpointing,
             kv_quant=opt.kv_quant,
+            kv_bits=opt.kv_bits,
+            kv_group=opt.kv_group,
+            kv_rotate=opt.kv_rotate,
+            mtp_heads=opt.mtp_heads,
         )
         self.mesh_decoder = ShapeOPT(self.cfg, use_kernels=use_kernels, **kw)
 
@@ -81,7 +86,8 @@ class LMM(nn.Module):
         tokens [B, 1+M+1] (BOS, coords, EOS, PAD); labels [B, C+1+M+1] with
         -100 on cond, BOS and pad; lengths [B] valid total lengths. In
         training, num-face dropout draws from `generator` and the decoder
-        applies dropout. Returns dict(loss, loss_ce, loss_kl, logits).
+        applies dropout. Returns dict(loss, loss_ce, loss_kl, logits), and
+        loss_mtp with draft heads (added to loss times mtp_loss_weight).
         """
         opt = self.opt
         if train and opt.use_num_face_cond and opt.nof_dropout_ratio > 0:
@@ -94,32 +100,42 @@ class LMM(nn.Module):
         embeds = self.mesh_decoder.embed_tokens(tokens)
         if cond_embeds is not None:
             embeds = torch.cat([cond_embeds.to(embeds.dtype), embeds], dim=1)
-        logits, loss_ce = self.mesh_decoder(embeds, lengths, labels=labels, train=train)
+        logits, loss_ce, loss_mtp = self.mesh_decoder(embeds, lengths, labels=labels,
+                                                      train=train)
         out = {"loss_ce": loss_ce, "logits": logits}
         loss = loss_ce
         if opt.cond_mode == "point":
             out["loss_kl"] = kl
             loss = loss + opt.kl_weight * kl
+        if loss_mtp is not None:
+            out["loss_mtp"] = loss_mtp
+            loss = loss + opt.mtp_loss_weight * loss_mtp
         out["loss"] = loss
         return out
 
-    def prefill(self, conds, num_faces, prompt_ids, max_len: int):
+    def prefill(self, conds, num_faces, prompt_ids, max_len: int, with_hidden: bool = False):
         """Encode cond + prompt ids [B, P]; fill max_len caches. Returns
-        (next-token logits [B, 1, V], caches, prompt length incl. cond)."""
+        (next-token logits [B, 1, V], caches, prompt length incl. cond), and
+        with `with_hidden` the last hidden state [B, 1, C] after them."""
         cond_embeds, _ = self.encode_cond(conds, num_faces)
         embeds = self.mesh_decoder.embed_tokens(prompt_ids)
         if cond_embeds is not None:
             embeds = torch.cat([cond_embeds, embeds], dim=1)
-        logits, caches = self.mesh_decoder.prefill(embeds, max_len)
-        return logits, caches, embeds.shape[1]
+        logits, caches, *h_last = self.mesh_decoder.prefill(embeds, max_len, with_hidden)
+        return (logits, caches, embeds.shape[1], *h_last)
 
     def step(self, token_ids, caches: Caches, index: int):
         return self.mesh_decoder.step(token_ids, caches, index)
 
-    def verify_step(self, token_ids, caches: Caches, index_vec):
+    def verify_step(self, token_ids, caches: Caches, index_vec, with_hidden: bool = False):
         """T tokens per row at per-row positions (edgerunner_tpu/models/lmm.py:190-192):
-        logits [B, T, V]; the caches are updated in place."""
-        return self.mesh_decoder.verify_step(token_ids, caches, index_vec)
+        logits [B, T, V], and with `with_hidden` the hidden states [B, T, C];
+        the caches are updated in place."""
+        return self.mesh_decoder.verify_step(token_ids, caches, index_vec, with_hidden)
+
+    def mtp_logits(self, h) -> list:
+        """The draft heads' logits of hidden states h (lmm.py:194-195)."""
+        return self.mesh_decoder.mtp_logits(h)
 
 
 @torch.no_grad()
@@ -149,4 +165,6 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     decoder = getattr(model, "mesh_decoder", None)
     if decoder is not None:
         decoder.model.embd.weight[decoder.cfg.pad_token_id] = 0.0
+        for head in decoder.mtp_proj:  # zero-initialised, as in the JAX package
+            head.weight.zero_()
     return model

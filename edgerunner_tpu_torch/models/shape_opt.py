@@ -16,9 +16,19 @@ LN(x + fc2(relu(fc1(x)))), an `lm_head` without bias. Four modes:
                    engine decodes through it with T = 1.
 
 Per layer the two cache lists hold K and V [B, max_len, hidden] in the
-model's dtype or, with `kv_quant`, the int8 values [B, max_len, 2·hidden]
-(K ++ V) and their bf16 scale plane [B, max_len, 128] (ops/kv_quant.py), as
-in the JAX package. Unlike the JAX package, whose arrays are immutable,
+model's dtype or, with `kv_quant`, the quantised values and their bf16
+scale plane [B, max_len, 128] (ops/kv_quant.py): int8 [B, max_len,
+2·hidden] (K ++ V), or with `kv_bits` 4 packed int4 [B, max_len, hidden],
+with per-row scales or `kv_group` lanes per scale; with `kv_rotate` the
+rows are stored rotated per head, q is rotated before the decode kernel
+and its output rotated back after it. All as in the JAX package.
+
+With `mtp_heads` > 0 the decoder carries the multi-token-prediction draft
+heads `mtp_{k}` (zero-initialised Linear(hidden, hidden) blocks feeding the
+shared `lm_head`; head k predicts the token 2+k positions ahead), trained
+with an auxiliary shifted cross-entropy and used by speculative decoding.
+
+Unlike the JAX package, whose arrays are immutable,
 ``step`` and ``verify_step`` write the caches in place: they are
 preallocated once by ``prefill`` and reused by every step, so a step moves
 no cache bytes beyond the attention's reads and its own rows.
@@ -35,7 +45,7 @@ from torch import nn
 
 from edgerunner_tpu_torch.models.layers import LN_EPS, attention_fn, maybe_checkpoint
 from edgerunner_tpu_torch.ops import decode_attention as DA
-from edgerunner_tpu_torch.ops.kv_quant import pack_scales, quantize_rows
+from edgerunner_tpu_torch.ops import kv_quant as KQ
 
 Caches = Tuple[List[torch.Tensor], List[torch.Tensor]]
 
@@ -53,19 +63,37 @@ class ShapeOPTConfig:
     pad_token_id: int = 0
     # gradient checkpointing of each decoder layer in training
     remat: bool = False
-    # int8 KV cache (values + a bf16 scale plane) for decoding
+    # quantised KV cache (values + a bf16 scale plane) for decoding: int8,
+    # or with kv_bits 4 packed int4 with per-row scales or kv_group lanes
+    # per scale; kv_rotate rotates K/V rows per head before quantising
     kv_quant: bool = False
+    kv_bits: int = 8
+    kv_group: int = 0
+    kv_rotate: bool = False
+    # multi-token-prediction draft heads for speculative decoding (0 = none)
+    mtp_heads: int = 0
 
     @property
     def head_dim(self) -> int:
         return self.hidden_dim // self.num_attention_heads
 
 
-def _kv_quantize(kf, vf):
-    """Quantise K and V rows [B, T, hidden] into the int8 cache's layout:
-    (values [B, T, 2·hidden], scale plane [B, T, 128]) (shape_opt.py:122-151)."""
-    (kq, ks), (vq, vs) = quantize_rows(kf), quantize_rows(vf)
-    return torch.cat([kq, vq], dim=-1), pack_scales(ks, vs)
+def _kv_quantize(c: ShapeOPTConfig, kf, vf):
+    """Quantise K and V rows [B, T, hidden] into the cache's layout: (values
+    [B, T, 2·hidden] int8 or [B, T, hidden] int4, scale plane [B, T, 128]),
+    rotated first under kv_rotate (shape_opt.py:122-151)."""
+    if c.kv_rotate:
+        kf = KQ.rotate_rows(kf, c.num_attention_heads)
+        vf = KQ.rotate_rows(vf, c.num_attention_heads)
+    pack = KQ.pack_scales
+    if c.kv_bits == 4 and c.kv_group:
+        (kq, ks), (vq, vs) = (KQ.quantize_rows_int4_grouped(x, c.kv_group) for x in (kf, vf))
+        pack = KQ.pack_scales_grouped
+    elif c.kv_bits == 4:
+        (kq, ks), (vq, vs) = KQ.quantize_rows_int4(kf), KQ.quantize_rows_int4(vf)
+    else:
+        (kq, ks), (vq, vs) = KQ.quantize_rows(kf), KQ.quantize_rows(vf)
+    return torch.cat([kq, vq], dim=-1), pack(ks, vs)
 
 
 def _rows_update(cache, rows, index_vec):
@@ -85,17 +113,20 @@ class OPTAttention(nn.Module):
                  device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.cfg = c
         self.num_heads = c.num_attention_heads
         self.kv_quant = c.kv_quant
         self.attend = attention_fn(use_kernels)
         # one-query and multi-query decode over the cache's kind: the kernels'
         # wrappers, or their plain versions on every device
-        decode = ((DA.fused_decode_attention_q8, DA.fused_decode_attention_q8_multi)
-                  if c.kv_quant else
-                  (DA.fused_decode_attention, DA.fused_decode_attention_multi))
-        if not use_kernels:
-            decode = tuple(getattr(DA, fn.__name__ + "_reference") for fn in decode)
-        self.decode, self.decode_multi = decode
+        kind = ("_q4" if c.kv_bits == 4 else "_q8") if c.kv_quant else ""
+        suffix = "" if use_kernels else "_reference"
+        self.decode, self.decode_multi = (
+            getattr(DA, f"fused_decode_attention{kind}{multi}{suffix}")
+            for multi in ("", "_multi"))
+        self.decode_kw = {"num_heads": c.num_attention_heads}
+        if kind == "_q4":
+            self.decode_kw["group"] = c.kv_group
         self.q_proj = nn.Linear(c.hidden_dim, c.hidden_dim, **kw)
         self.k_proj = nn.Linear(c.hidden_dim, c.hidden_dim, **kw)
         self.v_proj = nn.Linear(c.hidden_dim, c.hidden_dim, **kw)
@@ -126,9 +157,21 @@ class OPTAttention(nn.Module):
         under kv_quant (the caches are then the values and the plane)."""
         kf, vf = self.k_proj(h), self.v_proj(h)
         if self.kv_quant:
-            kf, vf = _kv_quantize(kf, vf)
+            kf, vf = _kv_quantize(self.cfg, kf, vf)
         _rows_update(k_cache, kf, index_vec)
         _rows_update(v_cache, vf, index_vec)
+
+    def _attend(self, decode, q, k_cache, v_cache, index):
+        """The decode call, with q rotated before it and its output rotated
+        back after it under kv_rotate, each cast back to q's dtype
+        (shape_opt.py:244-249, :271-273, :306-309, :328-329)."""
+        rotate = self.kv_quant and self.cfg.kv_rotate
+        if rotate:
+            q = KQ.rotate_rows(q, self.num_heads).to(q.dtype)
+        o = decode(q, k_cache, v_cache, index, **self.decode_kw)
+        if rotate:
+            o = KQ.rotate_rows(o, self.num_heads, inverse=True).to(q.dtype)
+        return o
 
     def step(self, h, k_cache, v_cache, index):
         """h [B, 1, C] at position `index`: a host int, or under kv_quant the
@@ -139,8 +182,7 @@ class OPTAttention(nn.Module):
         else:
             k_cache[:, index] = self.k_proj(h)[:, 0]
             v_cache[:, index] = self.v_proj(h)[:, 0]
-        o = self.decode(self.q_proj(h)[:, 0], k_cache, v_cache, index,
-                        num_heads=self.num_heads)
+        o = self._attend(self.decode, self.q_proj(h)[:, 0], k_cache, v_cache, index)
         return self.out_proj(o)[:, None]
 
     def verify_step(self, h, k_cache, v_cache, index_vec):
@@ -149,8 +191,7 @@ class OPTAttention(nn.Module):
         their cache rows in place, then query t attends over rows
         [0, index_vec[b] + t] (shape_opt.py:289-358)."""
         self._write_rows(h, k_cache, v_cache, index_vec)
-        o = self.decode_multi(self.q_proj(h), k_cache, v_cache, index_vec,
-                              num_heads=self.num_heads)
+        o = self._attend(self.decode_multi, self.q_proj(h), k_cache, v_cache, index_vec)
         return self.out_proj(o)
 
 
@@ -199,6 +240,7 @@ class ShapeOPTDecoder(nn.Module):
                  device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.cfg = c
         self.remat = c.remat
         self.kv_quant = c.kv_quant
         self.embd = nn.Embedding(c.vocab_size, c.hidden_dim, **kw)
@@ -220,16 +262,15 @@ class ShapeOPTDecoder(nn.Module):
 
     def prefill(self, inputs_embeds, max_len: int):
         """Returns (hidden [B, P, C], caches): per-layer lists of K and V
-        [B, max_len, hidden] buffers, or under kv_quant of int8 values
-        [B, max_len, 2·hidden] and bf16 planes [B, max_len, 128], zero past
-        the prompt."""
+        [B, max_len, hidden] buffers, or under kv_quant of the quantised
+        values and bf16 planes [B, max_len, 128], zero past the prompt."""
         B, P, C = inputs_embeds.shape
         h = inputs_embeds + self.embed_positions.weight[:P]
         ks, vs = [], []
         for layer in self.layers:
             h, k, v = layer.prefill(h)
             if self.kv_quant:
-                k, v = _kv_quantize(k, v)
+                k, v = _kv_quantize(self.cfg, k, v)
             for cache, rows in ((ks, k), (vs, v)):
                 buf = torch.zeros((B, max_len) + rows.shape[2:], dtype=rows.dtype,
                                   device=h.device)
@@ -239,7 +280,7 @@ class ShapeOPTDecoder(nn.Module):
 
     def step(self, token_ids, caches: Caches, index: int):
         """token_ids [B, 1] at position `index`; updates the caches in place.
-        Under kv_quant the int8 kernel takes the position from the device:
+        Under kv_quant the quantised kernel takes the position from the device:
         the step builds that vector once for all layers."""
         h = self.embd(token_ids) + self.embed_positions.weight[index]
         if self.kv_quant:
@@ -273,30 +314,59 @@ class ShapeOPT(nn.Module):
                                      dtype=dtype)
         self.lm_head = nn.Linear(c.hidden_dim, c.vocab_size, bias=False,
                                  device=device, dtype=dtype)
+        # the draft heads mtp_0 .. (shape_opt.py:657-663), zero at first so
+        # that each starts as the base head's distribution
+        for k in range(c.mtp_heads):
+            head = nn.Linear(c.hidden_dim, c.hidden_dim, device=device, dtype=dtype)
+            nn.init.zeros_(head.weight)
+            nn.init.zeros_(head.bias)
+            self.add_module(f"mtp_{k}", head)
+
+    @property
+    def mtp_proj(self) -> list:
+        return [getattr(self, f"mtp_{k}") for k in range(self.cfg.mtp_heads)]
+
+    def mtp_logits(self, h) -> list:
+        """Draft-head logits of hidden states h [..., C]: one [..., V] tensor
+        per head; head k predicts the token 2+k positions ahead of h's
+        (shape_opt.py:665-671)."""
+        return [self.lm_head(h + F.silu(p(h)).to(h.dtype)) for p in self.mtp_proj]
 
     def forward(self, inputs_embeds, lengths=None, labels=None, train: bool = False):
-        """Teacher-forcing logits [B, T, V]; with `labels`, (logits, loss)
-        (edgerunner_tpu/models/shape_opt.py:673-686)."""
-        logits = self.lm_head(self.model(inputs_embeds, lengths, train))
+        """Teacher-forcing logits [B, T, V]; with `labels`, (logits, loss,
+        loss_mtp): loss_mtp averages the draft heads' shifted cross-entropies
+        (shift 2+k), None without heads (edgerunner_tpu/models/shape_opt.py:673-690)."""
+        h = self.model(inputs_embeds, lengths, train)
+        logits = self.lm_head(h)
         if labels is None:
             return logits
-        return logits, shifted_cross_entropy(logits, labels)
+        loss_mtp = None
+        if self.mtp_proj:
+            aux = [shifted_cross_entropy(lg, labels, shift=2 + k)
+                   for k, lg in enumerate(self.mtp_logits(h))]
+            loss_mtp = sum(aux) / len(aux)
+        return logits, shifted_cross_entropy(logits, labels), loss_mtp
 
     def embed_tokens(self, ids):
         return self.model.embd(ids)
 
-    def prefill(self, inputs_embeds, max_len: int):
-        """Returns (next-token logits [B, 1, V], caches)."""
+    def prefill(self, inputs_embeds, max_len: int, with_hidden: bool = False):
+        """Returns (next-token logits [B, 1, V], caches), and with
+        `with_hidden` the last position's hidden state [B, 1, C] after them
+        (speculative decoding drafts from it)."""
         h, caches = self.model.prefill(inputs_embeds, max_len)
-        return self.lm_head(h[:, -1:]), caches
+        out = (self.lm_head(h[:, -1:]), caches)
+        return out + (h[:, -1:],) if with_hidden else out
 
     def step(self, token_ids, caches: Caches, index: int):
         return self.lm_head(self.model.step(token_ids, caches, index))
 
-    def verify_step(self, token_ids, caches: Caches, index_vec):
-        """Logits [B, T, V] of T tokens per row at per-row positions
-        (shape_opt.py:700-705); updates the caches in place."""
-        return self.lm_head(self.model.verify_step(token_ids, caches, index_vec))
+    def verify_step(self, token_ids, caches: Caches, index_vec, with_hidden: bool = False):
+        """Logits [B, T, V] of T tokens per row at per-row positions, and with
+        `with_hidden` their hidden states [B, T, C] (shape_opt.py:700-705);
+        updates the caches in place."""
+        h = self.model.verify_step(token_ids, caches, index_vec)
+        return (self.lm_head(h), h) if with_hidden else self.lm_head(h)
 
 
 def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

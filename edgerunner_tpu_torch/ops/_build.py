@@ -38,8 +38,8 @@ _SIGNATURES = {
     # q, k, v, out, part_o, part_m, part_l, B, L, H, D, index, chunk, dtype, stream
     "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, plane, index, out, part_o, part_m, part_l, B, L, H, D, T,
-    # row_stride, cache_dtype, q_dtype, scale, stream
-    "decode_attention_multi_fwd": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
+    # row_stride, group, v_lane, cache_dtype, q_dtype, scale, stream
+    "decode_attention_multi_fwd": [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P],
 }
 
 

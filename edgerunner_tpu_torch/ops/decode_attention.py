@@ -4,18 +4,21 @@ hand-written CUDA kernels and their plain versions.
 * `fused_decode_attention` (csrc/decode_attention.cu) replaces the TPU
   kernel `fused_decode_attention` (edgerunner_tpu/ops/decode_attention_pallas.py:139):
   one query per row, a host int position shared by all rows.
-* `fused_decode_attention_multi`, `fused_decode_attention_q8_multi` and
-  `fused_decode_attention_q8` (csrc/decode_attention_multi.cu, one kernel
+* `fused_decode_attention_multi`, `fused_decode_attention_q8_multi`,
+  `fused_decode_attention_q8`, `fused_decode_attention_q4_multi` and
+  `fused_decode_attention_q4` (csrc/decode_attention_multi.cu, one kernel
   templated on the cache's kind and on T) replace `fused_decode_attention_multi`
-  (:585), `fused_decode_attention_q8_multi` (:866) and
-  `fused_decode_attention_q8` (:445): T queries per row at per-row positions
-  held in an int32 [B] tensor on the device, over a bf16/f32 cache or the
-  int8 cache with its scale plane (ops/kv_quant.py). The wrappers never read
-  the positions on the host.
+  (:585), `fused_decode_attention_q8_multi` (:866), `fused_decode_attention_q8`
+  (:445), `fused_decode_attention_q4_multi` (:824) and
+  `fused_decode_attention_q4` (:401): T queries per row at per-row positions
+  held in an int32 [B] tensor on the device, over a bf16/f32 cache, the int8
+  cache or the int4 cache (per-row or grouped scales) with its scale plane
+  (ops/kv_quant.py). The wrappers never read the positions on the host.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version. The kernels are bound by bytes (see the sources'
-notes).
+notes): the int4 kind reads `hidden` bytes of nibbles per cached position
+plus 4 bytes of the plane with per-row scales, or 4·G with G group scales.
 """
 
 from __future__ import annotations
@@ -27,10 +30,17 @@ import math
 from edgerunner_tpu_torch.ops import _build
 from edgerunner_tpu_torch.ops.attention import decode_attention, decode_attention_multi
 from edgerunner_tpu_torch.ops.flash_attention import DTYPE_CODES, HEAD_DIMS
-from edgerunner_tpu_torch.ops.kv_quant import SCALE_LANES, dequantize_cache
+from edgerunner_tpu_torch.ops.kv_quant import (
+    SCALE_LANES,
+    V_GROUP_BASE,
+    check_group,
+    dequantize_cache,
+)
 
 __all__ = ["fused_decode_attention", "fused_decode_attention_multi",
-           "fused_decode_attention_multi_reference", "fused_decode_attention_q8",
+           "fused_decode_attention_multi_reference", "fused_decode_attention_q4",
+           "fused_decode_attention_q4_multi", "fused_decode_attention_q4_multi_reference",
+           "fused_decode_attention_q4_reference", "fused_decode_attention_q8",
            "fused_decode_attention_q8_multi", "fused_decode_attention_q8_multi_reference",
            "fused_decode_attention_q8_reference", "fused_decode_attention_reference"]
 
@@ -39,6 +49,9 @@ CHUNK = 256
 # queries per row that the multi-query kernel takes
 MAX_T = 8
 INT8_CODE = 2
+INT4_CODE = 3
+# the int4 kind also takes head dim 32 (a head straddling the nibble halves)
+INT4_HEAD_DIMS = (32,) + HEAD_DIMS
 
 
 def fused_decode_attention_reference(q, k_cache, v_cache, index: int, *,
@@ -147,16 +160,18 @@ def _positions(index, B: int, L: int, T: int, device) -> torch.Tensor:
 
 
 def _launch_multi(name, q, caches: dict, ptrs, index, num_heads: int,
-                  row_stride: int, cache_code: int) -> torch.Tensor:
+                  row_stride: int, cache_code: int, *, head_dims=HEAD_DIMS,
+                  group: int = 0, v_lane: int = 1) -> torch.Tensor:
     """Check what the kernel takes, allocate its output and scratch, launch.
     `caches` names the cache tensors (the first gives L); `ptrs` are the
-    kernel's K, V and scale-plane pointers into them."""
+    kernel's K, V and scale-plane pointers into them; `group` and `v_lane`
+    say where the plane holds the scales (per row: lanes 0 and 1)."""
     B, T, hd = q.shape
     L = next(iter(caches.values())).shape[1]
     H = num_heads
     D = hd // H
-    if hd != H * D or D not in HEAD_DIMS:
-        raise ValueError(f"{name} has kernels for head dims {HEAD_DIMS}, got hidden "
+    if hd != H * D or D not in head_dims:
+        raise ValueError(f"{name} has kernels for head dims {head_dims}, got hidden "
                          f"{hd} over {H} heads")
     if not 1 <= T <= MAX_T:
         raise ValueError(f"{name} takes 1 to {MAX_T} queries per row, got {T}")
@@ -175,7 +190,7 @@ def _launch_multi(name, q, caches: dict, ptrs, index, num_heads: int,
     err = lib.decode_attention_multi_fwd(
         q.data_ptr(), *ptrs, pos.data_ptr(), out.data_ptr(), part_o.data_ptr(),
         part_ml[0].data_ptr(), part_ml[1].data_ptr(), B, L, H, D, T, row_stride,
-        cache_code, DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D),
+        group, v_lane, cache_code, DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, name)
     return out
@@ -266,6 +281,85 @@ def fused_decode_attention_q8(q, kv_vals, scales, index, *,
     return out
 
 
+# ------------------------------------------------------------ the int4 cache --
+
+def fused_decode_attention_q4_multi_reference(q, kv_vals, scales, index, *, num_heads: int,
+                                              group: int = 0) -> torch.Tensor:
+    """The plain version over the int4 cache: dequantise in f32, then attend."""
+    k, v = dequantize_cache(kv_vals, scales, torch.float32, bits=4, group=group)
+    return fused_decode_attention_multi_reference(q, k, v, index, num_heads=num_heads)
+
+
+def fused_decode_attention_q4_reference(q, kv_vals, scales, index, *, num_heads: int,
+                                        group: int = 0) -> torch.Tensor:
+    """Row 7's plain version: q [B, hidden], one query per row."""
+    return fused_decode_attention_q4_multi_reference(q[:, None], kv_vals, scales, index,
+                                                     num_heads=num_heads, group=group)[:, 0]
+
+
+def _check_q4(name, q, kv_vals, scales, num_heads: int, group: int):
+    """Raise on int4-cache shapes, types and groups that do not fit q [B, T,
+    hidden], or that the kernel's 8-lane loads cannot take: hidden must be a
+    multiple of 16 and the head dim of 8, so that no load straddles
+    hidden/2."""
+    B, T, hd = q.shape
+    L = kv_vals.shape[1] if kv_vals.dim() == 3 else -1
+    if kv_vals.shape != (B, L, hd) or scales.shape != (B, L, SCALE_LANES):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, values "
+                         f"{tuple(kv_vals.shape)}, scales {tuple(scales.shape)} do not fit")
+    if kv_vals.dtype != torch.int8 or scales.dtype != torch.bfloat16:
+        raise ValueError(f"{name} takes int8 nibbles and a bf16 scale plane, got "
+                         f"{kv_vals.dtype}, {scales.dtype}")
+    if hd % 16 or hd % num_heads or (hd // num_heads) % 8:
+        raise ValueError(f"{name} takes a hidden width that is a multiple of 16 over "
+                         f"heads whose dim is a multiple of 8, got {hd} over {num_heads}")
+    if group:
+        check_group(hd, group)
+
+
+def _q4_launch(name, q, kv_vals, scales, index, num_heads: int, group: int) -> torch.Tensor:
+    hd = q.shape[-1]
+    return _launch_multi(name, q, {"kv_vals": kv_vals, "scales": scales},
+                         (kv_vals.data_ptr(), kv_vals.data_ptr() + hd // 2, scales.data_ptr()),
+                         index, num_heads, hd, INT4_CODE, head_dims=INT4_HEAD_DIMS,
+                         group=group, v_lane=V_GROUP_BASE if group else 1)
+
+
+def fused_decode_attention_q4_multi(q, kv_vals, scales, index, *, num_heads: int,
+                                    group: int = 0) -> torch.Tensor:
+    """Multi-query decode over the int4 cache: q [B, T, hidden] (bf16/f32);
+    kv_vals int8 [B, L, hidden] of packed nibbles (K's bytes, then V's) and
+    scales bf16 [B, L, 128] (per-row, or `group` lanes per scale) already
+    holding the T new rows at index[b] ..; index an int32 [B] tensor on q's
+    device. Returns [B, T, hidden] in q's dtype."""
+    _check_q4("fused_decode_attention_q4_multi", q, kv_vals, scales, num_heads, group)
+    if not _on_cuda("fused_decode_attention_q4_multi", q):
+        return fused_decode_attention_q4_multi_reference(q, kv_vals, scales, index,
+                                                         num_heads=num_heads, group=group)
+    out = _q4_launch("fused_decode_attention_q4_multi", q, kv_vals, scales, index,
+                     num_heads, group)
+    fused_decode_attention_q4_multi.launches += 1
+    return out
+
+
+def fused_decode_attention_q4(q, kv_vals, scales, index, *, num_heads: int,
+                              group: int = 0) -> torch.Tensor:
+    """One query per row over the int4 cache: q [B, hidden]; index an int32
+    [B] tensor on q's device (the decode step's position) or a host int.
+    Runs the kernel of `fused_decode_attention_q4_multi` at T = 1. Returns
+    [B, hidden]."""
+    _check_q4("fused_decode_attention_q4", q[:, None], kv_vals, scales, num_heads, group)
+    if not _on_cuda("fused_decode_attention_q4", q):
+        return fused_decode_attention_q4_reference(q, kv_vals, scales, index,
+                                                   num_heads=num_heads, group=group)
+    out = _q4_launch("fused_decode_attention_q4", q[:, None], kv_vals, scales, index,
+                     num_heads, group)[:, 0]
+    fused_decode_attention_q4.launches += 1
+    return out
+
+
 fused_decode_attention_multi.launches = 0
 fused_decode_attention_q8_multi.launches = 0
 fused_decode_attention_q8.launches = 0
+fused_decode_attention_q4_multi.launches = 0
+fused_decode_attention_q4.launches = 0

@@ -2,8 +2,8 @@
 (the counterpart of serve.py:54-597).
 
     python -m edgerunner_tpu_torch.serve ArAE [--resume w.safetensors] \\
-        --port 8217 --test_batch_size 8 [--kv_quant true --w_quant true] \\
-        [--device cuda|cpu]
+        --port 8217 --test_batch_size 8 [--kv_quant true [--kv_bits 4] --w_quant true] \\
+        [--mtp_heads 2 --spec_decode true --generate_mode greedy] [--device cuda|cpu]
 
 API, with the JAX server's JSON:
     GET  /healthz         -> {"ok": true, "cond_mode", "batch", "pipeline": false}

@@ -24,7 +24,16 @@ segment may run up to 2·DECODE_CHUNK steps after its last row ended. Such
 steps change nothing a delivered stream reads: a dead row writes PAD at
 tokens[n], and its n, pos and done stay as they are. All device work runs
 on the worker thread, under `torch.inference_mode()`; the callers' threads
-only queue requests and wait. Speculative decoding is not ported yet.
+only queue requests and wait.
+
+With `spec_decode`, `mtp_heads` > 0 and greedy mode, each engine step is a
+speculative pass instead (`body_spec`, serve_engine.py:254-316; the pass is
+generate.py's `spec_pass`): every row proposes 1 + mtp_heads tokens,
+verifies them in one multi-query pass at its own position and accepts 1 to
+1 + mtp_heads of them within its budget; the state carries the frontier's
+hidden state `h_last`, and the token buffer 1 + mtp_heads columns of write
+headroom. Without draft heads, or when sampling, spec_decode warns and the
+engine decodes one token per step, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -77,8 +86,6 @@ class ContinuousEngine:
     def __init__(self, model, opt, *, batch: int, segment_steps: int = 128,
                  max_faces: Optional[int] = None, bench_no_eos: bool = False,
                  max_queue: Optional[int] = None):
-        if opt.spec_decode or opt.mtp_heads:
-            raise ValueError("the port's engine does not implement speculative decoding yet")
         self.model = model
         self.device = next(model.parameters()).device
         self.opt = opt
@@ -89,7 +96,14 @@ class ContinuousEngine:
         self.mode = opt.generate_mode
         # benchmarking/tests: mask EOS so every row decodes its full budget
         self.no_eos = bench_no_eos
-        self.T = 1
+        # speculative decoding: 1 + num_draft proposals per row and pass,
+        # greedy only (serve_engine.py:76-85)
+        self.num_draft = (opt.mtp_heads if (opt.spec_decode and opt.mtp_heads > 0
+                                            and self.mode == "greedy") else 0)
+        if opt.spec_decode and self.num_draft == 0:
+            print("[WARN] serve engine: spec_decode needs mtp_heads > 0 and "
+                  "greedy mode; decoding one token per step")
+        self.T = 1 + self.num_draft
         self.plen, self.N, self.max_len = engine_shape(opt, max_faces)
 
         # bounded when max_queue is set: put_nowait in submit() enforces the
@@ -105,7 +119,8 @@ class ContinuousEngine:
         self._done_count = 0
         self._wall_sum = 0.0
         self._tokens_out = 0
-        # decode steps run so far, each one verify_step over every slot
+        # decode steps run so far, each one verify_step over every slot (a
+        # speculative pass under spec decoding)
         self.steps = 0
 
         self._ready = threading.Event()
@@ -161,21 +176,26 @@ class ContinuousEngine:
         nf = torch.full((1,), num_faces, dtype=torch.int64, device=self.device)
         prompt = torch.full((1, 1), self.opt.bos_token_id, dtype=torch.int64,
                             device=self.device)
-        logits, caches, _ = self.model.prefill(conds, nf, prompt, self.max_len)
-        return logits, caches
+        logits, caches, _, h_last = self.model.prefill(conds, nf, prompt, self.max_len,
+                                                       with_hidden=True)
+        return logits, caches, h_last
 
     def _init_state(self):
         B, dev = self.B, self.device
         # one B=1 prefill on a dummy request gives the caches' layout
         # (their kind depends on kv_quant)
-        logits, caches = self._prefill(self._dummy_cond(), 100)
+        logits, caches, h_last = self._prefill(self._dummy_cond(), 100)
 
         def zero(r):
             return torch.zeros((B,) + tuple(r.shape[1:]), dtype=r.dtype, device=dev)
 
         self.state = {
+            # + T columns of write headroom: a speculative pass writes T
+            # tokens at n <= budget - 1; rejected ones are overwritten later
             "tokens": torch.zeros((B, self.N + self.T), dtype=torch.int64, device=dev),
             "next_logits": zero(logits),
+            # the frontier's hidden state, from which the draft heads propose
+            "h_last": zero(h_last),
             "caches": tuple([zero(r) for r in rows] for rows in caches),
             # a free slot keeps decoding at its frozen position
             "pos": torch.full((B,), self.plen, dtype=torch.int32, device=dev),
@@ -187,6 +207,7 @@ class ContinuousEngine:
         self.gens = [torch.Generator(device=dev).manual_seed(self.opt.seed + i)
                      for i in range(B)]
         self._no_eos = torch.arange(self.vocab, device=dev)[None] != S.EOS_ID
+        self._cols = torch.arange(self.T, device=dev)
 
     def _dummy_cond(self):
         if self.opt.cond_mode == "point":
@@ -197,13 +218,14 @@ class ContinuousEngine:
     def _admit_one(self, slot: int, req: Request):
         opt, st, dev = self.opt, self.state, self.device
         conds = torch.as_tensor(np.asarray(req.points, np.float32)[None], device=dev)
-        row_logits, row_caches = self._prefill(conds, req.num_faces)
+        row_logits, row_caches, row_h = self._prefill(conds, req.num_faces)
         budget = round_up_bucket(min(req.num_faces * 5 + 64, self.N), opt.decode_bucket)
         for bigs, rows in zip(st["caches"], row_caches):
             for big, row in zip(bigs, rows):
                 big[slot] = row[0]
         st["tokens"][slot] = 0
         st["next_logits"][slot] = row_logits[0]
+        st["h_last"][slot] = row_h[0]
         st["pos"][slot] = self.plen
         st["n"][slot] = 0
         st["budget"][slot] = min(budget, self.N)
@@ -217,34 +239,53 @@ class ContinuousEngine:
 
     def _segment(self, active: torch.Tensor):
         """Up to segment_steps decode steps of every slot (the vanilla body,
-        serve_engine.py:220-252); stops within 2·DECODE_CHUNK steps of the
-        step after which no row is live."""
-        st, G, opt = self.state, self.G, self.opt
+        serve_engine.py:220-252, or the speculative one); stops within
+        2·DECODE_CHUNK steps of the step after which no row is live."""
+        st = self.state
         ended = None  # the host copy of "no row live" in flight
         for i in range(self.segment_steps):
-            mask = G.mask(st["gstate"], self.vocab)
-            if self.no_eos:
-                mask = mask & self._no_eos
-            logits = S.apply_mask(st["next_logits"][:, 0].float(), mask)
-            if self.mode == "greedy":
-                nxt = S.greedy_token(logits)
+            if self.num_draft:
+                self._step_spec(active)
             else:
-                nxt = S.sample_token_per_row(logits, self.gens, top_k=opt.top_k,
-                                             temperature=opt.temperature, top_p=opt.top_p)
-            live = active & ~st["done"] & (st["n"] < st["budget"])
-            nxt = torch.where(live, nxt, S.PAD_ID)
-            st["gstate"] = G.advance(st["gstate"], nxt)
-            st["done"] = st["done"] | (live & (nxt == S.EOS_ID))
-            st["tokens"].scatter_(1, st["n"].long()[:, None], nxt[:, None])
-            st["n"] = st["n"] + live.int()
-            st["next_logits"] = self.model.verify_step(nxt[:, None], st["caches"], st["pos"])
-            st["pos"] = st["pos"] + live.int()
+                self._step(active)
             self.steps += 1
             if (i + 1) % TG.DECODE_CHUNK == 0:
                 if ended is not None and TG.arrived(ended):
                     break
                 live = active & ~st["done"] & (st["n"] < st["budget"])
                 ended = TG.copy_to_host(~live.any())
+
+    def _step_spec(self, active: torch.Tensor):
+        """One speculative pass of every slot (serve_engine.py:254-316)."""
+        st = self.state
+        live = active & ~st["done"] & (st["n"] < st["budget"])
+        P, a, eos = TG.spec_pass(self.model, self.G, self.vocab, st, st["pos"], live,
+                                 st["budget"] - st["n"], self._no_eos if self.no_eos else None)
+        st["tokens"].scatter_(1, st["n"].long()[:, None] + self._cols, P)
+        st["done"] = st["done"] | eos
+        st["n"] = st["n"] + a
+        st["pos"] = st["pos"] + a
+
+    def _step(self, active: torch.Tensor):
+        """One decode step of every slot (serve_engine.py:220-252)."""
+        st, G, opt = self.state, self.G, self.opt
+        mask = G.mask(st["gstate"], self.vocab)
+        if self.no_eos:
+            mask = mask & self._no_eos
+        logits = S.apply_mask(st["next_logits"][:, 0].float(), mask)
+        if self.mode == "greedy":
+            nxt = S.greedy_token(logits)
+        else:
+            nxt = S.sample_token_per_row(logits, self.gens, top_k=opt.top_k,
+                                         temperature=opt.temperature, top_p=opt.top_p)
+        live = active & ~st["done"] & (st["n"] < st["budget"])
+        nxt = torch.where(live, nxt, S.PAD_ID)
+        st["gstate"] = G.advance(st["gstate"], nxt)
+        st["done"] = st["done"] | (live & (nxt == S.EOS_ID))
+        st["tokens"].scatter_(1, st["n"].long()[:, None], nxt[:, None])
+        st["n"] = st["n"] + live.int()
+        st["next_logits"] = self.model.verify_step(nxt[:, None], st["caches"], st["pos"])
+        st["pos"] = st["pos"] + live.int()
 
     def _finish_row(self, slot: int, tokens_np, n_np):
         req = self._slots[slot]

@@ -19,7 +19,7 @@ import torch
 
 from edgerunner_tpu_torch.train.state import make_optimizer
 
-METRICS = ("loss", "loss_ce", "loss_kl")
+METRICS = ("loss", "loss_ce", "loss_kl", "loss_mtp")
 
 
 def step_seeds(seed: int, step: int) -> tuple:
@@ -112,7 +112,7 @@ class Trainer:
                 if mem:
                     log = log.replace(" lr:", f" mem: {mem} lr:", 1)
                 log += f" gnorm: {m['grad_norm']:.3f}"
-                for k in ("loss_ce", "loss_kl"):
+                for k in ("loss_ce", "loss_kl", "loss_mtp"):
                     if k in m:
                         log += f" {k}: {m[k]:.6f}"
                 self.log(log)

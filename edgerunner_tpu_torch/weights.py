@@ -9,6 +9,12 @@ tools/export_reference_ckpt.py:export_lmm emits (:116-128, `_shape_opt`
 :76-93, `_point_encoder` :58-74); this module keeps its own copy of that
 mapping. Flax kernels are [in, out], torch weights [out, in].
 
+`export_lmm` has no name for the multi-token-prediction draft heads
+(`--mtp_heads`): the port names head k `mesh_decoder.mtp_{k}.weight` and
+`.bias`, after the JAX module `mtp_{k}` beside `lm_head`, and carries them
+both ways; a model with draft heads loads only weights that hold them
+(strict=True).
+
 A `w_quant` model loads as the JAX package loads one (serve.py:497-505,
 infer.py:124-133): the exact weights cross over into the plain model and
 its decoder projections are quantised after (`load_for_inference`).
@@ -72,6 +78,10 @@ def _shape_opt(sd, prefix, tree):
         _layernorm(sd, lp + ".final_layer_norm", lt["final_layer_norm"])
         i += 1
     _linear(sd, prefix + ".lm_head", tree["lm_head"])
+    k = 0
+    while f"mtp_{k}" in tree:
+        _linear(sd, f"{prefix}.mtp_{k}", tree[f"mtp_{k}"])
+        k += 1
 
 
 def state_dict_from_flax(tree) -> dict:
@@ -202,6 +212,10 @@ def flax_from_state_dict(sd: dict) -> dict:
         i += 1
     params["mesh_decoder"] = {"model": model,
                               "lm_head": _unlinear({}, sd, "mesh_decoder.lm_head")}
+    k = 0
+    while f"mesh_decoder.mtp_{k}.weight" in sd:
+        params["mesh_decoder"][f"mtp_{k}"] = _unlinear({}, sd, f"mesh_decoder.mtp_{k}")
+        k += 1
     return {"params": params}
 
 

@@ -23,6 +23,7 @@ from edgerunner_tpu_torch.ops.decode_attention import (
     fused_decode_attention_reference,
 )
 from edgerunner_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=2e-5, rtol=2e-4)
 

@@ -19,6 +19,7 @@ from edgerunner_tpu_torch.data import save_mesh_file
 from edgerunner_tpu_torch.data._procgen import icosphere
 from edgerunner_tpu_torch.tokenizer import Engine as TEngine
 from edgerunner_tpu_torch.tokenizer import decimate
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KW = dict(cond_mode="point", point_num=64, max_seq_length=4096, num_cond_tokens=17,
           point_latent_size=16, collate_bucket=64, testset_size=2, num_workers=2, seed=3)

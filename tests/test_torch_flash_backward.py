@@ -30,6 +30,7 @@ from edgerunner_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_reference,
     flash_attention_reference,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-4, rtol=1e-3)
 

@@ -13,6 +13,7 @@ import edgerunner_tpu_torch.generate as TG
 from edgerunner_tpu_torch.config import Options
 from edgerunner_tpu_torch.models.lmm import LMM, init_weights
 from edgerunner_tpu_torch.ops.sampling import EOS_ID, PAD_ID
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 OPT = Options(cond_mode="point", point_latent_size=16, num_cond_tokens=17,
               point_hidden_dim=64, point_num_heads=2, point_latent_dim=8,

@@ -10,6 +10,7 @@ import torch
 from edgerunner_tpu_torch import infer
 from edgerunner_tpu_torch.config import parse_cli
 from edgerunner_tpu_torch.data import load_mesh, save_mesh_file
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = ["--hidden_dim", "64", "--num_layers", "2", "--num_heads", "2",
         "--point_hidden_dim", "64", "--point_num_heads", "2", "--point_latent_size", "16",

@@ -9,6 +9,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "edgerunner_tpu")
@@ -69,15 +70,23 @@ def test_validate_refuses_options_the_port_does_not_run():
 
     import dataclasses
 
-    for change in (dict(kv_quant=True, kv_bits=4), dict(kv_quant=True, kv_rotate=True),
-                   dict(kv_quant=True, kv_group=96), dict(mtp_heads=2),
-                   dict(spec_decode=True), dict(cond_mode="image"),
+    # what the JAX package asserts against (kv_quant.py:145-148): more than 64
+    # group scales (1536 / 12 = 128), a group that does not divide hidden
+    for change in (dict(kv_quant=True, kv_bits=4, kv_group=12),
+                   dict(kv_quant=True, kv_bits=4, kv_group=100),
+                   dict(kv_quant=True, kv_bits=3), dict(cond_mode="image"),
                    dict(point_encoder_mode="downsample"), dict(num_cond_tokens=7)):
         with pytest.raises(ValueError):
             validate(dataclasses.replace(config_defaults["ArAE"], **change))
     validate(dataclasses.replace(config_defaults["ArAE"]))
-    # the int8 KV cache and int8 weights are ported
-    for ok in (dict(kv_quant=True), dict(w_quant=True), dict(kv_quant=True, w_quant=True)):
+    # the int8 and int4 KV caches (grouped, rotated), int8 weights, the draft
+    # heads and speculative decoding are ported; spec_decode outside greedy
+    # mode warns and decodes vanilla, as in the JAX package
+    for ok in (dict(kv_quant=True), dict(w_quant=True), dict(kv_quant=True, w_quant=True),
+               dict(kv_quant=True, kv_bits=4), dict(kv_quant=True, kv_rotate=True),
+               dict(kv_quant=True, kv_bits=4, kv_group=96), dict(mtp_heads=2),
+               dict(spec_decode=True), dict(mtp_heads=2, spec_decode=True,
+                                            generate_mode="sample")):
         validate(dataclasses.replace(config_defaults["ArAE"], **ok))
 
 

@@ -23,6 +23,7 @@ from edgerunner_tpu_torch.ops import decode_attention as DA
 from edgerunner_tpu_torch.ops import kv_quant as TQ
 from edgerunner_tpu_torch.ops import w_quant as TW
 from edgerunner_tpu_torch.weights import load_state, state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # f32 sums in another order: the plain versions agree with the Pallas
 # kernels to rounding

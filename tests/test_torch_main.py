@@ -19,6 +19,7 @@ from edgerunner_tpu_torch.weights import (
     read_safetensors,
     state_dict_from_flax,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = ["--hidden_dim", "64", "--num_layers", "2", "--num_heads", "2",
         "--point_hidden_dim", "64", "--point_num_heads", "2", "--point_latent_size", "16",

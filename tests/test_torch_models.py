@@ -21,6 +21,7 @@ from edgerunner_tpu_torch.models import layers as tl
 from edgerunner_tpu_torch.models.lmm import LMM
 from edgerunner_tpu_torch.models.point_encoder import latent_kl
 from edgerunner_tpu_torch.weights import load_state, state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 B, N_POINTS = 2, 48

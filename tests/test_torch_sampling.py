@@ -12,6 +12,7 @@ import torch
 
 from edgerunner_tpu.ops import sampling as JS
 from edgerunner_tpu_torch.ops import sampling as S
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _lr_stream(rng, B, T, vocab):

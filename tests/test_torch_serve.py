@@ -31,6 +31,7 @@ from edgerunner_tpu_torch.models.lmm import LMM
 from edgerunner_tpu_torch.serve_engine import ContinuousEngine, EngineOverloaded
 from edgerunner_tpu_torch.utils import get_tokenizer
 from edgerunner_tpu_torch.weights import load_state, state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_POINTS = 40

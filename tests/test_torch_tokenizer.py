@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from edgerunner_tpu_torch.tokenizer import Engine
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN_FILES = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "golden", "*.json")))
 BACKENDS = {"LR_ABSCO": "lr_absco", "LR": "lr", "CLERS": "clers"}

@@ -32,6 +32,7 @@ from edgerunner_tpu_torch.models.lmm import LMM
 from edgerunner_tpu_torch.train.state import AdamW, cosine_warmup_schedule, make_optimizer
 from edgerunner_tpu_torch.train.trainer import Trainer
 from edgerunner_tpu_torch.weights import load_state, state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 B, N_POINTS, L = 2, 48, 24

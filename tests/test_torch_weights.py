@@ -16,6 +16,7 @@ from edgerunner_tpu.models.lmm import LMM as JLMM
 from edgerunner_tpu_torch.config import Options as TOptions
 from edgerunner_tpu_torch.models.lmm import LMM, init_weights
 from edgerunner_tpu_torch.weights import load_state, read_safetensors, state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(cond_mode="point", point_latent_size=16, num_cond_tokens=17,
