@@ -9,13 +9,14 @@ Phases, one JSON line each:
 
 1. build     nvcc builds every kernel from edgerunner_tpu_torch/csrc.
 2. kernels   each CUDA kernel against its plain PyTorch version on the card,
-             at the main paths' shapes (generation, serving and training)
-             and at ragged ones, bf16, f32, int8 and int4 caches (per-row
-             and grouped scales, a head straddling the nibble halves), with
-             its tolerance; at the main-path shapes also its time, the plain
-             version's, one PyTorch library call's (a yardstick the port
-             never calls; none attends over a quantised cache) and the least
-             time the card could take.
+             at the main paths' shapes (generation, serving, training and
+             the sp ring's blocks, where row 5 takes a non-zero lse
+             cotangent) and at ragged ones, bf16, f32, int8 and int4 caches
+             (per-row and grouped scales, a head straddling the nibble
+             halves), with its tolerance; at the main-path shapes also its
+             time, the plain version's, one PyTorch library call's (a
+             yardstick the port never calls; none attends over a quantised
+             cache) and the least time the card could take.
 3. generate  the main path: `generate_tokens` at full ArAE width (24 layers,
              hidden 1536, 8192 points, 2049 condition tokens), bf16, random
              weights from a seed, 12 rows, 1000 faces, bench.py's 4096-token
@@ -23,7 +24,7 @@ Phases, one JSON line each:
              just before and read just after; row 0 is detokenised into a
              mesh with the port's metok copy.
 4. generate_q8  the same path over the int8 KV cache (--kv_quant true) with
-             a 2048-token budget; its decode kernel's launches held exactly.
+             a 1024-token budget; its decode kernel's launches held exactly.
 5. generate_q4  bench.py's quant_fast configuration (--kv_quant true
              --kv_bits 4 --w_quant true, 40 rows) with a 1024-token budget;
              row 7's launches held exactly; a profiled segment.
@@ -56,6 +57,17 @@ Phases, one JSON line each:
              counts, the last loss below the first; then one profiled step.
 12. train_parity  2 layers at full width in f32: the training loss and every
              parameter's gradient of the kernel path against the plain path.
+13. sp       sequence parallelism with ranks that share the card (gloo,
+             staged through pinned host memory), spawned from this process:
+             the causal ring at full width ([2, 6148, 16, 96], bf16 and f32)
+             over 2 and 4 ranks against single-process attention; with 2
+             ranks the full-width training step (bf16 autocast,
+             checkpointing, bench.py's train batch padded to 6148): its
+             held-out loss against the single-process one, then SP_TRAIN_STEPS
+             timed steps with row 5's launches held exactly per rank, s/it
+             and peak memory per rank, the bytes the ring shifts, the
+             parameters' checksum equal on every rank; and the f32 parity of
+             its loss and gradients against one process at 2 layers.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit from nvidia-smi, and last the result line. Exits non-zero, printing
@@ -89,16 +101,19 @@ TRAIN_ROWS = 2           # bench.py's train probe: batch 2 ...
 TRAIN_MESH_TOKENS = 4096  # ... of BOS + 4096 mesh tokens + EOS after the condition
 TRAIN_RAGGED_LEN = 5000  # a shorter second row for the kernels' ragged train cases
 TRAIN_STEPS = 3          # timed training steps after one warm-up step
+SP_TRAIN_STEPS = 2       # sp phase: timed steps after one warm-up step (three in all)
 GRAD_TOL = 2e-2          # train parity: gradient error over the tensor's largest value
 PHASES = ("build", "kernels", "generate", "generate_q8", "generate_q4", "parity", "parity_q4",
-          "serve", "serve_parity", "spec", "train", "train_parity")
-Q8_BUDGET = 2048         # generate_q8: a shorter budget than the bf16 generate phase
+          "serve", "serve_parity", "spec", "train", "train_parity", "sp")
+Q8_BUDGET = 1024         # generate_q8: a shorter budget than the bf16 generate phase
+                         # (one decode bucket, cut from 2048 for the sp phase's time)
 Q4_ROWS = 40             # bench.py's quant_fast probe: int4 KV + int8 weights at batch 40 ...
 Q4_FULL_BUDGET = 4096    # ... and the headline's 4096-token budget (bench.py:464-469)
 Q4_BUDGET = 1024         # generate_q4: that budget cut for time
 SERVE_FACES = (100, 200)  # the HTTP requests' face counts (budgets 1024 and 2048 tokens)
 SERVE_HTTP_REQUESTS = 10  # 8 at once, 2 more while they decode
-SERVE_BENCH_REQUESTS = 16  # into SERVE_ROWS slots, EOS forbidden ...
+SERVE_BENCH_REQUESTS = 8  # into SERVE_ROWS slots (one wave, cut from two for the sp
+                          # phase's time), EOS forbidden ...
 SERVE_BENCH_FACES = 100    # ... 1024 tokens each
 SERVE_BENCH_Q8_REQUESTS = 8  # one wave: the int8 + w_quant engine is slower
 SERVE_BENCH_Q4_REQUESTS = 8  # one wave over the int4 cache (--kv_quant true --kv_bits 4)
@@ -106,10 +121,13 @@ SPEC_HEADS = 2           # --mtp_heads 2 --spec_decode true: verify passes at T 
 MTP_STD = 0.02           # the random draft heads' weights (the init's std)
 SPEC_ROWS = ROWS         # spec generate: the headline batch ...
 SPEC_BUDGET = 1024       # ... and a budget cut for time (one decode bucket)
-PROFILE_STEPS = 16       # engine steps in a profiled segment
+PROFILE_STEPS = 8        # engine steps in a profiled segment (cut from 16 for the sp
+                         # phase's time: the profiler's processing grows with them)
 SERVE_PARITY_FACES = (10, 20, 10, 20, 10, 20)  # 6 staggered requests into 4 slots
 SERVE_PARITY_BUCKET = 128
 NEAR_TIE = 1e-3          # plain top-2 logit gap under which a flip is allowed
+SP_RING_RANKS = (2, 4)   # sp phase: groups of ranks sharing the card, the ring at full width
+SP_TRAIN_RANKS = 2       # ... and the one that also takes the full-width training step
 # the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -272,6 +290,86 @@ def flash_bwd_case(dev, B, N, M, H, D, causal, dtype, kv_len=None, q_len=None,
     return res
 
 
+def lse_library_call(q, k, v, causal):
+    """One PyTorch call that returns the output and its logsumexp, on
+    [B, H, N, D] views: the flash kernel of scaled_dot_product_attention for
+    bf16, the memory-efficient one for f32 (the flash kernel takes half
+    types only). A yardstick: the port never calls it."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        name = "aten._scaled_dot_product_flash_attention"
+        return name, lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, causal)
+    name = "aten._scaled_dot_product_efficient_attention"
+    return name, lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        qt, kt, vt, None, True, 0.0, causal)
+
+
+def flash_lse_case(dev, B, S, H, D, causal, dtype, timed=False):
+    """Row 5 at a ring block's shape [B, S, H, D]: `flash_attention_lse` and
+    its backward with a non-zero lse cotangent against their plain versions
+    on the same inputs (o and lse from the forward kernel feed both
+    backwards)."""
+    from edgerunner_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_reference,
+        flash_attention_lse,
+        flash_attention_lse_bwd,
+        flash_attention_reference,
+    )
+
+    g, q, k, v, _ = attention_inputs(dev, B, S, S, H, D, causal, dtype, None, None)
+    do = torch.randn((B, S, H, D), device=dev, generator=g).to(dtype)
+    dlse = torch.randn((B, S, H), device=dev, generator=g)
+    o, lse = flash_attention_lse(q, k, v, causal=causal)
+    ref, ref_lse = flash_attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    res = {"shape": [B, S, S, H, D], "causal": causal, "dtype": str(dtype).split(".")[-1],
+           "out": compare(o, ref, dtype)}
+    del ref
+    lse_err = (lse - ref_lse).abs().max().item()
+    res.update(lse_max_abs_err=lse_err, lse_tolerance=1e-3)
+    grads = flash_attention_lse_bwd(q, k, v, o, lse, do, dlse, causal=causal)
+    refs = flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal, dlse=dlse)
+    torch.cuda.synchronize()
+    checks = {name: compare(a, b, dtype) for name, a, b in zip(("dq", "dk", "dv"), grads, refs)}
+    res.update(checks)
+    del grads, refs
+    res["max_abs_err"] = max(c["max_abs_err"] for c in (res["out"], *checks.values()))
+    res["ok"] = res["out"]["ok"] and lse_err <= 1e-3 and all(c["ok"] for c in checks.values())
+    if timed:
+        res["ms"] = time_ms(lambda: flash_attention_lse(q, k, v, causal=causal), 5)
+        res["plain_ms"] = time_ms(lambda: flash_attention_reference(q, k, v, causal=causal), 2)
+        res["library"], call = lse_library_call(q, k, v, causal)
+        try:
+            res["library_ms"] = time_ms(call, 5)
+        except RuntimeError as exc:  # a library kernel that refuses the shape: no yardstick
+            res["library_ms"], res["library_refused"] = None, str(exc)[:300]
+        pairs = attention_pairs(B, S, S, causal)
+        res.update(bound(4.0 * H * D * pairs,
+                         4 * q.numel() * q.element_size() + lse.numel() * 4, dtype))
+        bwd = {"ms": time_ms(lambda: flash_attention_lse_bwd(
+            q, k, v, o, lse, do, dlse, causal=causal), 3)}
+        bwd["plain_ms"] = time_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, o, lse, do, causal=causal, dlse=dlse), 1)
+        if dtype == torch.bfloat16:
+            import torch.nn.functional as F
+
+            # the yardstick of the backward: SDPA's, at the same shape (no lse cotangent)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            dot = do.transpose(1, 2)
+            bwd["library"] = "scaled_dot_product_attention backward"
+            bwd["library_ms"] = time_ms(
+                lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 3)
+            del out
+        else:
+            bwd["library_ms"] = None
+        bwd.update(bound(10.0 * H * D * pairs, (4 * q.numel() + 4 * k.numel())
+                         * q.element_size() + 2 * lse.numel() * 4, dtype))
+        res["bwd"] = bwd
+    return res
+
+
 def decode_case(dev, B, L, hidden, H, index, dtype, timed=False):
     from edgerunner_tpu_torch.ops.decode_attention import (
         fused_decode_attention,
@@ -407,6 +505,11 @@ def train_positions(opt) -> int:
     return opt.num_cond_tokens + 1 + TRAIN_MESH_TOKENS + 1
 
 
+def sp_positions(opt) -> int:
+    """The train batch's positions padded to a multiple of 2 and of 4 ranks."""
+    return -(-train_positions(opt) // 4) * 4
+
+
 def phase_kernels(dev):
     from edgerunner_tpu_torch.generate import decode_shape
 
@@ -519,9 +622,23 @@ def phase_kernels(dev):
         dict(case="int4 ragged d64 g32 T=5", **multi_case(dev, "int4", 3, 700, 1024, 16, 5,
                                                           [0, 256, 695], group=32)),
     ]
-    ok = all(c["ok"] for c in flash + flash_bwd + decode + multi)
+    # row 5 at the ring's blocks of the train batch padded for R ranks: the
+    # causal diagonal and the full off-diagonal blocks
+    flash_lse = []
+    for dtype in (bf, f32):
+        for R, causal in ((2, False), (2, True), (4, False)):
+            S = sp_positions(opt) // R
+            flash_lse.append(dict(
+                case=f"ring R={R} {'diagonal' if causal else 'off-diagonal'} "
+                     f"{str(dtype).split('.')[-1]}" + (" (main path)" if R == 2 and not causal
+                                                       and dtype == bf else ""),
+                **flash_lse_case(dev, TRAIN_ROWS, S, H, hd // H, causal, dtype,
+                                 timed=dtype == bf)))
+    flash_lse.append(dict(case="ragged 77 d64 causal f32",
+                          **flash_lse_case(dev, 3, 77, 2, 64, True, f32)))
+    ok = all(c["ok"] for c in flash + flash_bwd + decode + multi + flash_lse)
     return {"ok": ok, "flash": flash, "flash_bwd": flash_bwd, "decode": decode,
-            "decode_multi": multi}
+            "decode_multi": multi, "flash_lse": flash_lse}
 
 
 def build_model(opt, dev, dtype, seed, use_kernels=True):
@@ -1436,6 +1553,259 @@ def phase_train_parity(dev):
                          "+ 1e-6 * max over tensors of max|g_plain|"}
 
 
+# ---------------------------------------------------------------------- sp --
+
+def param_checksum(params) -> int:
+    """An exact fingerprint of f32 parameters: the sum of their bits as int64."""
+    return int(sum(p.detach().view(torch.int32).long().sum().item() for p in params))
+
+
+def sp_launch_counts() -> dict:
+    from edgerunner_tpu_torch.ops import flash_attention as FA
+
+    return {"flash_attention_lse": FA.flash_attention_lse.launches,
+            "flash_attention_lse_bwd": FA.flash_attention_lse_bwd.launches,
+            "flash_attention_fwd": FA.flash_attention.launches,
+            "flash_attention_bwd": FA.flash_attention_bwd.launches}
+
+
+def zero_sp_launch_counts():
+    from edgerunner_tpu_torch.ops import flash_attention as FA
+
+    for fn in (FA.flash_attention_lse, FA.flash_attention_lse_bwd, FA.flash_attention,
+               FA.flash_attention_bwd):
+        fn.launches = 0
+
+
+def sp_ring(dev, sp) -> list:
+    """Causal ring attention of the full train-batch arrays [2, 6148, 16, 96]
+    over the group, bf16 and f32: the gathered output and the gradients
+    (summed over the ranks) against single-process `attention` (kernels A
+    and C) on the same arrays, on rank 0; row 5 launched r + 1 times
+    forward and backward on rank r."""
+    from edgerunner_tpu_torch.config import config_defaults
+    from edgerunner_tpu_torch.ops.attention import attention
+    from edgerunner_tpu_torch.ops.ring_attention import ring_self_attention
+    from edgerunner_tpu_torch.parallel import all_reduce_
+
+    opt = config_defaults["ArAE"]
+    H, D, N = opt.num_heads, opt.hidden_dim // opt.num_heads, sp_positions(opt)
+    runs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=dev).manual_seed(11)
+        q, k, v, do = (torch.randn((TRAIN_ROWS, N, H, D), device=dev, generator=g).to(dtype)
+                       for _ in range(4))
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        zero_sp_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ring_self_attention(*x, sp, causal=True)
+        grads = list(torch.autograd.grad(out, x, do))
+        all_reduce_(grads, sp)
+        torch.cuda.synchronize()
+        run = {"dtype": str(dtype).split(".")[-1], "shape": [TRAIN_ROWS, N, H, D],
+               "s": time.perf_counter() - t0, "launches": sp_launch_counts(),
+               "launches_expected": {"flash_attention_lse": sp.rank + 1,
+                                     "flash_attention_lse_bwd": sp.rank + 1,
+                                     "flash_attention_fwd": 0, "flash_attention_bwd": 0}}
+        run["ok"] = run["launches"] == run["launches_expected"]
+        if sp.rank == 0:
+            y = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref = attention(*y, causal=True)
+            refs = torch.autograd.grad(ref, y, do)
+            checks = {"out": compare(out, ref, dtype),
+                      **{f"d{n}": compare(a, b, dtype) for n, a, b in zip("qkv", grads, refs)}}
+            run.update(checks)
+            run["ok"] = run["ok"] and all(c["ok"] for c in checks.values())
+            del ref, refs, y
+        runs.append(run)
+        del x, out, grads, q, k, v, do
+    return runs
+
+
+def sp_train(dev, sp) -> dict:
+    """The ArAE training step at full width over the group: bench.py's train
+    batch (2 rows of 6147 positions, padded to 6148), bf16 autocast,
+    checkpointing and dropout on, as the train phase. First the held-out
+    loss of the batch under sp against rank 0's single-process loss from
+    the same weights (within 2^-8 of it: one bf16 step); then one warm-up
+    and SP_TRAIN_STEPS timed steps, each step's launches counted from 0 and
+    held to 2 * layers * (r + 1) forward and layers * (r + 1) backward
+    launches of row 5 on rank r (checkpointing replays the forward), and 2
+    forward and 1 backward of rows 1/3 (the point encoder)."""
+    from edgerunner_tpu_torch.config import config_defaults
+    from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+    from edgerunner_tpu_torch.parallel import ring_shift
+    from edgerunner_tpu_torch.train.trainer import Trainer, pad_for_sp
+
+    opt = dataclasses.replace(config_defaults["ArAE"], batch_size=TRAIN_ROWS, sp_size=sp.size)
+    t0 = time.perf_counter()
+    trainer = Trainer(init_weights(LMM(opt, device=dev), SEED), opt, total_steps=1000, sp=sp)
+    trainer.init_state()
+    batch = train_batch(opt, TRAIN_ROWS)
+    setup_s = time.perf_counter() - t0
+    res = {"rows": TRAIN_ROWS, "positions": train_positions(opt),
+           "padded_positions": pad_for_sp(batch, sp.size, opt.pad_token_id)["labels"].shape[1],
+           "layers": opt.num_layers, "autocast": "bfloat16", "checkpointing": opt.checkpointing,
+           "setup_s": setup_s, "eval_loss_sp": trainer.eval_loss(batch)}
+    if sp.rank == 0:
+        with torch.no_grad():
+            res["eval_loss_solo"] = float(trainer.eval_step(batch)["loss"])
+        res["eval_loss_rel_err"] = abs(res["eval_loss_sp"] - res["eval_loss_solo"]) / abs(
+            res["eval_loss_solo"])
+        res["eval_loss_tolerance"] = 2.0 ** -8
+    L, r = opt.num_layers, sp.rank
+    want = {"flash_attention_lse": 2 * L * (r + 1), "flash_attention_lse_bwd": L * (r + 1),
+            "flash_attention_fwd": 2, "flash_attention_bwd": 1}
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for _ in range(1 + SP_TRAIN_STEPS):
+        zero_sp_launch_counts()
+        sent = ring_shift.bytes
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t1, **m, "launches": sp_launch_counts(),
+                      "ring_bytes": ring_shift.bytes - sent})
+    losses = [st["loss"] for st in steps]
+    res.update(
+        warmup_s=steps[0]["s"], timed_steps=SP_TRAIN_STEPS,
+        s_per_it=sum(st["s"] for st in steps[1:]) / SP_TRAIN_STEPS,
+        s_per_it_label=f"{sp.size} ranks sharing one card",
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        ring_bytes_per_step=steps[-1]["ring_bytes"],
+        allreduce_bytes_per_step=sum(p.numel() * p.element_size()
+                                     for p in trainer.params.values()),
+        losses=losses, grad_norms=[st["grad_norm"] for st in steps],
+        launches_per_step=[st["launches"] for st in steps], launches_expected_per_step=want,
+        launches={k: sum(st["launches"][k] for st in steps[1:]) for k in want},
+        param_checksum=param_checksum(trainer.params.values()))
+    ok = (all(st["launches"] == want for st in steps) and all(np.isfinite(losses))
+          and losses[-1] < losses[0])
+    if sp.rank == 0:
+        ok = ok and res["eval_loss_rel_err"] <= res["eval_loss_tolerance"]
+    res["ok"] = bool(ok)
+    return res
+
+
+def sp_parity(dev, sp) -> dict:
+    """2 layers at full width in f32 (TF32 off), dropout off: the loss and
+    every parameter's gradient (summed over the ranks) of a step over the
+    group against rank 0's single-process step on the same weights and the
+    train batch with its second row cut to TRAIN_RAGGED_LEN, under train
+    parity's tolerance."""
+    from edgerunner_tpu_torch.config import config_defaults
+    from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+    from edgerunner_tpu_torch.parallel import all_reduce_, sequence_parallel
+    from edgerunner_tpu_torch.train.trainer import pad_for_sp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt = dataclasses.replace(config_defaults["ArAE"], num_layers=2, mixed_precision="no",
+                              sp_size=sp.size)
+    model = init_weights(LMM(opt, device=dev), SEED + 2)
+    params = dict(model.named_parameters())
+    batch = train_batch(opt, TRAIN_ROWS, lengths=[train_positions(opt), TRAIN_RAGGED_LEN])
+
+    def loss_and_grads(b):
+        b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        o = model(b["conds"], b["tokens"], b["labels"], b["num_faces"], b["lengths"],
+                  train=False)
+        return o["loss"], list(torch.autograd.grad(o["loss"], list(params.values())))
+
+    with sequence_parallel(sp):
+        loss, grads = loss_and_grads(pad_for_sp(batch, sp.size, opt.pad_token_id))
+    total = torch.stack([loss.detach()])
+    all_reduce_([total] + grads, sp)
+    res = {"layers": 2, "dtype": "float32", "tf32": False, "loss_sp": total.item()}
+    if sp.rank != 0:
+        return res
+    loss1, grads1 = loss_and_grads(batch)
+    top = max(g.abs().max().item() for g in grads1)
+    worst, worst_name = 0.0, None
+    for n, g, g1 in zip(params, grads, grads1):
+        err = (g - g1).abs().max().item() / (GRAD_TOL * g1.abs().max().item() + 1e-6 * top)
+        if err > worst:
+            worst, worst_name = err, n
+    loss_err = abs(total.item() - loss1.item()) / abs(loss1.item())
+    res.update(loss_solo=loss1.item(), loss_rel_err=loss_err, grad_tensors=len(grads1),
+               grad_worst_err_over_tol=worst, grad_worst_tensor=worst_name,
+               tolerance=f"loss rel <= 1e-5; per tensor max|dg| <= {GRAD_TOL} * "
+                         "max|g_solo| + 1e-6 * max over tensors of max|g_solo|",
+               ok=loss_err <= 1e-5 and worst <= 1.0)
+    return res
+
+
+def sp_rank(rank, R, path):
+    """One rank of the sp phase: joins the group through a file under
+    `path`, runs the ring at full width and, with SP_TRAIN_RANKS ranks, the
+    training step and its f32 parity; writes its results to
+    path/rank{rank}.json."""
+    import torch.distributed as dist
+
+    from edgerunner_tpu_torch.parallel import SequenceParallel, init_distributed, rank_device
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    dev = rank_device("cuda")
+    backend = init_distributed(dev, rank=rank, world_size=R,
+                               init_method=f"file://{os.path.join(path, 'init')}")
+    sp = SequenceParallel.world(dev)
+    out = {"rank": rank, "device": str(dev), "backend": backend, "staged": sp.staged,
+           "describe": sp.describe()}
+    try:
+        out["ring"] = sp_ring(dev, sp)
+        if R == SP_TRAIN_RANKS:
+            torch.cuda.empty_cache()
+            out["train"] = sp_train(dev, sp)
+            torch.cuda.empty_cache()
+            out["parity"] = sp_parity(dev, sp)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(path, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_sp(dev):
+    """Sequence parallelism on the card: SP_RING_RANKS groups of ranks that
+    share the card (gloo, pinned host staging), spawned from this process
+    with `torch.multiprocessing.spawn`; a rank that fails fails the phase.
+    R = 2: the ring at full width, the ArAE training step at full width,
+    its f32 parity at 2 layers. R = 4: the ring at full width."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from edgerunner_tpu_torch.parallel import choose_backend
+
+    res = {"card": card_line()}
+    with tempfile.TemporaryDirectory() as tmp:
+        for R in SP_RING_RANKS:
+            path = os.path.join(tmp, f"ranks{R}")
+            os.makedirs(path)
+            t0 = time.perf_counter()
+            mp.spawn(sp_rank, args=(R, path), nprocs=R, join=True)
+            ranks = []
+            for r in range(R):
+                with open(os.path.join(path, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            res[f"R{R}"] = {"seconds": time.perf_counter() - t0,
+                            "backend": ranks[0]["backend"], "staged": ranks[0]["staged"],
+                            "expected_backend": choose_backend(dev, R), "ranks": ranks}
+    ok = True
+    for R in SP_RING_RANKS:
+        ranks = res[f"R{R}"]["ranks"]
+        ok = ok and res[f"R{R}"]["backend"] == res[f"R{R}"]["expected_backend"]
+        ok = ok and all(run["ok"] for rk in ranks for run in rk["ring"])
+        if R == SP_TRAIN_RANKS:
+            ok = ok and all(rk["train"]["ok"] for rk in ranks) and ranks[0]["parity"]["ok"]
+            sums = {rk["train"]["param_checksum"] for rk in ranks}
+            res["train_param_checksums_equal"] = len(sums) == 1
+            ok = ok and len(sums) == 1
+    res["ok"] = bool(ok)
+    return res
+
+
 def kernels_line(results):
     """One entry per kernel: main-path numbers from this run; launches from
     the path that runs it, each counted from 0 over its run: the generate
@@ -1443,8 +1813,8 @@ def kernels_line(results):
     generate path over the int8 cache (row 8) and over the int4 cache (row
     7), and the serving engine (rows 9, 11 and 10); launches_by_path adds
     the speculative paths (rows 9 and 10 at T = 3)."""
-    kern, gen, train, serve, spec = (results[k] for k in (
-        "kernels", "generate", "train", "serve", "spec"))
+    kern, gen, train, serve, spec, sp = (results[k] for k in (
+        "kernels", "generate", "train", "serve", "spec", "sp"))
     gen_q8, gen_q4 = results["generate_q8"], results["generate_q4"]
     def case(cases, prefix):
         return next(c for c in cases if c["case"].startswith(prefix))
@@ -1467,6 +1837,17 @@ def kernels_line(results):
 
     def by_path(name, **paths):
         return {path: run["launches"][name] for path, run in paths.items()}
+
+    # row 5: launches of the sp train path's timed steps, over both ranks
+    sp_ranks = sp[f"R{SP_TRAIN_RANKS}"]["ranks"]
+
+    def sp_launches(name):
+        return sum(rk["train"]["launches"][name] for rk in sp_ranks)
+
+    lse = kern["flash_lse"]
+    lse_main = case(lse, f"ring R={SP_TRAIN_RANKS} off-diagonal bfloat16")
+    lse_diag = case(lse, f"ring R={SP_TRAIN_RANKS} diagonal bfloat16")
+    lse_r4 = case(lse, "ring R=4 off-diagonal bfloat16")
     return {"kernels": [
         entry("flash_attention_fwd", "flash_fwd.cu", "edgerunner_tpu/ops/flash_attention.py:258",
               gen["launches"]["flash_attention_fwd"], prefill,
@@ -1513,6 +1894,21 @@ def kernels_line(results):
               "edgerunner_tpu/ops/decode_attention_pallas.py:401",
               gen_q4["launches"]["fused_decode_attention_q4"],
               case(multi, "generate q4 index"), index=case(multi, "generate q4 index")["index"]),
+        entry("flash_attention_lse", "flash_fwd.cu", "edgerunner_tpu/ops/flash_attention.py:1363",
+              sp_launches("flash_attention_lse"), lse_main,
+              launches_by_rank=[rk["train"]["launches"]["flash_attention_lse"]
+                                for rk in sp_ranks],
+              diagonal_shape=sub(lse_diag), r4_shape=sub(lse_r4)),
+        entry("flash_attention_lse_bwd", "flash_bwd.cu",
+              "edgerunner_tpu/ops/flash_attention.py:1235", sp_launches("flash_attention_lse_bwd"),
+              dict(lse_main["bwd"], max_abs_err=lse_main["max_abs_err"],
+                   shape=lse_main["shape"]),
+              launches_by_rank=[rk["train"]["launches"]["flash_attention_lse_bwd"]
+                                for rk in sp_ranks],
+              diagonal_shape={"shape": lse_diag["shape"], "max_abs_err": lse_diag["max_abs_err"],
+                              **{k: lse_diag["bwd"][k] for k in keys}},
+              r4_shape={"shape": lse_r4["shape"], "max_abs_err": lse_r4["max_abs_err"],
+                        **{k: lse_r4["bwd"][k] for k in keys}}),
     ]}
 
 
@@ -1535,7 +1931,8 @@ def main(argv=None) -> int:
             "generate_q4": lambda: phase_generate_q4(dev), "parity": lambda: phase_parity(dev),
             "parity_q4": lambda: phase_parity_q4(dev), "serve": lambda: phase_serve(dev),
             "serve_parity": lambda: phase_serve_parity(dev), "spec": lambda: phase_spec(dev),
-            "train": lambda: phase_train(dev), "train_parity": lambda: phase_train_parity(dev)}
+            "train": lambda: phase_train(dev), "train_parity": lambda: phase_train_parity(dev),
+            "sp": lambda: phase_sp(dev)}
     results, ok = {}, True
     for name in PHASES:
         if name not in wanted:

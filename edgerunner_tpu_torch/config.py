@@ -154,13 +154,14 @@ class Options:
     # like the reference's --resume)
     resume_train_state: bool = False
 
-    ### parallelism (the JAX package's mesh axes; the port runs one device)
+    ### parallelism (the JAX package's mesh axes; the port runs sp only)
     # data-parallel axis size; -1 = all remaining devices
     dp_size: int = -1
     # tensor-parallel axis size (sharded attention heads / MLP)
     tp_size: int = 1
     # sequence-parallel axis size: activations sharded along the sequence,
-    # attention runs as a ring over the axis
+    # attention runs as a ring over the axis (the port: sp_size ranks under
+    # torchrun, one process each)
     sp_size: int = 1
     # pipeline-parallel axis size: the decoder layer stack is split into
     # contiguous stages (one per pp rank, weights sharded — a model pp_size
@@ -377,7 +378,7 @@ def parse_cli(argv: Optional[List[str]] = None, prog: str = "edgerunner-tpu") ->
 # them off
 _NOT_PORTED = {
     "moe_experts": 0, "lora_rank": 0, "tp_size": 1,
-    "sp_size": 1, "pp_size": 1, "ep_size": 1, "scan_layers": False,
+    "pp_size": 1, "ep_size": 1, "scan_layers": False,
     "ema_decay": 0.0, "async_checkpointing": False, "resume2": None, "use_wandb": False,
 }
 
@@ -410,9 +411,11 @@ def validate(opt: Options) -> Options:
                              f"into at most 64 groups")
     if opt.mtp_heads < 0:
         raise ValueError(f"--mtp_heads must be >= 0, got {opt.mtp_heads}")
+    if opt.sp_size < 1:
+        raise ValueError(f"--sp_size must be >= 1, got {opt.sp_size}")
     if opt.dp_size > 1:
-        raise ValueError("the port runs on one device: it does not implement "
-                         "--dp_size > 1 yet")
+        raise ValueError("the port splits a batch over ranks by sequence only: "
+                         "--sp_size is supported, --dp_size > 1 is not yet")
     if opt.eval_mode == "generate":
         raise ValueError("the port does not implement --eval_mode generate yet")
     if len(urllib.parse.urlparse(opt.data_root).scheme) > 1 or ":" in opt.data_root:

@@ -18,6 +18,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 from edgerunner_tpu_torch.config import Options
 from edgerunner_tpu_torch.data._procgen import icosphere
@@ -280,6 +281,19 @@ def collate(batch: list[dict], opt: Options, bucket: Optional[int] = None) -> di
         "num_faces": np.asarray([i["num_faces"] for i in batch], np.int32),
         "paths": [i["path"] for i in batch],
     }
+
+
+def batch_checksum(batch: dict) -> torch.Tensor:
+    """A cheap f64 fingerprint of a collated batch: position-weighted sums of
+    its tokens and labels, and the sum of its points. Every sequence-parallel
+    rank takes the same batches (dp = 1); the trainer compares this over the
+    ranks on the first batch."""
+    total = 0.0
+    for key in ("tokens", "labels"):
+        x = np.asarray(batch[key], np.float64)
+        total += float((x * np.arange(1, x.shape[-1] + 1)).sum())
+    total += float(np.asarray(batch["conds"], np.float64).sum())
+    return torch.tensor(total, dtype=torch.float64)
 
 
 # ------------------------------------------------------------------ loader --

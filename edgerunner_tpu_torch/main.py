@@ -13,21 +13,36 @@ checkpoint (train/checkpoint.py); with `--eval_mode loss` the held-out loss
 is logged and one batch's ground-truth and argmax meshes are written. The
 model trains on the card unless `--device cpu` is given; without a card and
 without `--device cpu` it raises.
+
+Sequence parallelism (the sequence of every batch split over N ranks, the
+decoder's attention as a ring; train/trainer.py) runs one process per rank:
+
+    torchrun --nproc_per_node N -m edgerunner_tpu_torch.main ArAE --sp_size N ...
+
+Rank r runs on `cuda:{LOCAL_RANK % device_count}` (or the CPU with
+`--device cpu`), over NCCL when every rank has a card of its own and gloo
+otherwise (parallel/mesh.py). `--sp_size` must equal the world's size: a
+mismatch raises, it never trains unsharded. Rank 0 logs and writes the
+checkpoints; the process group is destroyed on exit.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 from typing import List, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from edgerunner_tpu_torch.config import parse_cli, validate
 from edgerunner_tpu_torch.data import save_mesh
 from edgerunner_tpu_torch.data.dataset import DataLoader, MeshFolderDataset, SyntheticMeshDataset
 from edgerunner_tpu_torch.infer import resolve_device
 from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+from edgerunner_tpu_torch.parallel import SequenceParallel, init_distributed, rank_device
 from edgerunner_tpu_torch.train.checkpoint import CheckpointManager, find_train_state
 from edgerunner_tpu_torch.train.trainer import Trainer
 from edgerunner_tpu_torch.utils import get_tokenizer, init_logger
@@ -55,10 +70,37 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     args, rest = pre.parse_known_args(argv)
     device = resolve_device(args.device)
     opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.main"))
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if opt.sp_size != world:
+        raise RuntimeError(
+            f"--sp_size {opt.sp_size} needs as many ranks, and this world has {world}: "
+            f"launch with torchrun --nproc_per_node {opt.sp_size} -m "
+            f"edgerunner_tpu_torch.main ... --sp_size {opt.sp_size}")
+    if world == 1:
+        return train(opt, device)
+    device = rank_device(device.type)
+    owned = not dist.is_initialized()
+    if owned:
+        init_distributed(device)
+    try:
+        return train(opt, device, SequenceParallel.world(device))
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
+
+def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None) -> Trainer:
+    """The training run of `main` on this rank."""
     os.makedirs(opt.workspace, exist_ok=True)
-    logger = init_logger(os.path.join(opt.workspace, "log.txt"))
+    if sp is None or sp.rank == 0:
+        logger = init_logger(os.path.join(opt.workspace, "log.txt"))
+    else:
+        logger = logging.getLogger(f"edgerunner_tpu_torch.rank{sp.rank}")
+        logger.disabled = True
     logger.info(str(opt))
+    if sp is not None:
+        logger.info(sp.describe())
     if opt.resume is None and opt.warmup_ratio == 0 and opt.lr > 1.5e-4:
         logger.warning(
             "training from scratch with warmup_ratio=0 and lr "
@@ -84,8 +126,8 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
 
     total_steps = opt.num_epochs * len(train_loader) // opt.gradient_accumulation_steps
     model = init_weights(LMM(opt, device=device), opt.seed)
-    trainer = Trainer(model, opt, total_steps, logger=logger)
-    manager = CheckpointManager(opt.workspace, keep=2)
+    trainer = Trainer(model, opt, total_steps, logger=logger, sp=sp)
+    manager = CheckpointManager(opt.workspace, keep=2, sp=sp)
 
     start_epoch, resume_step, opt_state_path = 0, 0, None
     if opt.resume is not None:
@@ -132,6 +174,8 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
             logger.info(f"epoch: {epoch} skip training for debug !!!")
         if opt.eval_mode == "loss":
             trainer.eval_epoch(test_loader, epoch)
+            if not trainer.is_main:
+                continue
             # meto streams may be invalid early in training: a failed dump is
             # logged and training goes on, as in the reference
             try:

@@ -23,6 +23,7 @@ from edgerunner_tpu_torch.config import Options, vocab_size_for
 from edgerunner_tpu_torch.models.layers import LN_EPS
 from edgerunner_tpu_torch.models.point_encoder import PointEncoderEmbed, latent_kl
 from edgerunner_tpu_torch.models.shape_opt import Caches, ShapeOPT, ShapeOPTConfig
+from edgerunner_tpu_torch.parallel.mesh import active_sequence_parallel
 from edgerunner_tpu_torch.utils import quantize_num_faces
 
 
@@ -88,6 +89,14 @@ class LMM(nn.Module):
         training, num-face dropout draws from `generator` and the decoder
         applies dropout. Returns dict(loss, loss_ce, loss_kl, logits), and
         loss_mtp with draft heads (added to loss times mtp_loss_weight).
+
+        Under an sp context (parallel/mesh.py) the condition encoder runs
+        whole on every rank, the decoder on the rank's shard of the
+        sequence, and logits are the shard's; every loss returned is this
+        rank's share, and the shares add up over the ranks to the unsharded
+        loss: the cross-entropies are sharded sums over the global count of
+        labels, and loss_kl, computed whole on every rank, enters as kl / R,
+        so that the gradients summed over the ranks count it once.
         """
         opt = self.opt
         if train and opt.use_num_face_cond and opt.nof_dropout_ratio > 0:
@@ -104,6 +113,9 @@ class LMM(nn.Module):
                                                       train=train)
         out = {"loss_ce": loss_ce, "logits": logits}
         loss = loss_ce
+        sp = active_sequence_parallel()
+        if sp is not None:
+            kl = kl / sp.size
         if opt.cond_mode == "point":
             out["loss_kl"] = kl
             loss = loss + opt.kl_weight * kl

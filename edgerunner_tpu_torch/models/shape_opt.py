@@ -46,6 +46,7 @@ from torch import nn
 from edgerunner_tpu_torch.models.layers import LN_EPS, attention_fn, maybe_checkpoint
 from edgerunner_tpu_torch.ops import decode_attention as DA
 from edgerunner_tpu_torch.ops import kv_quant as KQ
+from edgerunner_tpu_torch.parallel.mesh import active_sequence_parallel
 
 Caches = Tuple[List[torch.Tensor], List[torch.Tensor]]
 
@@ -251,11 +252,18 @@ class ShapeOPTDecoder(nn.Module):
 
     def forward(self, inputs_embeds, lengths=None, train: bool = False):
         """With `cfg.remat`, each layer is checkpointed
-        (edgerunner_tpu/models/shape_opt.py:524-538)."""
+        (edgerunner_tpu/models/shape_opt.py:524-538). Under an sp context
+        the positions of the full length T are added, then the rank keeps
+        its shard [rank * T/R, (rank + 1) * T/R): every layer runs on it
+        (LayerNorm and MLP per token, attention as the ring), and the hidden
+        states returned are the shard's."""
         if not inputs_embeds.is_floating_point():
             inputs_embeds = self.embd(inputs_embeds)
         T = inputs_embeds.shape[1]
         h = inputs_embeds + self.embed_positions.weight[:T]
+        sp = active_sequence_parallel()
+        if sp is not None:
+            h = sp.shard(h)
         for layer in self.layers:
             h = maybe_checkpoint(self.remat, layer, h, lengths, train)
         return h
@@ -340,12 +348,15 @@ class ShapeOPT(nn.Module):
         logits = self.lm_head(h)
         if labels is None:
             return logits
+        # under sp, h and logits hold the rank's positions from `offset`
+        sp = active_sequence_parallel()
+        offset = 0 if sp is None else sp.rank * h.shape[1]
         loss_mtp = None
         if self.mtp_proj:
-            aux = [shifted_cross_entropy(lg, labels, shift=2 + k)
+            aux = [shifted_cross_entropy(lg, labels, shift=2 + k, offset=offset)
                    for k, lg in enumerate(self.mtp_logits(h))]
             loss_mtp = sum(aux) / len(aux)
-        return logits, shifted_cross_entropy(logits, labels), loss_mtp
+        return logits, shifted_cross_entropy(logits, labels, offset=offset), loss_mtp
 
     def embed_tokens(self, ids):
         return self.model.embd(ids)
@@ -370,12 +381,22 @@ class ShapeOPT(nn.Module):
 
 
 def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          shift: int = 1) -> torch.Tensor:
+                          shift: int = 1, offset: int = 0) -> torch.Tensor:
     """Mean cross-entropy of logits[:, :-shift] against labels[:, shift:] in
-    f32 (or wider), ignoring label -100 (edgerunner_tpu/models/shape_opt.py:707-719)."""
-    shift_logits = logits[:, :-shift].to(torch.promote_types(logits.dtype, torch.float32))
-    shift_labels = labels[:, shift:].long()
+    f32 (or wider), ignoring label -100 (edgerunner_tpu/models/shape_opt.py:707-719).
+
+    Sharded (sequence parallelism): `logits` [B, S, V] are those of positions
+    [offset, offset + S) of the full labels [B, T], which every rank holds.
+    Position p is scored against labels[p + shift] where that lies inside T,
+    and the sum is divided by the count of valid labels[:, shift:] over the
+    whole sequence, so that the ranks' losses add up to the unsharded loss.
+    """
+    T = labels.shape[1]
+    shift_labels = labels[:, offset + shift:min(offset + logits.shape[1] + shift, T)].long()
+    shift_logits = logits[:, :shift_labels.shape[1]].to(
+        torch.promote_types(logits.dtype, torch.float32))
     valid = shift_labels != -100
     logp = torch.log_softmax(shift_logits, dim=-1)
     nll = -logp.gather(-1, torch.where(valid, shift_labels, 0)[..., None])[..., 0]
-    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+    count = (labels[:, shift:] != -100).sum().clamp(min=1)
+    return torch.where(valid, nll, 0.0).sum() / count

@@ -9,8 +9,10 @@ k/v [B, M, H, D].
 `attention` is differentiable: it sends a CUDA tensor to the hand-written
 flash-attention kernels, the forward and, for its gradient, the backward
 (ops/flash_attention.py `FlashAttention`), and a CPU tensor to their plain
-versions. The sequence-parallel ring branch of the JAX dispatch is not
-ported yet.
+versions. While the trainer has installed a sequence-parallel context
+(parallel/mesh.py `sequence_parallel`), causal self-attention runs as a ring
+over the sp ranks instead (ops/ring_attention.py `ring_attention`), as the
+JAX dispatch's sp branch does (attention.py:151-177).
 """
 
 from __future__ import annotations
@@ -107,7 +109,18 @@ def attention(q, k, v, *, causal: bool = False,
               q_len: Optional[torch.Tensor] = None,
               kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dispatching, differentiable attention entry point: the flash-attention
-    kernels for a CUDA tensor, their plain versions for a CPU tensor."""
+    kernels for a CUDA tensor, their plain versions for a CPU tensor; under
+    an sp context, causal self-attention of local shards runs as a ring."""
     from edgerunner_tpu_torch.ops.flash_attention import FlashAttention
+    from edgerunner_tpu_torch.parallel.mesh import active_sequence_parallel
 
+    sp = active_sequence_parallel()
+    if sp is not None and causal and q.shape[1] == k.shape[1]:
+        from edgerunner_tpu_torch.ops.ring_attention import ring_attention
+
+        # the length masks are dropped, as the JAX branch drops them: padding
+        # is a suffix and attention is causal, so every query that a loss
+        # reads attends valid positions only; rows past q_len hold values
+        # that the cross-entropy's -100 labels ignore
+        return ring_attention(q, k, v, sp, causal=True)
     return FlashAttention.apply(q, k, v, causal, q_len, kv_len)

@@ -1,14 +1,22 @@
 """Flash attention: the wrappers of the hand-written CUDA kernels
 (csrc/flash_fwd.cu, csrc/flash_bwd.cu), their plain versions, and the
-differentiable attention that joins them.
+differentiable attentions that join them.
 
 Replaces the TPU kernels `_fwd` / `_fwd_t` and `_bwd` / `_bwd_t` reached from
 edgerunner_tpu/ops/flash_attention.py:1336 (`flash_attention`, a
-`jax.custom_vjp`). On a CUDA tensor each wrapper launches its kernel or
-raises; on a CPU tensor it runs its plain version. `FlashAttention` is the
-`torch.autograd.Function` whose forward is the forward kernel and whose
-backward is the backward kernel. Both kernels are bound by operations at the
-main path's shapes (see the sources' notes).
+`jax.custom_vjp`) and from :1363 (`flash_attention_lse`, the custom_vjp
+`_flash_core_lse` :1220-1246, whose forward also returns lse and whose
+backward takes the lse cotangent). On a CUDA tensor each wrapper launches its
+kernel or raises; on a CPU tensor it runs its plain version. `FlashAttention`
+and `FlashAttentionLse` are the `torch.autograd.Function`s whose forward is
+the forward kernel and whose backward is the backward kernel; the second
+returns (out, lse) and folds the lse cotangent into delta before the
+backward kernel, as the JAX package does outside its kernels
+(flash_attention.py:541-544). Row 5's wrappers (`flash_attention_lse`,
+`flash_attention_lse_bwd`) launch the same kernels as rows 1-4 under their
+own launch counts, so that a run tells ring attention's launches apart from
+the point encoder's. Both kernels are bound by operations at the main path's
+shapes (see the sources' notes).
 """
 
 from __future__ import annotations
@@ -21,8 +29,9 @@ import torch
 from edgerunner_tpu_torch.ops import _build
 from edgerunner_tpu_torch.ops.attention import _length_mask, attention_reference_lse
 
-__all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_reference", "flash_attention_reference"]
+__all__ = ["FlashAttention", "FlashAttentionLse", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_reference", "flash_attention_lse",
+           "flash_attention_lse_bwd", "flash_attention_reference"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 96)
@@ -61,17 +70,8 @@ def _check(q, k, v, causal: bool, name: str, *more):
                              f"tensor on {q.device}")
 
 
-def flash_attention(q, k, v, *, causal: bool = False,
-                    q_len: Optional[torch.Tensor] = None,
-                    kv_len: Optional[torch.Tensor] = None):
-    """q [B,N,H,D], k/v [B,M,H,D] -> (out [B,N,H,D], lse [B,N,H] f32).
-
-    Keys past `kv_len` are masked, causal masking needs N == M, and output
-    rows past `q_len` are zeroed.
-    """
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal, q_len=q_len,
-                                         kv_len=kv_len)
+def _forward_kernel(q, k, v, causal, q_len, kv_len):
+    """Launch the forward kernel: (out, lse [B,N,H] f32)."""
     _check(q, k, v, causal, "flash_attention")
     B, N, H, D = q.shape
     M = k.shape[1]
@@ -87,29 +87,52 @@ def flash_attention(q, k, v, *, causal: bool = False,
         B, N, M, H, D, DTYPE_CODES[q.dtype], int(causal),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_fwd")
-    flash_attention.launches += 1
     return out, lse
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    q_len: Optional[torch.Tensor] = None,
+                    kv_len: Optional[torch.Tensor] = None):
+    """q [B,N,H,D], k/v [B,M,H,D] -> (out [B,N,H,D], lse [B,N,H] f32).
+
+    Keys past `kv_len` are masked, causal masking needs N == M, and output
+    rows past `q_len` are zeroed.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal, q_len=q_len,
+                                         kv_len=kv_len)
+    out = _forward_kernel(q, k, v, causal, q_len, kv_len)
+    flash_attention.launches += 1
+    return out
 
 
 flash_attention.launches = 0
 
 
-def _dout_and_delta(o, do, q_len):
+def _dout_and_delta(o, do, q_len, dlse=None):
     """dO with rows past q_len zeroed (the forward zeroes those output rows,
-    so they take no gradient), and delta = rowsum(dO * O) [B, N, H] in f32,
-    as the JAX package forms it outside its kernels (flash_attention.py:539)."""
+    so they take no gradient), and delta = rowsum(dO * O) - dlse [B, N, H] in
+    f32, as the JAX package forms it outside its kernels
+    (flash_attention.py:539-544): the lse cotangent adds p * dlse to each
+    score's gradient, ds = p * (dp - (delta - dlse)), so it folds into delta
+    and the kernels are unchanged."""
     if q_len is not None:
         do = torch.where(_length_mask(q_len, do.shape[1])[:, :, None, None], do, 0)
-    return do, (do.float() * o.float()).sum(-1)
+    delta = (do.float() * o.float()).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return do, delta.contiguous()
 
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal: bool = False,
                                   q_len: Optional[torch.Tensor] = None,
-                                  kv_len: Optional[torch.Tensor] = None):
+                                  kv_len: Optional[torch.Tensor] = None,
+                                  dlse: Optional[torch.Tensor] = None):
     """The plain version of the backward kernel: (dq, dk, dv) in q's dtype.
 
     Recomputes p = exp(s - lse) from the forward's f32 lse and forms
-    delta = rowsum(dO * O), as `_bwd` does (edgerunner_tpu/ops/
+    delta = rowsum(dO * O) - dlse (dlse, the lse cotangent, None for zero),
+    as `_bwd` does (edgerunner_tpu/ops/
     flash_attention.py:520-545); for bf16 inputs p and ds are rounded to bf16
     before the products that take them. A row without any valid key
     (kv_len 0) averaged V uniformly over the M keys in the forward, so it
@@ -119,7 +142,7 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal: bool = False,
     B, N, H, D = q.shape
     M = k.shape[1]
     scale = 1.0 / math.sqrt(D)
-    do, delta = _dout_and_delta(o, do, q_len)
+    do, delta = _dout_and_delta(o, do, q_len, dlse)
     if q.dtype == torch.float32:
         rnd = lambda x: x  # noqa: E731
     else:
@@ -145,19 +168,13 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal: bool = False,
     return dq, dk, dv
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
-                        q_len: Optional[torch.Tensor] = None,
-                        kv_len: Optional[torch.Tensor] = None):
-    """Gradients (dq, dk, dv) of `flash_attention`'s output, given its out
-    `o`, its lse and the output gradient `do` [B,N,H,D]."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal,
-                                             q_len=q_len, kv_len=kv_len)
+def _backward_kernel(q, k, v, o, lse, do, causal, q_len, kv_len, dlse):
+    """Launch the backward kernels: (dq, dk, dv)."""
     B, N, H, D = q.shape
     M = k.shape[1]
     q_len = _lengths(q_len, B, q.device)
     kv_len = _lengths(kv_len, B, q.device)
-    do, delta = _dout_and_delta(o, do.to(q.dtype), q_len)
+    do, delta = _dout_and_delta(o, do.to(q.dtype), q_len, dlse)
     do = do.contiguous()
     if lse.shape != (B, N, H) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous f32 [{B}, {N}, {H}] tensor")
@@ -172,8 +189,22 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
         B, N, M, H, D, DTYPE_CODES[q.dtype], int(causal),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
+                        q_len: Optional[torch.Tensor] = None,
+                        kv_len: Optional[torch.Tensor] = None,
+                        dlse: Optional[torch.Tensor] = None):
+    """Gradients (dq, dk, dv) of `flash_attention`'s output, given its out
+    `o`, its lse, the output gradient `do` [B,N,H,D] and, where lse is used
+    too, lse's gradient `dlse` [B,N,H]."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal,
+                                             q_len=q_len, kv_len=kv_len, dlse=dlse)
+    grads = _backward_kernel(q, k, v, o, lse, do, causal, q_len, kv_len, dlse)
+    flash_attention_bwd.launches += 1
+    return grads
 
 
 flash_attention_bwd.launches = 0
@@ -197,3 +228,61 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
                                          causal=ctx.causal, q_len=q_len, kv_len=kv_len)
         return dq, dk, dv, None, None, None
+
+
+# ------------------------------------------------------------------- row 5 --
+
+def flash_attention_lse(q, k, v, *, causal: bool = False,
+                        kv_len: Optional[torch.Tensor] = None):
+    """TPU row 5 (edgerunner_tpu/ops/flash_attention.py:1363): q [B,N,H,D],
+    k/v [B,M,H,D] -> (out [B,N,H,D], lse [B,N,H] f32), the forward kernel for
+    a CUDA tensor and `attention_reference_lse` for a CPU tensor. The blocks
+    of ring attention come here: the causal diagonal and the non-causal
+    off-diagonal blocks, merged by their lse."""
+    if q.device.type == "cpu":
+        return attention_reference_lse(q, k, v, causal=causal, kv_len=kv_len)
+    out = _forward_kernel(q, k, v, causal, None, kv_len)
+    flash_attention_lse.launches += 1
+    return out
+
+
+flash_attention_lse.launches = 0
+
+
+def flash_attention_lse_bwd(q, k, v, o, lse, do, dlse=None, *, causal: bool = False,
+                            kv_len: Optional[torch.Tensor] = None):
+    """Row 5's backward: (dq, dk, dv) from out `o`, `lse`, their gradients
+    `do` and `dlse` (None for zero), the backward kernels with
+    delta = rowsum(dO * O) - dlse for a CUDA tensor, the plain version for a
+    CPU tensor."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal,
+                                             kv_len=kv_len, dlse=dlse)
+    grads = _backward_kernel(q, k, v, o, lse, do, causal, None, kv_len, dlse)
+    flash_attention_lse_bwd.launches += 1
+    return grads
+
+
+flash_attention_lse_bwd.launches = 0
+
+
+class FlashAttentionLse(torch.autograd.Function):
+    """Differentiable (out, lse) = `flash_attention_lse`, in both outputs:
+    the port's counterpart of `_flash_core_lse`'s custom_vjp
+    (flash_attention.py:1220-1246)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, kv_len):
+        out, lse = flash_attention_lse(q, k, v, causal=causal, kv_len=kv_len)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse, kv_len)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, out, lse, kv_len = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_lse_bwd(q, k, v, out, lse, do.contiguous(), dlse,
+                                             causal=ctx.causal, kv_len=kv_len)
+        return dq, dk, dv, None, None

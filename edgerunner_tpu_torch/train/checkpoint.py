@@ -6,7 +6,9 @@ workspace root to the latest save, a `best/` copy of the weights with the
 lowest loss, and the last two saves kept. Beside the weights, in reference
 naming, each save holds the optimizer state (`opt_state.pt`) and
 `train_state.json` (step, loader position, best loss), so that a resume
-continues exactly. Saves are synchronous.
+continues exactly. Saves are synchronous. Under sequence parallelism
+(`sp`) every rank holds the same weights and optimizer state: rank 0 writes,
+and every rank waits at a barrier until it has.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import shutil
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from edgerunner_tpu_torch.weights import reference_state_dict, write_safetensors
 
@@ -26,15 +29,26 @@ STATE_FILE = "train_state.json"
 
 
 class CheckpointManager:
-    def __init__(self, workspace: str, keep: int = 2):
+    def __init__(self, workspace: str, keep: int = 2, sp=None):
         self.workspace = workspace
         self.keep = keep
+        self.sp = sp if sp is not None and sp.size > 1 else None
         self.old_dirs: list[str] = []
         self.best_loss = float("inf")
         os.makedirs(workspace, exist_ok=True)
 
     def _save(self, tag: str, model, optimizer=None, loss: Optional[float] = None,
               train_state: Optional[dict] = None, log=print):
+        if self.sp is None:
+            self._write(tag, model, optimizer, loss, train_state, log)
+            return
+        try:
+            if self.sp.rank == 0:
+                self._write(tag, model, optimizer, loss, train_state, log)
+        finally:
+            dist.barrier(self.sp.group)
+
+    def _write(self, tag: str, model, optimizer, loss, train_state, log):
         save_dir = os.path.join(self.workspace, tag)
         os.makedirs(save_dir, exist_ok=True)
         write_safetensors(os.path.join(save_dir, MODEL_FILE), reference_state_dict(model))

@@ -7,6 +7,17 @@ params) and in f32 on the CPU, then the JAX package's optimizer
 from (opt.seed, step), the counterpart of `fold_in(rng, step)`: a generator
 for num-face dropout, and the default generators, forked for the step, for
 the decoder's dropout (gradient checkpointing replays them identically).
+
+Sequence parallelism (`sp`, a parallel/mesh.py `SequenceParallel` of R
+ranks, dp = 1): every rank takes the same batch, suffix-pads tokens and
+labels to a multiple of R (`pad_for_sp`; labels -100, tokens PAD), and
+runs the step under the sp context, which the trainer installs for its
+train and eval steps only: the decoder runs on the rank's shard, its
+attention as the ring. Each rank's loss is its share of the whole
+(models/lmm.py), so the gradients are summed over the ranks (bucketed)
+before the optimizer clips them by their global norm, and every rank takes
+the same update. Weights start equal on every rank: `init_state`
+broadcasts rank 0's. Metrics are summed over the ranks; only rank 0 logs.
 """
 
 from __future__ import annotations
@@ -17,6 +28,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from edgerunner_tpu_torch.data.dataset import batch_checksum
+from edgerunner_tpu_torch.parallel import (
+    SequenceParallel,
+    all_reduce_,
+    assert_same_on_every_rank,
+    broadcast_,
+    sequence_parallel,
+)
 from edgerunner_tpu_torch.train.state import make_optimizer
 
 METRICS = ("loss", "loss_ce", "loss_kl", "loss_mtp")
@@ -37,11 +56,28 @@ def device_mem_gb(device: torch.device) -> str:
     return f"{used:.2f}/{total:.2f}G"
 
 
+def pad_for_sp(batch: dict, size: int, pad_token_id: int) -> dict:
+    """Suffix-pad tokens and labels so that the attention length (the labels'
+    length) divides over `size` sp ranks (edgerunner_tpu/train/trainer.py:58-82):
+    labels with -100, tokens with PAD. Causal attention over a suffix pad
+    leaves every position that the loss reads unchanged."""
+    pad = (-np.asarray(batch["labels"]).shape[1]) % size
+    if not pad:
+        return batch
+    out = dict(batch)
+    for key, fill in (("tokens", pad_token_id), ("labels", -100)):
+        out[key] = np.pad(np.asarray(batch[key]), ((0, 0), (0, pad)), constant_values=fill)
+    return out
+
+
 class Trainer:
-    def __init__(self, model, opt, total_steps: int, logger=None):
+    def __init__(self, model, opt, total_steps: int, logger=None,
+                 sp: Optional[SequenceParallel] = None):
         self.model = model
         self.opt = opt
         self.logger = logger
+        self.sp = sp if sp is not None and sp.size > 1 else None
+        self.is_main = self.sp is None or self.sp.rank == 0
         self.device = next(model.parameters()).device
         self.params = dict(model.named_parameters())
         self.optimizer, self.schedule = make_optimizer(opt, self.params, total_steps)
@@ -50,6 +86,8 @@ class Trainer:
         self.losses: list[float] = []  # every training step's loss, in order
 
     def log(self, msg: str):
+        if not self.is_main:
+            return
         if self.logger is not None:
             self.logger.info(msg)
         else:
@@ -57,8 +95,11 @@ class Trainer:
 
     def init_state(self, step: int = 0, opt_state_path: Optional[str] = None):
         """`step` restarts the schedule and the step seeds where a run left
-        off; `opt_state_path` restores a saved optimizer state."""
+        off; `opt_state_path` restores a saved optimizer state. Under sp,
+        every rank takes rank 0's weights."""
         self.step = step
+        if self.sp is not None:
+            broadcast_(list(self.params.values()), self.sp)
         if opt_state_path:
             self.optimizer.load_state_dict(
                 torch.load(opt_state_path, map_location=self.device, weights_only=True))
@@ -70,24 +111,42 @@ class Trainer:
             return self.model(b["conds"], b["tokens"], b["labels"], b["num_faces"],
                               b["lengths"], train=train, generator=generator)
 
+    def _sp_batch(self, batch: dict) -> dict:
+        if self.sp is None:
+            return batch
+        return pad_for_sp(batch, self.sp.size, self.opt.pad_token_id)
+
+    def _summed(self, out: dict) -> dict:
+        """Host floats of the metrics in `out`, summed over the sp ranks."""
+        keys = [k for k in METRICS if k in out]
+        vals = torch.stack([out[k].detach().float() for k in keys])
+        if self.sp is not None:
+            all_reduce_([vals], self.sp)
+        return dict(zip(keys, vals.tolist()))
+
     def train_step(self, batch: dict) -> dict:
         """One forward, backward and optimizer (micro-)step; host floats."""
         nof_seed, drop_seed = step_seeds(self.opt.seed, self.step)
         generator = torch.Generator(device=self.device).manual_seed(nof_seed)
         cuda = self.device.type == "cuda"
-        with torch.random.fork_rng(devices=[self.device.index or 0] if cuda else []):
+        with torch.random.fork_rng(devices=[self.device.index or 0] if cuda else []), \
+                sequence_parallel(self.sp):
             torch.manual_seed(drop_seed)
-            out = self.forward(batch, train=True, generator=generator)
+            out = self.forward(self._sp_batch(batch), train=True, generator=generator)
             grads = torch.autograd.grad(out["loss"], list(self.params.values()))
+        if self.sp is not None:
+            all_reduce_(grads, self.sp)
         gnorm = self.optimizer.update(dict(zip(self.params, grads)))
         self.step += 1
-        metrics = {k: float(out[k].detach()) for k in METRICS if k in out}
+        metrics = self._summed(out)
         metrics["grad_norm"] = float(gnorm)
         self.losses.append(metrics["loss"])
         return metrics
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict:
+        """The whole model on the whole batch: no sp context (the eval mesh
+        dump reads every position's logits)."""
         return self.forward(batch, train=False)
 
     def train_epoch(self, loader, epoch: int,
@@ -98,6 +157,10 @@ class Trainer:
         total, n = 0.0, 0
         num_batches = len(loader)
         for i, batch in enumerate(loader):
+            if i == 0 and self.sp is not None:
+                # dp = 1: every sp rank must hold the same batch
+                assert_same_on_every_rank(batch_checksum(batch).to(self.device),
+                                          "the first batch", self.sp)
             m = self.train_step(batch)
             total += m["loss"]
             n += 1
@@ -121,10 +184,16 @@ class Trainer:
                  f"time: {(time.time() - t_start) / 60:.2f}min")
         return avg
 
+    @torch.no_grad()
+    def eval_loss(self, batch: dict) -> float:
+        """The held-out loss of `batch`, under sp summed over the ranks."""
+        with sequence_parallel(self.sp):
+            return self._summed(self.forward(self._sp_batch(batch), train=False))["loss"]
+
     def eval_epoch(self, loader, epoch: int) -> float:
         total, n = 0.0, 0
         for batch in loader:
-            total += float(self.eval_step(batch)["loss"])
+            total += self.eval_loss(batch)
             n += 1
         avg = total / max(n, 1)
         self.log(f"Eval epoch: {epoch} loss: {avg:.6f}")

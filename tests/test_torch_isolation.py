@@ -103,3 +103,54 @@ def test_validate_refuses_dp_size_and_the_training_options_not_ported_yet():
             validate(dataclasses.replace(config_defaults["ArAE"], **change))
     for ok in (dict(dp_size=-1), dict(dp_size=1), dict(data_root="./data")):
         validate(dataclasses.replace(config_defaults["ArAE"], **ok))
+
+
+def test_sp_modules_load_no_jax():
+    """parallel/ and the ring are covered by the import scan above, and
+    importing them loads no JAX."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for rel in ("edgerunner_tpu_torch/parallel/__init__.py",
+                "edgerunner_tpu_torch/parallel/mesh.py",
+                "edgerunner_tpu_torch/parallel/collectives.py",
+                "edgerunner_tpu_torch/ops/ring_attention.py"):
+        assert rel in files, rel
+    code = ("import sys; import edgerunner_tpu_torch.parallel, "
+            "edgerunner_tpu_torch.ops.ring_attention, edgerunner_tpu_torch.train.trainer; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_validate_accepts_sp_size_and_refuses_tp_pp_and_dp():
+    from edgerunner_tpu_torch.config import config_defaults, validate
+
+    import dataclasses
+
+    for sp in (1, 2, 4):
+        validate(dataclasses.replace(config_defaults["ArAE"], sp_size=sp))
+    for change in (dict(sp_size=0), dict(tp_size=2), dict(pp_size=2), dict(dp_size=2),
+                   dict(sp_size=2, tp_size=2), dict(sp_size=2, dp_size=2)):
+        with pytest.raises(ValueError):
+            validate(dataclasses.replace(config_defaults["ArAE"], **change))
+    with pytest.raises(ValueError, match="--sp_size is supported"):
+        validate(dataclasses.replace(config_defaults["ArAE"], dp_size=2))
+
+
+def test_main_sp_size_outside_a_matching_world_raises(monkeypatch):
+    """--sp_size N needs a torchrun world of N ranks: it never trains
+    unsharded, and a world of another size is refused too."""
+    from edgerunner_tpu_torch import main
+
+    argv = ["ArAE", "--device", "cpu", "--data_root", "/nonexistent", "--workspace",
+            "/nonexistent/ws"]
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
+        main.main([*argv, "--sp_size", "2"])
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(RuntimeError, match="this world has 4"):
+        main.main([*argv, "--sp_size", "2"])
+    with pytest.raises(RuntimeError, match="this world has 4"):
+        main.main(argv)
