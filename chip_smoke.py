@@ -7,11 +7,15 @@ serves them over HTTP and trains.
 
 Phases, one JSON line each:
 
-1. build     nvcc builds every kernel from edgerunner_tpu_torch/csrc.
+1. build     nvcc builds every kernel from edgerunner_tpu_torch/csrc; ptxas's
+             registers and spills per kernel; fails if a tensor-core flash
+             kernel spills.
 2. kernels   each CUDA kernel against its plain PyTorch version on the card,
              at the main paths' shapes (generation, serving, training and
              the sp ring's blocks, where row 5 takes a non-zero lse
-             cotangent) and at ragged ones, bf16, f32, int8 and int4 caches
+             cotangent) and at ragged ones (the flash kernels also at
+             shapes that straddle their 64-row tiles, and with a causal row
+             without keys whose output is kept), bf16, f32, int8 and int4 caches
              (per-row and grouped scales, a head straddling the nibble
              halves), with its tolerance; at the main-path shapes also its
              time, the plain version's, one PyTorch library call's (a
@@ -128,6 +132,19 @@ SERVE_PARITY_BUCKET = 128
 NEAR_TIE = 1e-3          # plain top-2 logit gap under which a flip is allowed
 SP_RING_RANKS = (2, 4)   # sp phase: groups of ranks sharing the card, the ring at full width
 SP_TRAIN_RANKS = 2       # ... and the one that also takes the full-width training step
+# shapes that straddle the flash kernels' 64-row tiles (B, N, M, H, D, causal,
+# kv_len, q_len), as tests/test_torch_attention.py and
+# tests/test_torch_flash_backward.py hold the plain versions at them
+TILE_EDGE_CASES = (
+    (1, 63, 63, 2, 64, True, None, None),
+    (2, 65, 65, 2, 96, True, [65, 30], [65, 30]),      # kv_len in the middle of a tile
+    (1, 127, 129, 2, 64, False, None, [100]),          # not square, not causal
+    (1, 63, 129, 2, 64, False, None, [50]),
+    (2, 127, 127, 1, 96, True, [127, 100], None),
+    (2, 129, 129, 1, 96, True, [129, 100], None),
+    (1, 191, 65, 2, 96, False, [33], [191]),
+    (2, 191, 191, 2, 64, True, [191, 128], [191, 128]),
+)
 # the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -185,9 +202,13 @@ def phase_build():
 
     t0 = time.perf_counter()
     lib = _build.load_library()
+    # the tensor-core flash kernels hold their accumulators in registers:
+    # a spill to local memory is a fault of the build, not a slow path
+    mma = [f for f in _build.build_info.get("functions", []) if "_mma_kernel" in f["name"]]
     return {"seconds": time.perf_counter() - t0, "library": os.path.relpath(lib._name, HERE),
             "nvcc_seconds": _build.build_info.get("seconds"),
-            "ptxas": _build.build_info.get("ptxas", [])}
+            "ptxas": _build.build_info.get("ptxas", []), "mma_kernels": mma,
+            "ok": len(mma) == 6 and all(f.get("spill_stores") == 0 for f in mma)}
 
 
 def attention_pairs(B, N, M, causal, q_len=None, kv_len=None) -> int:
@@ -533,6 +554,14 @@ def phase_kernels(dev):
         dict(case="ragged causal f32 d96", **flash_case(dev, 2, 200, 200, 2, 96, True, f32,
                                                         kv_len=[200, 3])),
     ]
+    # a causal row without any valid key whose output is kept: it averages
+    # V over all M keys, as the plain version does
+    flash += [dict(case=f"keyless causal {str(dt).split('.')[-1]}", **flash_case(
+        dev, 3, 130, 130, 4, D, True, dt, kv_len=[130, 0, 70], q_len=[130, 130, 70]))
+        for dt, D in ((bf, 96), (f32, 64))]
+    flash += [dict(case=f"tile edges {n}x{m}", **flash_case(dev, b, n, m, h, d, c, bf, kv_len=kv,
+                                                             q_len=ql))
+              for b, n, m, h, d, c, kv, ql in TILE_EDGE_CASES]
     # the training step's shapes: the decoder's causal self-attention over
     # the train batch's positions (row 1 ragged) and the encoder's cross-attention
     T = train_positions(opt)
@@ -563,6 +592,12 @@ def phase_kernels(dev):
         dict(case="ragged d64", **flash_bwd_case(dev, 2, 100, 45, 4, 64, False, bf,
                                                  kv_len=[45, 0])),
     ]
+    flash_bwd += [dict(case=f"keyless causal {str(dt).split('.')[-1]}", **flash_bwd_case(
+        dev, 3, 130, 130, 4, D, True, dt, kv_len=[130, 0, 70], q_len=[130, 130, 70]))
+        for dt, D in ((bf, 96), (f32, 64))]
+    flash_bwd += [dict(case=f"tile edges {n}x{m}", **flash_bwd_case(
+        dev, b, n, m, h, d, c, bf, kv_len=kv, q_len=ql))
+        for b, n, m, h, d, c, kv, ql in TILE_EDGE_CASES]
     mid = plen + num_new // 2  # the mean position of the decode loop
     decode = [dict(case=f"index {i}", **decode_case(dev, ROWS, L, hd, H, i, bf))
               for i in sorted({0, 511, 512, L - 1}) if i < L]
@@ -1825,6 +1860,8 @@ def kernels_line(results):
         return {"shape": c["shape"], "max_abs_err": c["max_abs_err"], **{k: c[k] for k in keys}}
 
     def entry(name, source, replaces, launches, c, **more):
+        if source in ("flash_fwd.cu", "flash_bwd.cu"):  # bf16 on tensor cores, f32 scalar
+            more = {"route_detail": "cuda, mma.sync bf16; scalar f32", **more}
         return {"name": name, "route": "cuda", "source": f"edgerunner_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": c["max_abs_err"],
                 **{k: c[k] for k in keys}, "shape": c["shape"], **more}

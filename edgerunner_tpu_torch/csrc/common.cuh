@@ -13,12 +13,6 @@ namespace edgerunner {
 // exactly as the reference softmax over -1e30 logits does.
 constexpr float kNegInf = -1e30f;
 
-// Query rows per block of the flash-attention forward (flash_fwd.cu). Under
-// causal masking a row without any valid key averages V over the keys of the
-// forward's tiles up to its diagonal tile, so the backward (flash_bwd.cu)
-// needs the same tile to give such a row its forward's weights.
-constexpr int kFwdBlockQ = 64;
-
 // dtype codes shared with the Python wrappers
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;

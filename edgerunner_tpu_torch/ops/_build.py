@@ -12,7 +12,9 @@ from __future__ import annotations
 import ctypes
 import glob
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +26,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _lib = None
-# what nvcc reported for the last build: seconds and ptxas register lines
+# what nvcc reported for the library's build: seconds, ptxas's lines on
+# entry functions, registers and spills, and those lines parsed per
+# function; kept beside the library and read back when it is reused
 build_info: dict = {}
 
 _P = ctypes.c_void_p
@@ -86,15 +90,36 @@ def _compile(out_dir: str) -> str:
         if p.returncode != 0:
             failed.append(f"{' '.join(cmd)}\n{out}{err}")
         ptxas += [ln.strip() for ln in (out + err).splitlines()
-                  if "registers" in ln or "spill" in ln]
+                  if "entry function" in ln or "registers" in ln or "spill" in ln]
         objs.append(obj)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     lib = os.path.join(out_dir, "libedgerunner_kernels.so")
     subprocess.run([nvcc, "-shared", "-o", lib, *objs], check=True,
                    capture_output=True, text=True)
-    build_info.update(seconds=time.perf_counter() - t0, ptxas=ptxas)
+    build_info.update(seconds=time.perf_counter() - t0, ptxas=ptxas,
+                      functions=ptxas_functions(ptxas))
+    with open(os.path.join(out_dir, "build_info.json"), "w") as f:
+        json.dump(build_info, f)
     return lib
+
+
+def ptxas_functions(lines) -> list:
+    """`ptxas -v` lines -> one dict per entry function: its (mangled) name,
+    registers, and bytes of spill stores and loads."""
+    out = []
+    for ln in lines:
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            out.append({"name": m.group(1)})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and out:
+            out[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
 
 
 def load_library():
@@ -112,6 +137,9 @@ def load_library():
             _compile(tmp)
             shutil.rmtree(out_dir, ignore_errors=True)
             os.replace(tmp, out_dir)
+        else:  # built before: what nvcc reported then
+            with open(os.path.join(out_dir, "build_info.json")) as f:
+                build_info.update(json.load(f), cached=True)
         lib = ctypes.CDLL(lib_path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -16,7 +16,9 @@ backward kernel, as the JAX package does outside its kernels
 `flash_attention_lse_bwd`) launch the same kernels as rows 1-4 under their
 own launch counts, so that a run tells ring attention's launches apart from
 the point encoder's. Both kernels are bound by operations at the main path's
-shapes (see the sources' notes).
+shapes (see the sources' notes): a bf16 tensor launches their tensor-core
+(mma.sync) instances, an f32 tensor their scalar f32 instances, chosen by
+dtype inside the library and never one for the other.
 """
 
 from __future__ import annotations

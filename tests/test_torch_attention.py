@@ -42,6 +42,13 @@ CASES = [
     (1, 200, 200, 2, 96, True, None, None),
     (2, 77, 300, 2, 96, False, [300, 131], None),
     (2, 130, 130, 3, 64, False, [7, 130], [130, 60]),
+    # shapes that straddle the CUDA kernels' 64-row tiles
+    (1, 63, 63, 2, 64, True, None, None),
+    (2, 65, 65, 2, 96, True, [65, 30], [65, 30]),     # kv_len in the middle of a tile
+    (1, 127, 129, 2, 64, False, None, [100]),         # not square, not causal
+    (2, 129, 129, 1, 96, True, [129, 100], None),
+    (1, 191, 65, 2, 96, False, [33], [191]),
+    (2, 191, 191, 2, 64, True, [191, 128], [191, 128]),
 ]
 
 
@@ -77,16 +84,17 @@ def test_flash_lse_matches_jax(causal, D):
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
 
 
-def test_row_without_keys_follows_the_reference():
+@pytest.mark.parametrize("causal", [False, True])
+def test_row_without_keys_follows_the_reference(causal):
     """kv_len 0: every logit is NEG_INF, so the reference averages V uniformly
-    over the M keys (the JAX Pallas kernel averages over its padded length
-    instead; ROADMAP.md section 3)."""
+    over the M keys, causal or not (the JAX Pallas kernel averages over its
+    padded length instead; ROADMAP.md section 3)."""
     q, k, v = _qkv(2, 100, 100, 2, 64, seed=2)
     kv_len = np.array([0, 100], np.int32)
     out, _ = flash_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v),
-                             kv_len=torch.tensor(kv_len))
+                             causal=causal, kv_len=torch.tensor(kv_len))
     ref = j_attention_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                kv_len=jnp.asarray(kv_len))
+                                causal=causal, kv_len=jnp.asarray(kv_len))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
     np.testing.assert_allclose(out.numpy()[0], np.broadcast_to(v[0].mean(0), (100, 2, 64)),
                                **TOL)

@@ -66,6 +66,11 @@ CASES = [
     (2, 77, 200, 2, 96, False, [200, 131], [77, 40], "dn"),
     (1, 100, 100, 2, 96, True, None, None, "nd"),
     (2, 64, 150, 2, 64, False, None, [64, 20], "nd"),
+    # shapes that straddle the CUDA kernels' 64-row tiles
+    (2, 65, 65, 2, 96, True, [65, 30], [65, 30], "nd"),  # kv_len in the middle of a tile
+    (1, 63, 129, 2, 64, False, None, [50], "dn"),        # not square, not causal
+    (2, 127, 127, 1, 96, True, [127, 100], None, "nd"),
+    (1, 191, 65, 2, 96, False, [33], [191], "dn"),
 ]
 
 
