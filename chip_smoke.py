@@ -9,7 +9,8 @@ Phases, one JSON line each:
 
 1. build     nvcc builds every kernel from edgerunner_tpu_torch/csrc; ptxas's
              registers and spills per kernel; fails if a tensor-core flash
-             kernel spills.
+             kernel or a persistent decode kernel (B and the quantised kinds
+             of D) spills.
 2. kernels   each CUDA kernel against its plain PyTorch version on the card,
              at the main paths' shapes (generation, serving, training and
              the sp ring's blocks, where row 5 takes a non-zero lse
@@ -18,9 +19,14 @@ Phases, one JSON line each:
              without keys whose output is kept), bf16, f32, int8 and int4 caches
              (per-row and grouped scales, a head straddling the nibble
              halves), with its tolerance; at the main-path shapes also its
-             time, the plain version's, one PyTorch library call's (a
-             yardstick the port never calls; none attends over a quantised
-             cache) and the least time the card could take.
+             time (a loop of launches; for the decode kernels also the
+             launches queued back to back behind a device-side wait, which
+             leaves out the host's time per call, and with L2 flushed
+             before each launch), the plain version's, one
+             PyTorch library call's (a yardstick the port never calls; none
+             attends over a quantised cache) and the least time the card
+             could take. Decode positions come as host ints, per-row
+             vectors and vectors built on the device.
 3. generate  the main path: `generate_tokens` at full ArAE width (24 layers,
              hidden 1536, 8192 points, 2049 condition tokens), bf16, random
              weights from a seed, 12 rows, 1000 faces, bench.py's 4096-token
@@ -28,7 +34,8 @@ Phases, one JSON line each:
              just before and read just after; row 0 is detokenised into a
              mesh with the port's metok copy.
 4. generate_q8  the same path over the int8 KV cache (--kv_quant true) with
-             a 1024-token budget; its decode kernel's launches held exactly.
+             a 1024-token budget; its decode kernel's launches held exactly;
+             a profiled segment.
 5. generate_q4  bench.py's quant_fast configuration (--kv_quant true
              --kv_bits 4 --w_quant true, 40 rows) with a 1024-token budget;
              row 7's launches held exactly; a profiled segment.
@@ -145,6 +152,10 @@ TILE_EDGE_CASES = (
     (1, 191, 65, 2, 96, False, [33], [191]),
     (2, 191, 191, 2, 64, True, [191, 128], [191, 128]),
 )
+# instances of the persistent decode kernel: B (bf16, f32 x D 64, 96) and the
+# quantised kinds (int8 D 64, 96; int4 pairs D 64, 96; int4 single heads D 32,
+# 64, 96; each at 1, 2 and 3 queries per pass)
+DECODE_INSTANCES = 4 + 7 * 3
 # the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -175,6 +186,45 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_ms_device(fn, iters: int) -> float:
+    """Mean device time of fn() over `iters` launches queued behind a
+    device-side wait (torch.cuda._sleep), so that they run back to back
+    whatever the host takes per call: the kernel's own time, where
+    `time_ms` of a fast kernel also holds the host's time per launch."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)  # ~20 ms at the card's clock: the host queues every launch
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+_FLUSH = []
+
+
+def time_ms_l2_flushed(fn, iters: int) -> float:
+    """Mean device time of fn() over `iters` runs, each after a write of
+    64 MiB (more than the card's 50 MB L2), from CUDA events around fn
+    alone: the time a launch takes when the other layers' caches have
+    evicted its inputs, as in a decode step."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda"))
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    for start, end in events:
+        _FLUSH[0].fill_(1)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / iters
+
+
 def tolerance(dtype, ref: torch.Tensor):
     """(atol, rtol) for a kernel against its plain version. bf16: the output
     is rounded to bf16 (step 2^-8 relative) and p is rounded to bf16 before
@@ -202,13 +252,18 @@ def phase_build():
 
     t0 = time.perf_counter()
     lib = _build.load_library()
-    # the tensor-core flash kernels hold their accumulators in registers:
-    # a spill to local memory is a fault of the build, not a slow path
-    mma = [f for f in _build.build_info.get("functions", []) if "_mma_kernel" in f["name"]]
+    # the tensor-core flash kernels and the persistent decode kernels hold
+    # their accumulators in registers: a spill to local memory is a fault of
+    # the build, not a slow path
+    fns = _build.build_info.get("functions", [])
+    mma = [f for f in fns if "_mma_kernel" in f["name"]]
+    decode = [f for f in fns if "decode_kernel" in f["name"]]
     return {"seconds": time.perf_counter() - t0, "library": os.path.relpath(lib._name, HERE),
             "nvcc_seconds": _build.build_info.get("seconds"),
             "ptxas": _build.build_info.get("ptxas", []), "mma_kernels": mma,
-            "ok": len(mma) == 6 and all(f.get("spill_stores") == 0 for f in mma)}
+            "decode_kernels": decode,
+            "ok": (len(mma) == 6 and len(decode) == DECODE_INSTANCES
+                   and all(f.get("spill_stores") == 0 for f in mma + decode))}
 
 
 def attention_pairs(B, N, M, causal, q_len=None, kv_len=None) -> int:
@@ -392,33 +447,45 @@ def flash_lse_case(dev, B, S, H, D, causal, dtype, timed=False):
 
 
 def decode_case(dev, B, L, hidden, H, index, dtype, timed=False):
+    """Kernel B against its plain version: `index` a host int, a list of
+    per-row positions (a tensor made from it), or a tensor on the device."""
     from edgerunner_tpu_torch.ops.decode_attention import (
         fused_decode_attention,
         fused_decode_attention_reference,
     )
 
-    g = torch.Generator(device=dev).manual_seed(index + L)
+    pos = torch.tensor(index, dtype=torch.int32, device=dev) if isinstance(index, list) else index
+    starts = pos.tolist() if isinstance(pos, torch.Tensor) else [pos] * B
+    g = torch.Generator(device=dev).manual_seed(max(starts) + L)
     kc, vc = (torch.randn(B, L, hidden, device=dev, generator=g).to(dtype) for _ in range(2))
     q = torch.randn(B, hidden, device=dev, generator=g).to(dtype)
-    out = fused_decode_attention(q, kc, vc, index, num_heads=H)
-    ref = fused_decode_attention_reference(q, kc, vc, index, num_heads=H)
+    out = fused_decode_attention(q, kc, vc, pos, num_heads=H)
+    ref = fused_decode_attention_reference(q, kc, vc, pos, num_heads=H)
     torch.cuda.synchronize()
-    res = {"shape": [B, L, hidden], "heads": H, "index": index,
+    res = {"shape": [B, L, hidden], "heads": H,
+           "index": starts if isinstance(pos, torch.Tensor) else pos,
+           "index_kind": "device tensor" if isinstance(pos, torch.Tensor) else "host int",
            "dtype": str(dtype).split(".")[-1], **compare(out, ref, dtype)}
     if timed:
         import torch.nn.functional as F
 
-        D, n = hidden // H, index + 1
-        res["ms"] = time_ms(lambda: fused_decode_attention(q, kc, vc, index, num_heads=H), 50, 3)
+        D, n = hidden // H, max(starts) + 1
+        res["ms"] = time_ms(lambda: fused_decode_attention(q, kc, vc, pos, num_heads=H), 50, 3)
+        res["ms_device"] = time_ms_device(
+            lambda: fused_decode_attention(q, kc, vc, pos, num_heads=H), 50)
+        res["ms_l2_flushed"] = time_ms_l2_flushed(
+            lambda: fused_decode_attention(q, kc, vc, pos, num_heads=H), 20)
         res["plain_ms"] = time_ms(
-            lambda: fused_decode_attention_reference(q, kc, vc, index, num_heads=H), 20, 2)
+            lambda: fused_decode_attention_reference(q, kc, vc, pos, num_heads=H), 20, 2)
+        # the yardstick at one position for every row (SDPA over the prefix)
         qh = q.reshape(B, 1, H, D).transpose(1, 2)
         kh = kc[:, :n].reshape(B, n, H, D).transpose(1, 2)
         vh = vc[:, :n].reshape(B, n, H, D).transpose(1, 2)
         res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 50, 3)
-        # rows [0, index] of both caches, q and out, once each
-        nbytes = (2 * B * n * hidden + 2 * B * hidden) * q.element_size()
-        res.update(bound(4.0 * B * n * hidden, nbytes, dtype))
+        # rows [0, index[b]] of both caches, q and out, once each, and the positions
+        rows = sum(i + 1 for i in starts)
+        nbytes = (2 * rows * hidden + 2 * B * hidden) * q.element_size() + 4 * B
+        res.update(bound(4.0 * rows * hidden, nbytes, dtype))
     return res
 
 
@@ -484,6 +551,8 @@ def multi_case(dev, kind, B, L, hidden, H, T, indices, timed=False, single=False
         import torch.nn.functional as F
 
         res["ms"] = time_ms(lambda: kernel(q, *caches, index, **kw), 50, 3)
+        res["ms_device"] = time_ms_device(lambda: kernel(q, *caches, index, **kw), 50)
+        res["ms_l2_flushed"] = time_ms_l2_flushed(lambda: kernel(q, *caches, index, **kw), 20)
         res["plain_ms"] = time_ms(lambda: plain(q, *caches, index, **kw), 5, 1)
         starts = [indices[0]] * B if single else indices
         rows = sum(i + T for i in starts)  # cache rows [0, index[b] + T) of each row
@@ -600,12 +669,25 @@ def phase_kernels(dev):
         for b, n, m, h, d, c, kv, ql in TILE_EDGE_CASES]
     mid = plen + num_new // 2  # the mean position of the decode loop
     decode = [dict(case=f"index {i}", **decode_case(dev, ROWS, L, hd, H, i, bf))
-              for i in sorted({0, 511, 512, L - 1}) if i < L]
-    decode.append(dict(case=f"index {mid} (main path, mean position)",
-                       **decode_case(dev, ROWS, L, hd, H, mid, bf, timed=True)))
+              for i in sorted({0, 255, 256, 257, 511, 512, L - 1}) if i < L]
+    # the decode step's position vector, built on the device as the step builds it
+    decode.append(dict(case=f"index {mid} (main path, mean position)", **decode_case(
+        dev, ROWS, L, hd, H, torch.full((ROWS,), mid, dtype=torch.int32, device=dev), bf,
+        timed=True)))
+    # per-row positions: the tile and split edges, the last row, the first
+    edges = [0, 15, 16, 17, 255, 256, 257, 511, 2050, mid, L - 2, L - 1]
+    decode.append(dict(case="per-row positions", **decode_case(
+        dev, ROWS, L, hd, H, edges[:ROWS], bf)))
+    decode.append(dict(case="per-row positions, vector built on the device", **decode_case(
+        dev, ROWS, L, hd, H,
+        (torch.arange(ROWS, device=dev, dtype=torch.int32) * 557 + 31) % L, bf)))
     decode.append(dict(case="f32", **decode_case(dev, 2, 1024, hd, H, 700, f32)))
+    decode.append(dict(case="f32 per-row", **decode_case(dev, 3, 1024, hd, H, [5, 700, 1023],
+                                                         f32)))
     decode.append(dict(case="d64", **decode_case(dev, 3, 1024, 1024, 16, 300, bf)))
     decode.append(dict(case="d64 f32", **decode_case(dev, 3, 1024, 1024, 16, 1023, f32)))
+    decode.append(dict(case="d64 per-row", **decode_case(dev, 3, 1024, 1024, 16, [0, 256, 900],
+                                                         bf)))
     # the multi-query kernel: rows 9 and 11 at the serving engine's shape
     # (SERVE_ROWS slots of its cache length), row 8 at the generate path's
     from edgerunner_tpu_torch.serve_engine import engine_shape
@@ -656,6 +738,16 @@ def phase_kernels(dev):
             dev, "int4 f32 q", 3, 300, 96, 3, 1, [1, 255, 299], group=12)),
         dict(case="int4 ragged d64 g32 T=5", **multi_case(dev, "int4", 3, 700, 1024, 16, 5,
                                                           [0, 256, 695], group=32)),
+        # the paired int4 items and int8 at the most queries (three passes)
+        dict(case="int4 paired T=8", **multi_case(dev, "int4", 3, 1000, hd, H, 8,
+                                                  [0, 15, 992])),
+        dict(case="int4 paired g96 f32 q T=8", **multi_case(dev, "int4 f32 q", 2, 700, hd, H, 8,
+                                                            [300, 692], group=hd // H)),
+        dict(case="int8 T=8", **multi_case(dev, "int8", 3, 1000, hd, H, 8, [0, 17, 992])),
+        dict(case="int8 f32 q T=4", **multi_case(dev, "int8 f32 q", 2, 520, hd, H, 4,
+                                                 [255, 516])),
+        dict(case="int4 straddling 3x32 T=8", **multi_case(dev, "int4", 2, 300, 96, 3, 8,
+                                                           [16, 292])),
     ]
     # row 5 at the ring's blocks of the train batch padded for R ranks: the
     # causal diagonal and the full off-diagonal blocks
@@ -910,25 +1002,31 @@ def expected_launches(opt, kernel, calls) -> dict:
 def phase_generate_q8(dev):
     """The generate path over the int8 KV cache (--kv_quant true): full
     width, bf16, 12 rows, Q8_BUDGET tokens with EOS forbidden. Each decode
-    step launches the int8 kernel once per layer: exactly 24 x (steps - 1)."""
+    step launches the int8 kernel once per layer: exactly 24 x (steps - 1).
+    Then the device time by kernel over 32 steps at the budget's mean
+    position."""
     from edgerunner_tpu_torch.ops import decode_attention as DA
 
     opt, *_ = main_path_shapes()
     opt = dataclasses.replace(opt, generate_mode="greedy", kv_quant=True)
     num_new = decode_shape_of(opt, Q8_BUDGET)[0]
-    run = timed_generate(build_model(opt, dev, torch.bfloat16, SEED), opt, dev, ROWS,
-                         Q8_BUDGET)
-    tokens = run.pop("tokens")
+    model = build_model(opt, dev, torch.bfloat16, SEED)
+    run = timed_generate(model, opt, dev, ROWS, Q8_BUDGET)
+    tokens, points = run.pop("tokens"), run.pop("points")
     want = expected_launches(opt, DA.fused_decode_attention_q8, num_new - 1)
     ok = (tokens.shape == (ROWS, num_new) and run["launches"] == want
           and not (tokens == 0).any() and not (tokens == 2).any())
-    return {"ok": ok, "rows": ROWS, "num_faces": FACES, "num_new": num_new,
-            "max_len": run["max_len"], "layers": opt.num_layers, "hidden": opt.hidden_dim,
-            "dtype": "bfloat16", "kv_cache": "int8", "prefill_s": run["prefill_s"],
-            "generate_s": run["generate_s"],
-            "ms_per_step": (run["generate_s"] - run["prefill_s"]) / (num_new - 1) * 1e3,
-            "tokens_per_s": run["tokens_per_s"], "peak_mem_gib": run["peak_mem_gib"],
-            "launches": run["launches"], "launches_expected": want, "card": card_line()}
+    res = {"ok": ok, "rows": ROWS, "num_faces": FACES, "num_new": num_new,
+           "max_len": run["max_len"], "layers": opt.num_layers, "hidden": opt.hidden_dim,
+           "dtype": "bfloat16", "kv_cache": "int8", "prefill_s": run["prefill_s"],
+           "generate_s": run["generate_s"],
+           "ms_per_step": (run["generate_s"] - run["prefill_s"]) / (num_new - 1) * 1e3,
+           "tokens_per_s": run["tokens_per_s"], "peak_mem_gib": run["peak_mem_gib"],
+           "launches": run["launches"], "launches_expected": want, "card": card_line()}
+    res.update(profile_decode(model, opt, dev, points, run["max_len"],
+                              1 + opt.num_cond_tokens + num_new // 2))
+    res["ok"] = ok and res["device_ms_per_step"] > 0
+    return res
 
 
 def phase_generate_q4(dev):
@@ -1096,7 +1194,7 @@ def serve_points(opt, n):
         np.float32)
 
 
-def profile_segment(engine, dev, ms_per_step) -> dict:
+def profile_segment(engine, dev, ms_per_step, kernel_name) -> dict:
     """Device time by kernel over a decode segment of PROFILE_STEPS steps of
     a stopped engine, driven on this thread (torch.profiler traces the
     kernels of the thread it runs on; run from another thread it read no
@@ -1105,7 +1203,8 @@ def profile_segment(engine, dev, ms_per_step) -> dict:
     the engine's own `_segment`, warm from the timed run. The busy share divides
     the device time per step by the timed run's `ms_per_step` (the profiler
     itself slows the host about twofold; the share over the profiled wall
-    time is reported too)."""
+    time is reported too). The profile must show the path's decode kernel,
+    `kernel_name`."""
     from torch.profiler import ProfilerActivity, profile
 
     from edgerunner_tpu_torch.serve_engine import Request
@@ -1133,7 +1232,7 @@ def profile_segment(engine, dev, ms_per_step) -> dict:
             "device_ms_per_step": device_ms, "device_busy_share": device_ms / ms_per_step,
             "profiled_busy_share": device_ms * steps / wall_ms,
             "top_kernels_ms_per_step": kernels[:10],
-            "profile_ok": any("multi_chunk_kernel" in k for k, _ in kernels),
+            "profile_ok": any(kernel_name in k for k, _ in kernels),
             "profile_s": time.perf_counter() - t_start}
 
 
@@ -1159,7 +1258,8 @@ def phase_serve(dev):
     torch.cuda.empty_cache()
     res["bench_bf16"], engine = serve_bench(model, opt, dev, DA.fused_decode_attention_multi,
                                             SERVE_BENCH_REQUESTS)
-    res["bench_bf16"].update(profile_segment(engine, dev, res["bench_bf16"]["ms_per_step"]))
+    res["bench_bf16"].update(profile_segment(engine, dev, res["bench_bf16"]["ms_per_step"],
+                                             "multi_chunk_kernel"))
     del engine, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1168,7 +1268,7 @@ def phase_serve(dev):
     res["bench_int8_wquant"], engine = serve_bench(
         model, q_opt, dev, DA.fused_decode_attention_q8_multi, SERVE_BENCH_Q8_REQUESTS)
     res["bench_int8_wquant"].update(
-        profile_segment(engine, dev, res["bench_int8_wquant"]["ms_per_step"]))
+        profile_segment(engine, dev, res["bench_int8_wquant"]["ms_per_step"], "decode_kernel"))
     del engine, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1176,7 +1276,8 @@ def phase_serve(dev):
     model = load_model(q4_opt, dev)
     res["bench_int4"], engine = serve_bench(
         model, q4_opt, dev, DA.fused_decode_attention_q4_multi, SERVE_BENCH_Q4_REQUESTS)
-    res["bench_int4"].update(profile_segment(engine, dev, res["bench_int4"]["ms_per_step"]))
+    res["bench_int4"].update(profile_segment(engine, dev, res["bench_int4"]["ms_per_step"],
+                                             "decode_kernel"))
     benches = ("bench_bf16", "bench_int8_wquant", "bench_int4")
     res["ok"] = res["http"]["ok"] and all(res[k]["ok"] and res[k]["profile_ok"]
                                           for k in benches)
@@ -1856,12 +1957,16 @@ def kernels_line(results):
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
+    extra = ("ms_device", "ms_l2_flushed")  # the decode kernels' other timings
+
     def sub(c):
-        return {"shape": c["shape"], "max_abs_err": c["max_abs_err"], **{k: c[k] for k in keys}}
+        return {"shape": c["shape"], "max_abs_err": c["max_abs_err"], **{k: c[k] for k in keys},
+                **{k: c[k] for k in extra if k in c}}
 
     def entry(name, source, replaces, launches, c, **more):
         if source in ("flash_fwd.cu", "flash_bwd.cu"):  # bf16 on tensor cores, f32 scalar
             more = {"route_detail": "cuda, mma.sync bf16; scalar f32", **more}
+        more = {**{k: c[k] for k in extra if k in c}, **more}
         return {"name": name, "route": "cuda", "source": f"edgerunner_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": c["max_abs_err"],
                 **{k: c[k] for k in keys}, "shape": c["shape"], **more}
@@ -1908,16 +2013,16 @@ def kernels_line(results):
                                        spec_engine=spec["engine_bf16"]),
               t3_shape=sub(case(multi, "engine bf16 T=3")),
               f32_shape=sub(case(multi, "engine f32 T=1"))),
-        entry("fused_decode_attention_q8_multi", "decode_attention_multi.cu",
+        entry("fused_decode_attention_q8_multi", "decode_attention_quant.cu",
               "edgerunner_tpu/ops/decode_attention_pallas.py:866",
               bench_q8["launches"]["fused_decode_attention_q8_multi"],
               case(multi, "engine int8 T=1"), index=case(multi, "engine int8 T=1")["index"],
               t3_shape=sub(case(multi, "engine int8 T=3"))),
-        entry("fused_decode_attention_q8", "decode_attention_multi.cu",
+        entry("fused_decode_attention_q8", "decode_attention_quant.cu",
               "edgerunner_tpu/ops/decode_attention_pallas.py:445",
               gen_q8["launches"]["fused_decode_attention_q8"],
               case(multi, "generate q8 index"), index=case(multi, "generate q8 index")["index"]),
-        entry("fused_decode_attention_q4_multi", "decode_attention_multi.cu",
+        entry("fused_decode_attention_q4_multi", "decode_attention_quant.cu",
               "edgerunner_tpu/ops/decode_attention_pallas.py:824",
               bench_q4["launches"]["fused_decode_attention_q4_multi"],
               case(multi, "engine int4 T=1"), index=case(multi, "engine int4 T=1")["index"],
@@ -1927,7 +2032,7 @@ def kernels_line(results):
               t3_shape=sub(case(multi, "engine int4 T=3")),
               g96_shape=sub(case(multi, "engine int4 g96 T=1")),
               g96_t3_shape=sub(case(multi, "engine int4 g96 T=3"))),
-        entry("fused_decode_attention_q4", "decode_attention_multi.cu",
+        entry("fused_decode_attention_q4", "decode_attention_quant.cu",
               "edgerunner_tpu/ops/decode_attention_pallas.py:401",
               gen_q4["launches"]["fused_decode_attention_q4"],
               case(multi, "generate q4 index"), index=case(multi, "generate q4 index")["index"]),

@@ -400,6 +400,12 @@ def validate(opt: Options) -> Options:
     for name, off in _NOT_PORTED.items():
         if getattr(opt, name) != off:
             raise ValueError(f"the port does not implement --{name} yet")
+    # 'attn' saves each layer's attention output through the remat in the
+    # JAX trainer; the port's checkpointing always recomputes everything
+    # ('full'). remat_prevent_cse is XLA-only and changes nothing here.
+    if opt.remat_policy != "full":
+        raise ValueError(f"the port implements --remat_policy full only, got "
+                         f"{opt.remat_policy!r}")
     if opt.kv_quant and opt.kv_bits not in (4, 8):
         raise ValueError(f"--kv_bits is 4 or 8, got {opt.kv_bits}")
     if opt.kv_quant and opt.kv_bits == 4 and opt.kv_group:

@@ -16,8 +16,6 @@ constexpr float kNegInf = -1e30f;
 // dtype codes shared with the Python wrappers
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
-constexpr int kInt8 = 2;
-constexpr int kInt4 = 3;  // packed nibbles (decode_attention_multi.cu)
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }

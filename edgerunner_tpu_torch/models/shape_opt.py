@@ -174,16 +174,17 @@ class OPTAttention(nn.Module):
             o = KQ.rotate_rows(o, self.num_heads, inverse=True).to(q.dtype)
         return o
 
-    def step(self, h, k_cache, v_cache, index):
-        """h [B, 1, C] at position `index`: a host int, or under kv_quant the
-        step's int32 [B] position vector on the device. Writes this token's
-        cache row in place, then attends over rows [0, index]."""
+    def step(self, h, k_cache, v_cache, index: int, pos):
+        """h [B, 1, C] at position `index` (a host int); `pos` is the step's
+        int32 [B] position vector on the device, which every decode kernel
+        reads. Writes this token's cache row in place (under kv_quant
+        quantised, at `pos`), then attends over rows [0, index]."""
         if self.kv_quant:
-            self._write_rows(h, k_cache, v_cache, index)
+            self._write_rows(h, k_cache, v_cache, pos)
         else:
             k_cache[:, index] = self.k_proj(h)[:, 0]
             v_cache[:, index] = self.v_proj(h)[:, 0]
-        o = self._attend(self.decode, self.q_proj(h)[:, 0], k_cache, v_cache, index)
+        o = self._attend(self.decode, self.q_proj(h)[:, 0], k_cache, v_cache, pos)
         return self.out_proj(o)[:, None]
 
     def verify_step(self, h, k_cache, v_cache, index_vec):
@@ -224,8 +225,8 @@ class OPTDecoderLayer(nn.Module):
         a, k, v = self.self_attn.prefill(h)
         return self._mlp(self.self_attn_layer_norm(h + a)), k, v
 
-    def step(self, h, k_cache, v_cache, index):
-        a = self.self_attn.step(h, k_cache, v_cache, index)
+    def step(self, h, k_cache, v_cache, index: int, pos):
+        a = self.self_attn.step(h, k_cache, v_cache, index, pos)
         return self._mlp(self.self_attn_layer_norm(h + a))
 
     def verify_step(self, h, k_cache, v_cache, index_vec):
@@ -288,14 +289,12 @@ class ShapeOPTDecoder(nn.Module):
 
     def step(self, token_ids, caches: Caches, index: int):
         """token_ids [B, 1] at position `index`; updates the caches in place.
-        Under kv_quant the quantised kernel takes the position from the device:
-        the step builds that vector once for all layers."""
+        Every decode kernel takes the position from the device: the step
+        builds that vector once for all layers, whatever the cache's kind."""
         h = self.embd(token_ids) + self.embed_positions.weight[index]
-        if self.kv_quant:
-            index = torch.full((token_ids.shape[0],), index, dtype=torch.int32,
-                               device=h.device)
+        pos = torch.full((token_ids.shape[0],), index, dtype=torch.int32, device=h.device)
         for layer, k, v in zip(self.layers, *caches):
-            h = layer.step(h, k, v, index)
+            h = layer.step(h, k, v, index, pos)
         return h
 
     def verify_step(self, token_ids, caches: Caches, index_vec):

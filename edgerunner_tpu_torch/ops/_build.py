@@ -39,11 +39,17 @@ _SIGNATURES = {
     # q, k, v, dout, lse, delta, dq, dk, dv, q_len, kv_len, B, N, M, H, D, dtype,
     # causal, stream
     "flash_attention_bwd": [_P] * 11 + [_I] * 7 + [_P],
-    # q, k, v, out, part_o, part_m, part_l, B, L, H, D, index, chunk, dtype, stream
-    "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, plane, index, out, part_o, part_m, part_l, B, L, H, D, T,
-    # row_stride, group, v_lane, cache_dtype, q_dtype, scale, stream
-    "decode_attention_multi_fwd": [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P],
+    # q, k, v, index, out, scratch, ticket, scratch_warps, B, L, H, D, dtype, stream
+    "decode_attention_fwd": [_P] * 7 + [_I] * 6 + [_P],
+    # D, dtype -> warps of kernel B's grid
+    "decode_attention_warps": [_I, _I],
+    # q, k, v, index, out, part_o, part_m, part_l, B, L, H, D, T, dtype, scale, stream
+    "decode_attention_multi_fwd": [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P],
+    # q, kv, plane, index, out, scratch, ticket, scratch_warps, B, L, H, D, T, bits,
+    # group, v_lane, q_dtype, scale, stream
+    "decode_attention_quant_fwd": [_P] * 7 + [_I] * 10 + [ctypes.c_float, _P],
+    # bits, H, D, T -> warps of the quantised kernel's grid
+    "decode_attention_quant_warps": [_I] * 4,
 }
 
 

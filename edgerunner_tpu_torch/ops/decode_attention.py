@@ -1,19 +1,27 @@
 """Decode attention over the packed KV cache: the wrappers of the
 hand-written CUDA kernels and their plain versions.
 
-* `fused_decode_attention` (csrc/decode_attention.cu) replaces the TPU
-  kernel `fused_decode_attention` (edgerunner_tpu/ops/decode_attention_pallas.py:139):
-  one query per row, a host int position shared by all rows.
-* `fused_decode_attention_multi`, `fused_decode_attention_q8_multi`,
-  `fused_decode_attention_q8`, `fused_decode_attention_q4_multi` and
-  `fused_decode_attention_q4` (csrc/decode_attention_multi.cu, one kernel
-  templated on the cache's kind and on T) replace `fused_decode_attention_multi`
-  (:585), `fused_decode_attention_q8_multi` (:866), `fused_decode_attention_q8`
+* `fused_decode_attention` (csrc/decode_attention.cu, kernel B) replaces the
+  TPU kernel `fused_decode_attention`
+  (edgerunner_tpu/ops/decode_attention_pallas.py:139): one query per row.
+* `fused_decode_attention_multi` (csrc/decode_attention_multi.cu, kernel D)
+  replaces `fused_decode_attention_multi` (:585): T queries per row over a
+  bf16/f32 cache.
+* `fused_decode_attention_q8_multi`, `fused_decode_attention_q8`,
+  `fused_decode_attention_q4_multi` and `fused_decode_attention_q4`
+  (csrc/decode_attention_quant.cu, kernel D's quantised kinds) replace
+  `fused_decode_attention_q8_multi` (:866), `fused_decode_attention_q8`
   (:445), `fused_decode_attention_q4_multi` (:824) and
-  `fused_decode_attention_q4` (:401): T queries per row at per-row positions
-  held in an int32 [B] tensor on the device, over a bf16/f32 cache, the int8
-  cache or the int4 cache (per-row or grouped scales) with its scale plane
-  (ops/kv_quant.py). The wrappers never read the positions on the host.
+  `fused_decode_attention_q4` (:401): T queries per row over the int8 cache
+  or the int4 cache (per-row or grouped scales) with its scale plane
+  (ops/kv_quant.py).
+
+Every kernel takes its positions from an int32 [B] tensor on the device (a
+host int is filled into one on the device); the wrappers never read a
+position on the host. Kernel B and the quantised kinds run on a persistent
+grid that splits the live work evenly and merge their partial sums inside
+the same launch, through a scratch and a ticket buffer that the wrapper
+allocates once per configuration and stream and keeps (`_scratch`).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version. The kernels are bound by bytes (see the sources'
@@ -23,9 +31,9 @@ plus 4 bytes of the plane with per-row scales, or 4·G with G group scales.
 
 from __future__ import annotations
 
-import torch
-
 import math
+
+import torch
 
 from edgerunner_tpu_torch.ops import _build
 from edgerunner_tpu_torch.ops.attention import decode_attention, decode_attention_multi
@@ -42,70 +50,135 @@ __all__ = ["fused_decode_attention", "fused_decode_attention_multi",
            "fused_decode_attention_q4_multi", "fused_decode_attention_q4_multi_reference",
            "fused_decode_attention_q4_reference", "fused_decode_attention_q8",
            "fused_decode_attention_q8_multi", "fused_decode_attention_q8_multi_reference",
-           "fused_decode_attention_q8_reference", "fused_decode_attention_reference"]
+           "fused_decode_attention_q8_reference", "fused_decode_attention_reference",
+           "int4_pairs", "query_passes", "quant_slot_floats"]
 
-# cache positions per block of the split-KV passes (both kernels)
+# cache positions per block of kernel D's bf16/f32 split
 CHUNK = 256
-# queries per row that the multi-query kernel takes
+# queries per row that the multi-query kernels take
 MAX_T = 8
-INT8_CODE = 2
-INT4_CODE = 3
+# queries the quantised kernel takes per pass over the cache (its registers)
+QUERIES_PER_PASS = 3
 # the int4 kind also takes head dim 32 (a head straddling the nibble halves)
 INT4_HEAD_DIMS = (32,) + HEAD_DIMS
 
 
-def fused_decode_attention_reference(q, k_cache, v_cache, index: int, *,
+def query_passes(T: int) -> tuple:
+    """(passes, queries per pass) of the quantised kernel for T queries:
+    one pass up to QUERIES_PER_PASS, else ceil(T / 3) passes of equal size
+    (the last may carry queries past T, which are computed and not written).
+    Each pass reads the cache once."""
+    passes = -(-T // QUERIES_PER_PASS)
+    return passes, -(-T // passes)
+
+
+def int4_pairs(num_heads: int, head_dim: int) -> bool:
+    """Whether the int4 kernel takes heads h and h + H/2 as one item: they
+    share their bytes (low and high nibbles) when H is even. Head dim 32
+    runs one head per item."""
+    return num_heads % 2 == 0 and head_dim != 32
+
+
+def _slot_floats(streams: int, head_dim: int) -> int:
+    """Floats of one partial in a persistent kernel's scratch: per softmax
+    stream (head of an item, query of a pass) the f32 sums of p*v
+    (head_dim), the max and the sum of p; padded to 16 bytes."""
+    return -(-streams * (head_dim + 2) // 4) * 4
+
+
+def quant_slot_floats(bits: int, num_heads: int, head_dim: int, T: int) -> int:
+    """Floats of one partial in the quantised kernel's scratch: its streams
+    are the heads of an item times the queries of a pass."""
+    heads = 2 if bits == 4 and int4_pairs(num_heads, head_dim) else 1
+    return _slot_floats(heads * query_passes(T)[1], head_dim)
+
+
+# (kernel, configuration, device, stream) -> [scratch, ticket, warps]
+_SCRATCH: dict = {}
+
+
+def _scratch(key, device, stream: int, slot_floats: int, tickets: int, warps_of):
+    """The scratch of a persistent-grid kernel: two partial slots of
+    `slot_floats` floats per warp of its grid (`warps_of()` asks the
+    library) and `tickets` int32 counters that start at 0 and that every
+    launch leaves at 0. Allocated once per configuration, device and stream
+    and kept; the tickets grow with the batch."""
+    k = (key, slot_floats, device, stream)
+    entry = _SCRATCH.get(k)
+    if entry is None:
+        warps = warps_of()
+        if warps <= 0:
+            raise RuntimeError(f"{key}: no kernel instance ({warps})")
+        entry = [torch.empty(warps * 2 * slot_floats, dtype=torch.float32, device=device),
+                 torch.zeros(0, dtype=torch.int32, device=device), warps]
+        _SCRATCH[k] = entry
+    if entry[1].numel() < tickets:
+        entry[1] = torch.zeros(tickets, dtype=torch.int32, device=device)
+    return entry
+
+
+def fused_decode_attention_reference(q, k_cache, v_cache, index, *,
                                      num_heads: int) -> torch.Tensor:
     """The plain version: q [B, hidden] attends over cache rows [0, index]
-    of k/v [B, L, hidden] per head, in f32. Returns [B, hidden] in q's dtype."""
+    of k/v [B, L, hidden] per head, in f32; `index` a host int for every
+    row, or a [B] (or scalar) tensor of per-row positions, clamped into
+    [0, L) as the kernel clamps them. Returns [B, hidden] in q's dtype."""
     B, L, hd = k_cache.shape
     H, D = num_heads, hd // num_heads
-    n = index + 1
+    if isinstance(index, torch.Tensor):
+        lengths = index.to(device=q.device, dtype=torch.long).expand(B).clamp(0, L - 1) + 1
+        n = int(lengths.max())
+    else:
+        lengths = n = int(index) + 1
     out = decode_attention(q.reshape(B, 1, H, D),
                            k_cache[:, :n].reshape(B, n, H, D),
-                           v_cache[:, :n].reshape(B, n, H, D), n)
+                           v_cache[:, :n].reshape(B, n, H, D), lengths)
     return out.reshape(B, hd)
 
 
-def fused_decode_attention(q, k_cache, v_cache, index: int, *,
+def _check_aligned(name, device, **tensors):
+    for label, t in tensors.items():
+        if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must be a contiguous, 16-byte aligned "
+                             f"tensor on {device}")
+
+
+def fused_decode_attention(q, k_cache, v_cache, index, *,
                            num_heads: int) -> torch.Tensor:
     """q [B, hidden]; caches [B, L, hidden] already holding the new token's
-    k/v at row `index` (a host int). Returns out [B, hidden], attending over
-    cache rows [0, index] only."""
+    k/v at row index[b]; index an int32 [B] tensor on q's device (the decode
+    step's position vector), a scalar tensor, or a host int for every row.
+    Returns out [B, hidden], attending over cache rows [0, index[b]] only.
+    One launch: the kernel merges its split sums itself."""
     B, L, hd = k_cache.shape
     H = num_heads
     D = hd // H
-    index = int(index)
     if q.shape != (B, hd) or v_cache.shape != k_cache.shape or hd != H * D:
         raise ValueError(f"shapes q {tuple(q.shape)}, caches {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)} with {H} heads do not fit")
-    if not 0 <= index < L:
+    if not isinstance(index, torch.Tensor) and not 0 <= int(index) < L:
         raise ValueError(f"index {index} outside the cache length {L}")
-    if q.device.type == "cpu":
+    if not _on_cuda("fused_decode_attention", q):
         return fused_decode_attention_reference(q, k_cache, v_cache, index,
                                                 num_heads=num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_decode_attention runs on cuda or cpu, not {q.device}")
     if q.dtype not in DTYPE_CODES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise ValueError(f"fused_decode_attention takes f32 or bf16, got {q.dtype}, "
                          f"{k_cache.dtype}, {v_cache.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"fused_decode_attention has kernels for head dims "
                          f"{HEAD_DIMS}, got {D}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"tensor on {q.device}")
-    splits = -(-(index + 1) // CHUNK)
-    part_o = torch.empty((splits, B, H, D), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((2, splits, B, H), dtype=torch.float32, device=q.device)
-    out = torch.empty_like(q)
+    _check_aligned("fused_decode_attention", q.device, q=q, k_cache=k_cache, v_cache=v_cache)
+    pos = _positions(index, B, L, 1, q.device)
     lib = _build.load_library()
+    code = DTYPE_CODES[q.dtype]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scratch, ticket, warps = _scratch(("decode_attention_fwd", D, code), q.device, stream,
+                                      _slot_floats(1, D), B * H,
+                                      lambda: lib.decode_attention_warps(D, code))
+    out = torch.empty_like(q)
     err = lib.decode_attention_fwd(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        part_o.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
-        B, L, H, D, index, CHUNK, DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), ticket.data_ptr(), warps, B, L, H, D, code, stream)
     _build.check(err, "decode_attention_fwd")
     fused_decode_attention.launches += 1
     return out
@@ -152,6 +225,8 @@ def _positions(index, B: int, L: int, T: int, device) -> torch.Tensor:
         if index.device != device or index.numel() not in (1, B) or index.dim() > 1:
             raise ValueError(f"index must be a scalar or a [{B}] tensor on {device}, got "
                              f"{tuple(index.shape)} on {index.device}")
+        if index.dtype == torch.int32 and index.dim() == 1 and index.is_contiguous():
+            return index  # the decode step's vector, as the kernels read it
         return index.to(torch.int32).expand(B).contiguous()
     index = int(index)
     if not 0 <= index <= L - T:
@@ -159,13 +234,9 @@ def _positions(index, B: int, L: int, T: int, device) -> torch.Tensor:
     return torch.full((B,), index, dtype=torch.int32, device=device)
 
 
-def _launch_multi(name, q, caches: dict, ptrs, index, num_heads: int,
-                  row_stride: int, cache_code: int, *, head_dims=HEAD_DIMS,
-                  group: int = 0, v_lane: int = 1) -> torch.Tensor:
-    """Check what the kernel takes, allocate its output and scratch, launch.
-    `caches` names the cache tensors (the first gives L); `ptrs` are the
-    kernel's K, V and scale-plane pointers into them; `group` and `v_lane`
-    say where the plane holds the scales (per row: lanes 0 and 1)."""
+def _check_multi(name, q, caches: dict, num_heads: int, head_dims) -> tuple:
+    """Raise on what a multi-query kernel does not take; (B, T, L, H, D).
+    `caches` names the cache tensors (the first gives L)."""
     B, T, hd = q.shape
     L = next(iter(caches.values())).shape[1]
     H = num_heads
@@ -177,10 +248,16 @@ def _launch_multi(name, q, caches: dict, ptrs, index, num_heads: int,
         raise ValueError(f"{name} takes 1 to {MAX_T} queries per row, got {T}")
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"{name} takes f32 or bf16 queries, got {q.dtype}")
-    for label, t in (("q", q), *caches.items()):
-        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{label} must be a contiguous, 16-byte aligned "
-                             f"tensor on {q.device}")
+    _check_aligned(name, q.device, q=q, **caches)
+    return B, T, L, H, D
+
+
+def _launch_multi(q, k_cache, v_cache, index, num_heads: int) -> torch.Tensor:
+    """Kernel D over a bf16/f32 cache: its split pass and its merge pass,
+    with scratch for this call."""
+    name = "fused_decode_attention_multi"
+    B, T, L, H, D = _check_multi(name, q, {"k_cache": k_cache, "v_cache": v_cache},
+                                 num_heads, HEAD_DIMS)
     pos = _positions(index, B, L, T, q.device)
     splits = -(-L // CHUNK)
     part_o = torch.empty((splits, B, T, H, D), dtype=torch.float32, device=q.device)
@@ -188,10 +265,35 @@ def _launch_multi(name, q, caches: dict, ptrs, index, num_heads: int,
     out = torch.empty_like(q)
     lib = _build.load_library()
     err = lib.decode_attention_multi_fwd(
-        q.data_ptr(), *ptrs, pos.data_ptr(), out.data_ptr(), part_o.data_ptr(),
-        part_ml[0].data_ptr(), part_ml[1].data_ptr(), B, L, H, D, T, row_stride,
-        group, v_lane, cache_code, DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D),
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        part_o.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(), B, L, H, D, T,
+        DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, name)
+    return out
+
+
+def _launch_quant(name, q, kv_vals, scales, index, num_heads: int, bits: int,
+                  group: int = 0) -> torch.Tensor:
+    """The quantised kernel over the int8 (bits 8) or int4 (bits 4) cache,
+    one launch; `group` 0 for per-row scales (plane lanes 0 and 1), else
+    the int4 group size (K's scales from lane 0, V's from V_GROUP_BASE)."""
+    B, T, L, H, D = _check_multi(name, q, {"kv_vals": kv_vals, "scales": scales}, num_heads,
+                                 INT4_HEAD_DIMS if bits == 4 else HEAD_DIMS)
+    pos = _positions(index, B, L, T, q.device)
+    passes, per_pass = query_passes(T)
+    pairs = bits == 4 and int4_pairs(H, D)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scratch, ticket, warps = _scratch(
+        ("decode_attention_quant_fwd", bits, pairs, D, per_pass), q.device, stream,
+        quant_slot_floats(bits, H, D, T), B * passes * (H // 2 if pairs else H),
+        lambda: lib.decode_attention_quant_warps(bits, H, D, T))
+    out = torch.empty_like(q)
+    err = lib.decode_attention_quant_fwd(
+        q.data_ptr(), kv_vals.data_ptr(), scales.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), ticket.data_ptr(), warps, B, L, H, D, T, bits, group,
+        V_GROUP_BASE if group else 1, DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D), stream)
     _build.check(err, name)
     return out
 
@@ -222,10 +324,7 @@ def fused_decode_attention_multi(q, k_cache, v_cache, index, *,
     if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise ValueError(f"fused_decode_attention_multi takes caches of q's dtype "
                          f"{q.dtype}, got {k_cache.dtype}, {v_cache.dtype}")
-    out = _launch_multi("fused_decode_attention_multi", q,
-                        {"k_cache": k_cache, "v_cache": v_cache},
-                        (k_cache.data_ptr(), v_cache.data_ptr(), None),
-                        index, num_heads, hd, DTYPE_CODES[q.dtype])
+    out = _launch_multi(q, k_cache, v_cache, index, num_heads)
     fused_decode_attention_multi.launches += 1
     return out
 
@@ -242,13 +341,6 @@ def _check_q8(name, q, kv_vals, scales):
                          f"{kv_vals.dtype}, {scales.dtype}")
 
 
-def _q8_launch(name, q, kv_vals, scales, index, num_heads: int) -> torch.Tensor:
-    hd = q.shape[-1]
-    return _launch_multi(name, q, {"kv_vals": kv_vals, "scales": scales},
-                         (kv_vals.data_ptr(), kv_vals.data_ptr() + hd, scales.data_ptr()),
-                         index, num_heads, 2 * hd, INT8_CODE)
-
-
 def fused_decode_attention_q8_multi(q, kv_vals, scales, index, *,
                                     num_heads: int) -> torch.Tensor:
     """Multi-query decode over the int8 cache: q [B, T, hidden] (bf16/f32);
@@ -259,8 +351,8 @@ def fused_decode_attention_q8_multi(q, kv_vals, scales, index, *,
     if not _on_cuda("fused_decode_attention_q8_multi", q):
         return fused_decode_attention_q8_multi_reference(q, kv_vals, scales, index,
                                                          num_heads=num_heads)
-    out = _q8_launch("fused_decode_attention_q8_multi", q, kv_vals, scales, index,
-                     num_heads)
+    out = _launch_quant("fused_decode_attention_q8_multi", q, kv_vals, scales, index,
+                        num_heads, 8)
     fused_decode_attention_q8_multi.launches += 1
     return out
 
@@ -275,8 +367,8 @@ def fused_decode_attention_q8(q, kv_vals, scales, index, *,
     if not _on_cuda("fused_decode_attention_q8", q):
         return fused_decode_attention_q8_reference(q, kv_vals, scales, index,
                                                    num_heads=num_heads)
-    out = _q8_launch("fused_decode_attention_q8", q[:, None], kv_vals, scales, index,
-                     num_heads)[:, 0]
+    out = _launch_quant("fused_decode_attention_q8", q[:, None], kv_vals, scales, index,
+                        num_heads, 8)[:, 0]
     fused_decode_attention_q8.launches += 1
     return out
 
@@ -317,14 +409,6 @@ def _check_q4(name, q, kv_vals, scales, num_heads: int, group: int):
         check_group(hd, group)
 
 
-def _q4_launch(name, q, kv_vals, scales, index, num_heads: int, group: int) -> torch.Tensor:
-    hd = q.shape[-1]
-    return _launch_multi(name, q, {"kv_vals": kv_vals, "scales": scales},
-                         (kv_vals.data_ptr(), kv_vals.data_ptr() + hd // 2, scales.data_ptr()),
-                         index, num_heads, hd, INT4_CODE, head_dims=INT4_HEAD_DIMS,
-                         group=group, v_lane=V_GROUP_BASE if group else 1)
-
-
 def fused_decode_attention_q4_multi(q, kv_vals, scales, index, *, num_heads: int,
                                     group: int = 0) -> torch.Tensor:
     """Multi-query decode over the int4 cache: q [B, T, hidden] (bf16/f32);
@@ -336,8 +420,8 @@ def fused_decode_attention_q4_multi(q, kv_vals, scales, index, *, num_heads: int
     if not _on_cuda("fused_decode_attention_q4_multi", q):
         return fused_decode_attention_q4_multi_reference(q, kv_vals, scales, index,
                                                          num_heads=num_heads, group=group)
-    out = _q4_launch("fused_decode_attention_q4_multi", q, kv_vals, scales, index,
-                     num_heads, group)
+    out = _launch_quant("fused_decode_attention_q4_multi", q, kv_vals, scales, index,
+                        num_heads, 4, group)
     fused_decode_attention_q4_multi.launches += 1
     return out
 
@@ -352,8 +436,8 @@ def fused_decode_attention_q4(q, kv_vals, scales, index, *, num_heads: int,
     if not _on_cuda("fused_decode_attention_q4", q):
         return fused_decode_attention_q4_reference(q, kv_vals, scales, index,
                                                    num_heads=num_heads, group=group)
-    out = _q4_launch("fused_decode_attention_q4", q[:, None], kv_vals, scales, index,
-                     num_heads, group)[:, 0]
+    out = _launch_quant("fused_decode_attention_q4", q[:, None], kv_vals, scales, index,
+                        num_heads, 4, group)[:, 0]
     fused_decode_attention_q4.launches += 1
     return out
 

@@ -151,6 +151,59 @@ def test_decode_attention_plain_matches_jax_per_row_lengths():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("index", [0, 15, 16, 255, 256, 257, 511])
+def test_decode_takes_a_position_tensor_as_well_as_a_host_int(index):
+    """Kernel B's wrapper and its plain version take the decode step's int32
+    [B] position vector (or a scalar tensor) and give what the host int
+    gives, bit for bit."""
+    B, L, H, D = 3, 512, 2, 96
+    r = np.random.default_rng(index + 3)
+    kc, vc = (torch.tensor(r.normal(size=(B, L, H * D)).astype(np.float32)) for _ in range(2))
+    q = torch.tensor(r.normal(size=(B, H * D)).astype(np.float32))
+    by_int = fused_decode_attention(q, kc, vc, index, num_heads=H)
+    for pos in (torch.full((B,), index, dtype=torch.int32), torch.tensor(index)):
+        torch.testing.assert_close(fused_decode_attention(q, kc, vc, pos, num_heads=H), by_int,
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(fused_decode_attention_reference(q, kc, vc, pos, num_heads=H),
+                                   by_int, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("D", [64, 96])
+def test_decode_plain_per_row_positions_match_jax(D):
+    """Per-row positions (tile and split edges, the last row) against JAX
+    `decode_attention` with [B] lengths index + 1, and each row against the
+    Pallas kernel at that row's position broadcast (interpret mode, f32)."""
+    B, L, H = 4, 512, 2
+    idx = np.array([0, 255, 257, L - 1], np.int32)
+    r = np.random.default_rng(D)
+    kc, vc = (r.normal(size=(B, L, H * D)).astype(np.float32) for _ in range(2))
+    q = r.normal(size=(B, H * D)).astype(np.float32)
+    out = fused_decode_attention(torch.tensor(q), torch.tensor(kc), torch.tensor(vc),
+                                 torch.tensor(idx), num_heads=H).numpy()
+    ref = j_decode_attention(jnp.asarray(q).reshape(B, 1, H, D),
+                             jnp.asarray(kc).reshape(B, L, H, D),
+                             jnp.asarray(vc).reshape(B, L, H, D), jnp.asarray(idx + 1))
+    np.testing.assert_allclose(out, np.asarray(ref).reshape(B, H * D), **TOL)
+    for b, i in enumerate(idx):
+        kernel = j_fused_decode(jnp.asarray(q[b:b + 1]), jnp.asarray(kc[b:b + 1]),
+                                jnp.asarray(vc[b:b + 1]), int(i), num_heads=H, block=128)
+        np.testing.assert_allclose(out[b:b + 1], np.asarray(kernel), **TOL)
+
+
+def test_decode_clamps_positions_outside_the_cache_as_the_kernel_does():
+    B, L, H, D = 2, 64, 2, 64
+    r = np.random.default_rng(9)
+    kc, vc = (torch.tensor(r.normal(size=(B, L, H * D)).astype(np.float32)) for _ in range(2))
+    q = torch.tensor(r.normal(size=(B, H * D)).astype(np.float32))
+    out = fused_decode_attention(q, kc, vc, torch.tensor([-5, L + 7], dtype=torch.int32),
+                                 num_heads=H)
+    want = fused_decode_attention(q, kc, vc, torch.tensor([0, L - 1], dtype=torch.int32),
+                                  num_heads=H)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    with pytest.raises(ValueError):  # a host int outside the cache is refused
+        fused_decode_attention(q, kc, vc, L, num_heads=H)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     before = (flash_attention.launches, fused_decode_attention.launches)
     q, k, v = (torch.tensor(x) for x in _qkv(1, 8, 8, 2, 64))

@@ -105,6 +105,20 @@ def test_validate_refuses_dp_size_and_the_training_options_not_ported_yet():
         validate(dataclasses.replace(config_defaults["ArAE"], **ok))
 
 
+def test_validate_refuses_remat_policy_attn_and_accepts_prevent_cse():
+    """'attn' would silently train with full recompute (the port's
+    checkpointing has no selective policy yet); remat_prevent_cse is an XLA
+    option that the port's recompute needs no counterpart of."""
+    from edgerunner_tpu_torch.config import config_defaults, validate
+
+    import dataclasses
+
+    with pytest.raises(ValueError, match="remat_policy"):
+        validate(dataclasses.replace(config_defaults["ArAE"], remat_policy="attn"))
+    for ok in (dict(remat_policy="full"), dict(remat_prevent_cse=True)):
+        validate(dataclasses.replace(config_defaults["ArAE"], **ok))
+
+
 def test_sp_modules_load_no_jax():
     """parallel/ and the ring are covered by the import scan above, and
     importing them loads no JAX."""

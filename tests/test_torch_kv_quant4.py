@@ -159,6 +159,51 @@ def test_q4_plain_version_matches_pallas(index, group):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=TOL)
 
 
+@pytest.mark.parametrize("heads,head_dim,pairs", [(16, 96, True), (2, 64, True), (3, 96, False),
+                                                  (3, 32, False), (4, 32, False), (1, 64, False)])
+def test_int4_items_pair_heads_that_share_their_bytes(heads, head_dim, pairs):
+    """The int4 kernel takes heads h and h + H/2 as one item when H is even
+    (their lanes are the low and high nibbles of the same bytes); an odd H,
+    or head dim 32, runs one head per item. Its scratch slot holds, per head
+    of an item and query of a pass, head_dim sums, a max and a sum."""
+    assert DA.int4_pairs(heads, head_dim) is pairs
+    if pairs:  # head h's lanes and head h + H/2's share byte j of the packed row
+        hd = heads * head_dim
+        for h in range(heads // 2):
+            low = np.arange(h * head_dim, (h + 1) * head_dim)
+            assert ((low + hd // 2) // head_dim == h + heads // 2).all()
+    for T in range(1, 9):
+        per_pass = DA.query_passes(T)[1]
+        for bits, streams in ((4, (2 if pairs else 1) * per_pass), (8, per_pass)):
+            n = DA.quant_slot_floats(bits, heads, head_dim, T)
+            assert n % 4 == 0 and streams * (head_dim + 2) <= n < streams * (head_dim + 2) + 4
+
+
+@pytest.mark.parametrize("T,passes,per_pass", [(1, 1, 1), (2, 1, 2), (3, 1, 3), (4, 2, 2),
+                                               (5, 2, 3), (6, 2, 3), (7, 3, 3), (8, 3, 3)])
+def test_query_passes_cover_every_query_at_most_three_at_a_time(T, passes, per_pass):
+    assert DA.query_passes(T) == (passes, per_pass)
+    assert per_pass <= DA.QUERIES_PER_PASS and passes * per_pass >= T
+    assert (passes - 1) * per_pass < T  # no pass without a real query
+
+
+@pytest.mark.parametrize("group", [0, 96])
+def test_q4_plain_version_takes_per_row_positions_at_eight_queries(group):
+    """T = 8 (three passes of the kernel) at per-row positions, a pair of
+    heads per item, against the Pallas kernel in interpret mode."""
+    B, L, H, D, T = 3, 256, 2, 96, 8
+    index = [0, 127, L - T]
+    q = np.random.default_rng(21).normal(size=(B, T, H * D)).astype(np.float32)
+    kv, plane = _q4_cache(B, L, H * D, 22, group)
+    ref = JP.fused_decode_attention_q4_multi(jnp.asarray(q), kv, plane,
+                                             jnp.asarray(index, jnp.int32), num_heads=H,
+                                             group=group, block=128)
+    out = DA.fused_decode_attention_q4_multi(torch.tensor(q), torch.tensor(np.asarray(kv)),
+                                             _plane(plane), torch.tensor(index, dtype=torch.int32),
+                                             num_heads=H, group=group)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=TOL)
+
+
 def test_q4_wrappers_refuse_what_the_kernel_does_not_take():
     q, kv = torch.zeros(2, 3, 96), torch.zeros(2, 16, 96, dtype=torch.int8)
     plane = torch.zeros(2, 16, 128, dtype=torch.bfloat16)

@@ -174,6 +174,37 @@ def test_shape_opt_prefill_caches_and_steps(pair):
         ids = ids + 5
 
 
+def test_shape_opt_step_gives_the_bf16_kind_a_device_position_vector(pair, monkeypatch):
+    """The decode step builds one int32 [B] position vector on the logits'
+    device for all layers and hands it to the one-query kernel of every
+    cache kind (here the unquantised one, kernel B's wrapper); the step's
+    logits still match the JAX step's."""
+    jm, params, tm = pair
+    P, max_len = 23, 64
+    embeds = _rand(B, P, 96, seed=11) * 0.1
+    _, _, jk, jv = jm.apply(params, jnp.asarray(embeds), max_len,
+                            method=lambda m, e, n: m.mesh_decoder.prefill(e, n))
+    _, (tk, tv) = tm.mesh_decoder.prefill(torch.tensor(embeds), max_len)
+    seen = []
+    for layer in tm.mesh_decoder.model.layers:
+        attn = layer.self_attn
+        assert attn.decode.__name__ == "fused_decode_attention"
+
+        def spy(q, k, v, index, _decode=attn.decode, **kw):
+            seen.append(index)
+            return _decode(q, k, v, index, **kw)
+
+        monkeypatch.setattr(attn, "decode", spy)
+    ids = np.array([[7], [9]])
+    jl_, _, _ = jm.apply(params, jnp.asarray(ids), jk, jv, P,
+                         method=lambda m, t, k, v, i: m.mesh_decoder.step(t, k, v, i))
+    _close(jl_, tm.mesh_decoder.step(torch.tensor(ids), (tk, tv), P))
+    assert len(seen) == len(tm.mesh_decoder.model.layers)
+    assert all(x is seen[0] for x in seen)  # built once per step
+    assert isinstance(seen[0], torch.Tensor) and seen[0].dtype == torch.int32
+    assert seen[0].tolist() == [P] * B
+
+
 def test_lmm_encode_cond_prefill_step(pair):
     jm, params, tm = pair
     pts = _rand(B, N_POINTS, 3, seed=8)
