@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: the quickest proof that
-the port still builds, agrees with its plain versions, generates meshes,
-serves them over HTTP and trains.
+the port still builds, agrees with its plain versions, generates meshes
+from point clouds and from images, serves them over HTTP and trains.
 
     python3 chip_smoke.py [--phases build,kernels,...]
 
@@ -26,7 +26,11 @@ Phases, one JSON line each:
              PyTorch library call's (a yardstick the port never calls; none
              attends over a quantised cache) and the least time the card
              could take. Decode positions come as host ints, per-row
-             vectors and vectors built on the device.
+             vectors and vectors built on the device. Kernel A also at the
+             DiT's shapes, f32 (what the image pipeline runs) and bf16:
+             self-attention [2, 2048, 2048, 16, 64] and cross-attention
+             [2, 2048 x 257, 16, 64] (257 keys straddle the 64-key tiles),
+             neither causal, and a ragged cross case with kv_len [257, 100].
 3. generate  the main path: `generate_tokens` at full ArAE width (24 layers,
              hidden 1536, 8192 points, 2049 condition tokens), bf16, random
              weights from a seed, 12 rows, 1000 faces, bench.py's 4096-token
@@ -79,6 +83,26 @@ Phases, one JSON line each:
              and peak memory per rank, the bytes the ring shifts, the
              parameters' checksum equal on every rank; and the f32 parity of
              its loss and gradients against one process at 2 layers.
+14. dit      image to mesh at full width (CLIP ViT-H/14, 32 x 1280; the DiT,
+             24 x 1024, 16 heads; latents 2048 x 64; the ArAE LMM in
+             point_latent mode), random weights from seed 0, one 512 x 512
+             image rendered from a procedural mesh's points: infer_dit's
+             DDIM run as the CLI runs it (f32, 100 steps, guidance 7.5, 2
+             repeats in one group): CLIP ms, DDIM s and ms per step, kernel
+             A's launches held to exactly 2 x 24 x 100 = 4,800, latents
+             finite; then the f32 decode of both rows (1000 faces, a
+             DIT_BUDGET-token budget cut for time, EOS forbidden), tokens/s,
+             row 0 written as an .obj; peak memory; one profiled DDIM step.
+             Then the server in pipeline mode (`build_server(pipeline=True)`,
+             bf16 LMM, f32 MDiT): /healthz, two /generate_image requests of
+             [224][224][3] floats at 10 and 20 faces (each answered with
+             ddim_s), one latent /generate, one malformed image answered 400.
+15. dit_parity  2 DiT and 2 CLIP layers at full width in f32 (TF32 off):
+             the kernel path's image condition and latents after a 10-step
+             DDIM run against the plain path's from the same noise; then a
+             2-layer full-width point_latent LMM decodes greedily from those
+             latents, both paths choosing the same token at every step whose
+             plain top-2 gap is at least NEAR_TIE.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit from nvidia-smi, and last the result line. Exits non-zero, printing
@@ -115,7 +139,7 @@ TRAIN_STEPS = 3          # timed training steps after one warm-up step
 SP_TRAIN_STEPS = 2       # sp phase: timed steps after one warm-up step (three in all)
 GRAD_TOL = 2e-2          # train parity: gradient error over the tensor's largest value
 PHASES = ("build", "kernels", "generate", "generate_q8", "generate_q4", "parity", "parity_q4",
-          "serve", "serve_parity", "spec", "train", "train_parity", "sp")
+          "serve", "serve_parity", "spec", "train", "train_parity", "sp", "dit", "dit_parity")
 Q8_BUDGET = 1024         # generate_q8: a shorter budget than the bf16 generate phase
                          # (one decode bucket, cut from 2048 for the sp phase's time)
 Q4_ROWS = 40             # bench.py's quant_fast probe: int4 KV + int8 weights at batch 40 ...
@@ -139,6 +163,12 @@ SERVE_PARITY_BUCKET = 128
 NEAR_TIE = 1e-3          # plain top-2 logit gap under which a flip is allowed
 SP_RING_RANKS = (2, 4)   # sp phase: groups of ranks sharing the card, the ring at full width
 SP_TRAIN_RANKS = 2       # ... and the one that also takes the full-width training step
+DIT_REPEATS = 2          # dit: one DDIM run of infer_dit's, test_batch_size 2 ...
+DIT_BUDGET = 1024        # ... and its decode at 1000 faces, the budget cut for time
+                         # (the CLI's is 6144 tokens)
+DIT_SERVE_FACES = (10, 20)  # dit: the pipeline server's two image requests
+DIT_PARITY_STEPS = 10    # dit_parity: a 10-step DDIM schedule
+LATENT_TOL = 1e-3        # dit_parity: latents' error over their largest value
 # shapes that straddle the flash kernels' 64-row tiles (B, N, M, H, D, causal,
 # kv_len, q_len), as tests/test_torch_attention.py and
 # tests/test_torch_flash_backward.py hold the plain versions at them
@@ -590,6 +620,11 @@ def main_path_shapes():
     return opt, budget, 1 + opt.num_cond_tokens, num_new, max_len
 
 
+def dit_cond_tokens(opt) -> int:
+    """CLIP's tokens, onto which the DiT cross-attends: patches + class."""
+    return (opt.clip_image_size // opt.clip_patch_size) ** 2 + 1
+
+
 def train_positions(opt) -> int:
     """Positions of a training row: condition tokens, BOS, mesh tokens, EOS."""
     return opt.num_cond_tokens + 1 + TRAIN_MESH_TOKENS + 1
@@ -631,6 +666,23 @@ def phase_kernels(dev):
     flash += [dict(case=f"tile edges {n}x{m}", **flash_case(dev, b, n, m, h, d, c, bf, kv_len=kv,
                                                              q_len=ql))
               for b, n, m, h, d, c, kv, ql in TILE_EDGE_CASES]
+    # the DiT's attentions in the image pipeline (2R = 2: one image, its
+    # unconditioned and conditioned rows): self over the 2048 latents and
+    # cross onto CLIP's 257 tokens, f32 as the pipeline runs them, and bf16
+    dit_n, dit_m = opt.point_latent_size, dit_cond_tokens(opt)
+    dit_h = opt.dit_num_heads
+    dit_d = opt.dit_hidden_dim // dit_h
+    for dt in (f32, bf):
+        name = str(dt).split(".")[-1]
+        main = " (main path)" if dt == f32 else ""
+        flash += [
+            dict(case=f"dit self {name}{main}", **flash_case(
+                dev, 2, dit_n, dit_n, dit_h, dit_d, False, dt, timed=True)),
+            dict(case=f"dit cross {name}{main}", **flash_case(
+                dev, 2, dit_n, dit_m, dit_h, dit_d, False, dt, timed=True)),
+            dict(case=f"dit cross ragged {name}", **flash_case(
+                dev, 2, dit_n, dit_m, dit_h, dit_d, False, dt, kv_len=[dit_m, 100])),
+        ]
     # the training step's shapes: the decoder's causal self-attention over
     # the train batch's positions (row 1 ragged) and the encoder's cross-attention
     T = train_positions(opt)
@@ -873,7 +925,7 @@ def phase_parity_q4(dev):
     return {"ok": all(r["ok"] for r in runs.values()), **runs}
 
 
-def parity_run(dev, steps, **changes):
+def parity_run(dev, steps, conds=None, **changes):
     """Kernel path against plain path, 2 layers at full width in f32: both
     models generate their own greedy streams through `generate_tokens`; a
     lockstep replay on the plain stream's tokens reads the plain logits'
@@ -881,7 +933,8 @@ def parity_run(dev, steps, **changes):
     up to the first step whose gap is under NEAR_TIE, the paths may choose
     differently only at such steps, and the logits may differ by less than
     1e-2 (f32 sums in another order differ by ~1e-5). `changes` set options
-    (the KV cache's kind)."""
+    (the KV cache's kind, the condition mode); `conds` are 2 rows of
+    conditions (point clouds from a seed when None)."""
     from edgerunner_tpu_torch.config import config_defaults, vocab_size_for
     from edgerunner_tpu_torch.generate import decode_shape, generate_tokens
     from edgerunner_tpu_torch.ops import sampling as S
@@ -893,8 +946,8 @@ def parity_run(dev, steps, **changes):
     kernel = build_model(opt, dev, torch.float32, SEED + 1)
     plain = build_model(opt, dev, torch.float32, SEED + 1, use_kernels=False)
     rows = 2
-    points = np.random.default_rng(SEED + 1).normal(
-        size=(rows, opt.point_num, 3)).astype(np.float32)
+    points = (np.random.default_rng(SEED + 1).normal(size=(rows, opt.point_num, 3)).astype(
+        np.float32) if conds is None else conds)
     kw = dict(num_faces=FACES, max_new_tokens=steps, bench_no_eos=True)
     stream_k = generate_tokens(kernel, points, **kw)
     stream_p = generate_tokens(plain, points, **kw)
@@ -1942,15 +1995,260 @@ def phase_sp(dev):
     return res
 
 
+def dit_options(**changes):
+    """The image pipeline's options: the ArAE preset with the LMM on the
+    DiT's latents, as infer_dit and the pipeline server set it."""
+    from edgerunner_tpu_torch.config import config_defaults, validate
+
+    return validate(dataclasses.replace(config_defaults["ArAE"], cond_mode="point_latent",
+                                        **changes), dit=True)
+
+
+def dit_image(size=512) -> np.ndarray:
+    """[size, size, 3] in [0,1]: a procedural mesh's surface points rendered
+    (render_points_image), the CLI's 512 x 512 input."""
+    from edgerunner_tpu_torch.data._procgen import icosphere
+    from edgerunner_tpu_torch.data.image_io import render_points_image
+    from edgerunner_tpu_torch.ops.pointops import sample_surface_points
+
+    v, f = icosphere(2)
+    v = v * np.array([1.0, 0.6, 0.8])  # an ellipsoid: a shading that is not symmetric
+    pts = sample_surface_points(v, f, 8192, np.random.default_rng(SEED))
+    return render_points_image(pts, size=size)
+
+
+def profile_ddim_step(model_dit, cond_cat, lat, t) -> dict:
+    """Device time by kernel of one DDIM step (the DiT on 2R rows), and its
+    share of the step's wall time (torch.profiler's CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from edgerunner_tpu_torch.infer_dit import DDIM_STEPS, GUIDANCE_SCALE
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model_dit.denoise_step(lat, cond_cat, t, GUIDANCE_SCALE, DDIM_STEPS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.key[:60], e.device_time_total / 1e3) for e in prof.key_averages()
+                      if e.device_type.name == "CUDA" and e.device_time_total > 0),
+                     key=lambda x: -x[1])
+    device_ms = sum(ms for _, ms in kernels)
+    return {"profiled_wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms if wall_ms else None,
+            "top_kernels_ms": kernels[:10],
+            "flash_ms": sum(ms for k, ms in kernels if "flash_fwd" in k)}
+
+
+def dit_cli(dev) -> dict:
+    """infer_dit as the CLI runs it, f32, one group of DIT_REPEATS repeats."""
+    import tempfile
+
+    from edgerunner_tpu_torch import infer_dit
+    from edgerunner_tpu_torch.data import save_mesh
+    from edgerunner_tpu_torch.diffusion import ddim_timesteps
+    from edgerunner_tpu_torch.generate import decode_shape, generate_tokens
+    from edgerunner_tpu_torch.models.mdit import run_mdit
+    from edgerunner_tpu_torch.ops import decode_attention as DA
+    from edgerunner_tpu_torch.ops.flash_attention import flash_attention
+    from edgerunner_tpu_torch.utils import get_tokenizer
+
+    opt = dit_options(test_batch_size=DIT_REPEATS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, model_dit = infer_dit.load_models(opt, dev)
+    setup_s = time.perf_counter() - t0
+    image = dit_image()[None]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.inference_mode():
+        # warm-up: every library call of the DDIM loop and of get_cond
+        run_mdit(model_dit, image, num_inference_steps=2, num_repeat=DIT_REPEATS, generator=gen)
+        img = torch.as_tensor(image, device=dev)
+        clip_ms = time_ms(lambda: model_dit.get_cond(img), 3)
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t1 = time.perf_counter()
+        latents = infer_dit.ddim_latents(model_dit, image, DIT_REPEATS, gen)
+        torch.cuda.synchronize()
+        ddim_s = time.perf_counter() - t1
+        ddim_launches = flash_attention.launches
+        want_ddim = 2 * opt.dit_num_layers * infer_dit.DDIM_STEPS
+
+        num_new = decode_shape(opt, 1, FACES, DIT_BUDGET)[0]
+        for fn in (flash_attention, *decode_wrappers()):
+            fn.launches = 0
+        t2 = time.perf_counter()
+        tokens = generate_tokens(model, latents, num_faces=FACES, max_new_tokens=DIT_BUDGET,
+                                 generator=gen, bench_no_eos=True)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t2
+        launches = {"flash_attention_fwd": flash_attention.launches,
+                    **{fn.__name__: fn.launches for fn in decode_wrappers()}}
+        # the LMM's prefill (no point encoder) and one single-query decode per
+        # layer and step, over the f32 cache (kernel B's f32 instance)
+        want = {fn.__name__: 0 for fn in decode_wrappers()}
+        want.update({"flash_attention_fwd": opt.num_layers,
+                     "fused_decode_attention": opt.num_layers * (num_new - 1)})
+        cond_cat = model_dit.prepare_cond_cfg(img).repeat_interleave(DIT_REPEATS, dim=0)
+        ts = ddim_timesteps(model_dit.schedule, infer_dit.DDIM_STEPS)
+        profile = profile_ddim_step(model_dit, cond_cat, latents, int(ts[len(ts) // 2]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokenizer, _ = get_tokenizer(opt)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dit_0.obj")
+        verts, faces = save_mesh(tokens[0], opt, path, tokenizer=tokenizer, clean=True)
+        obj_bytes = os.path.getsize(path)
+    lat = latents.float()
+    ok = (ddim_launches == want_ddim and launches == want
+          and tuple(latents.shape) == (DIT_REPEATS, opt.point_latent_size, opt.point_latent_dim)
+          and bool(torch.isfinite(lat).all()) and tokens.shape == (DIT_REPEATS, num_new)
+          and not (tokens == 0).any() and not (tokens == 2).any()
+          and bool(np.isfinite(verts).all()) and obj_bytes > 0
+          and profile["device_ms"] > 0)
+    mesh_s = ddim_s + decode_s
+    return {"ok": ok, "dtype": "float32", "repeats": DIT_REPEATS, "image": list(image.shape),
+            "clip_layers": opt.clip_num_layers, "clip_hidden": opt.clip_hidden_dim,
+            "dit_layers": opt.dit_num_layers, "dit_hidden": opt.dit_hidden_dim,
+            "lmm_layers": opt.num_layers, "lmm_hidden": opt.hidden_dim, "setup_s": setup_s,
+            "clip_ms": clip_ms, "ddim_steps": infer_dit.DDIM_STEPS, "ddim_s": ddim_s,
+            "ms_per_ddim_step": ddim_s / infer_dit.DDIM_STEPS * 1e3,
+            "ddim_launches": {"flash_attention_fwd": ddim_launches},
+            "ddim_launches_expected": want_ddim,
+            "latents_std": lat.std().item(), "latents_max_abs": lat.abs().max().item(),
+            "num_faces": FACES, "num_new": num_new, "decode_s": decode_s,
+            "tokens_per_s": tokens.size / decode_s, "launches": launches,
+            "launches_expected": want, "ddim_share_of_mesh": ddim_s / mesh_s,
+            "mesh_s_per_group": mesh_s, "mesh0_vertices": int(len(verts)),
+            "mesh0_faces": int(len(faces)), "mesh0_obj_bytes": obj_bytes,
+            "peak_mem_gib": peak, "profiled_ddim_step": profile, "card": card_line()}
+
+
+def dit_serve(dev) -> dict:
+    """The server in pipeline mode, as `serve ArAE --resume2 ...` starts it
+    (bf16 LMM, f32 MDiT, 100 DDIM steps at 7.5), with random weights from
+    seed 0: /healthz, two /generate_image requests of [224][224][3] floats,
+    a latent /generate, a malformed image body."""
+    import threading
+
+    from edgerunner_tpu_torch.serve import build_server
+
+    opt = dataclasses.replace(dit_options(), cond_mode="point", test_batch_size=SERVE_ROWS)
+    t0 = time.perf_counter()
+    server, frontend = build_server(opt, port=0, device=str(dev), pipeline=True)
+    setup_s = time.perf_counter() - t0
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    img = dit_image(opt.clip_image_size).tolist()
+    try:
+        health = http(port, "/healthz")
+        answers = [None] * len(DIT_SERVE_FACES)
+
+        def send(i):
+            answers[i] = http(port, "/generate_image",
+                              {"image": img, "num_faces": DIT_SERVE_FACES[i], "seed": i})
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(answers))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        images_s = time.perf_counter() - t1
+        lat = np.random.default_rng(SEED).normal(
+            size=(opt.point_latent_size, opt.point_latent_dim)).tolist()
+        latent = http(port, "/generate", {"latents": lat, "num_faces": 10, "seed": 0})
+        bad = http(port, "/generate_image", {"image": [[[0.0, 0.0, 0.0]], [[0.0]]]})
+        statz = http(port, "/statz")
+    finally:
+        server.shutdown()
+        server.server_close()
+        frontend.shutdown()
+        frontend.inner.engine.thread.join()
+    keys = {"vertices", "faces", "tokens", "wall_s"}
+    good = [a is not None and a[0] == 200 and set(a[1]) == keys | {"ddim_s"}
+            and a[1]["ddim_s"] > 0
+            and bool(np.isfinite(np.asarray(a[1]["vertices"], np.float64)).all())
+            for a in answers]
+    ok = (health == (200, {"ok": True, "cond_mode": "point_latent", "batch": SERVE_ROWS,
+                           "pipeline": True})
+          and all(good) and latent[0] == 200 and set(latent[1]) == keys and bad[0] == 400
+          and statz[1].get("ddim_runs") == len(answers))
+    return {"ok": ok, "setup_s": setup_s, "dit_steps": frontend.dit_steps,
+            "num_faces": list(DIT_SERVE_FACES), "answers_ok": sum(good),
+            "images_s": images_s,
+            "ddim_s": [a[1].get("ddim_s") for a in answers if a and a[0] == 200],
+            "wall_s": [a[1].get("wall_s") for a in answers if a and a[0] == 200],
+            "tokens": [len(a[1]["tokens"]) for a in answers if a and a[0] == 200],
+            "faces": [len(a[1]["faces"]) for a in answers if a and a[0] == 200],
+            "latent_status": latent[0], "malformed_status": bad[0], "statz": statz[1]}
+
+
+def phase_dit(dev):
+    import gc
+
+    res = {"cli": dit_cli(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["serve"] = dit_serve(dev)
+    res["ok"] = res["cli"]["ok"] and res["serve"]["ok"]
+    return res
+
+
+def phase_dit_parity(dev):
+    """Kernel path against plain path for the image pipeline, f32 with TF32
+    off, 2 DiT and 2 CLIP layers at full width, weights from a seed: the
+    image condition (CLIP runs plain on both paths: within 1e-6 of its
+    largest value), then the latents after a DIT_PARITY_STEPS-step DDIM run
+    from the same noise (within LATENT_TOL of their largest value: the
+    kernel's f32 sums in another order, ~1e-6, grown by guidance 7.5 over
+    the steps); then `parity_run` of a 2-layer point_latent LMM on the
+    plain path's latents."""
+    from edgerunner_tpu_torch.models.mdit import MDiT, run_mdit
+    from edgerunner_tpu_torch.weights import init_mdit_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt = dit_options(dit_num_layers=2, clip_num_layers=2, num_layers=2,
+                      generate_mode="greedy")
+    kernel = init_mdit_weights(MDiT(opt, device=dev), SEED + 2).eval()
+    plain = MDiT(opt, device=dev, use_kernels=False).eval()
+    plain.load_state_dict(kernel.state_dict())
+    image = dit_image()[None]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    noise = torch.randn((DIT_REPEATS, opt.point_latent_size, opt.point_latent_dim),
+                        generator=gen, device=dev)
+    with torch.inference_mode():
+        img = torch.as_tensor(image, device=dev)
+        cond_k, cond_p = kernel.get_cond(img), plain.get_cond(img)
+        lat_k, lat_p = (run_mdit(m, image, num_inference_steps=DIT_PARITY_STEPS,
+                                 num_repeat=DIT_REPEATS, noise=noise) for m in (kernel, plain))
+    cond_err = (cond_k - cond_p).abs().max().item()
+    cond_ok = cond_err <= 1e-6 * cond_p.abs().max().item()
+    lat_err = (lat_k - lat_p).abs().max().item()
+    lat_scale = lat_p.abs().max().item()
+    lat_ok = bool(torch.isfinite(lat_k).all()) and lat_err <= LATENT_TOL * lat_scale
+    del kernel, plain
+    torch.cuda.empty_cache()
+    lmm = parity_run(dev, PARITY_STEPS, conds=lat_p.cpu().numpy(), cond_mode="point_latent")
+    return {"ok": cond_ok and lat_ok and lmm["ok"], "dit_layers": 2, "clip_layers": 2,
+            "dtype": "float32", "tf32": False, "cond_max_abs_err": cond_err,
+            "ddim_steps": DIT_PARITY_STEPS, "latents_max_abs_err": lat_err,
+            "latents_max_abs": lat_scale,
+            "latents_tolerance": f"|err| <= {LATENT_TOL} * {lat_scale:.4g}", "lmm": lmm}
+
+
 def kernels_line(results):
     """One entry per kernel: main-path numbers from this run; launches from
     the path that runs it, each counted from 0 over its run: the generate
     path (forward and decode kernels), the train path (backward kernel), the
     generate path over the int8 cache (row 8) and over the int4 cache (row
     7), and the serving engine (rows 9, 11 and 10); launches_by_path adds
-    the speculative paths (rows 9 and 10 at T = 3)."""
+    the speculative paths (rows 9 and 10 at T = 3) and the image pipeline
+    (kernel A in one DDIM run and in the f32 prefill, kernel B's f32
+    decode)."""
     kern, gen, train, serve, spec, sp = (results[k] for k in (
         "kernels", "generate", "train", "serve", "spec", "sp"))
+    dit = results["dit"]["cli"]
     gen_q8, gen_q4 = results["generate_q8"], results["generate_q4"]
     def case(cases, prefix):
         return next(c for c in cases if c["case"].startswith(prefix))
@@ -1994,13 +2292,19 @@ def kernels_line(results):
         entry("flash_attention_fwd", "flash_fwd.cu", "edgerunner_tpu/ops/flash_attention.py:258",
               gen["launches"]["flash_attention_fwd"], prefill,
               launches_by_path={"generate": gen["launches"]["flash_attention_fwd"],
-                                "train": train["launches"]["flash_attention_fwd"]},
+                                "train": train["launches"]["flash_attention_fwd"],
+                                "dit_ddim": dit["ddim_launches"]["flash_attention_fwd"],
+                                "dit_decode": dit["launches"]["flash_attention_fwd"]},
               encoder_shape=sub(case(kern["flash"], "encoder (main")),
               train_decoder_shape=sub(case(kern["flash"], "decoder train")),
-              train_encoder_shape=sub(case(kern["flash"], "encoder train"))),
+              train_encoder_shape=sub(case(kern["flash"], "encoder train")),
+              **{f"dit_{kind}_{dt}_shape": sub(case(kern["flash"], f"dit {kind} {dt}"))
+                 for kind in ("self", "cross") for dt in ("float32", "bfloat16")}),
         entry("fused_decode_attention", "decode_attention.cu",
               "edgerunner_tpu/ops/decode_attention_pallas.py:139",
-              gen["launches"]["fused_decode_attention"], dec, index=dec["index"]),
+              gen["launches"]["fused_decode_attention"], dec, index=dec["index"],
+              launches_by_path={"generate": gen["launches"]["fused_decode_attention"],
+                                "dit_decode_f32": dit["launches"]["fused_decode_attention"]}),
         entry("flash_attention_bwd", "flash_bwd.cu", "edgerunner_tpu/ops/flash_attention.py:520",
               train["launches"]["flash_attention_bwd"], bwd, lengths=bwd["kv_len"],
               encoder_shape=sub(case(kern["flash_bwd"], "encoder train"))),
@@ -2074,7 +2378,8 @@ def main(argv=None) -> int:
             "parity_q4": lambda: phase_parity_q4(dev), "serve": lambda: phase_serve(dev),
             "serve_parity": lambda: phase_serve_parity(dev), "spec": lambda: phase_spec(dev),
             "train": lambda: phase_train(dev), "train_parity": lambda: phase_train_parity(dev),
-            "sp": lambda: phase_sp(dev)}
+            "sp": lambda: phase_sp(dev), "dit": lambda: phase_dit(dev),
+            "dit_parity": lambda: phase_dit_parity(dev)}
     results, ok = {}, True
     for name in PHASES:
         if name not in wanted:

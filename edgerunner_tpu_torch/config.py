@@ -1,10 +1,10 @@
 """Options / config system of the PyTorch port.
 
 The port's own copy of the JAX package's `Options`, its `default` and `ArAE`
-presets, the CLI parser and the vocabulary rules: the same option surface and
-preset values (reference: core/options.py:17-213), so that a command line
-means the same thing to both packages. `validate` also rejects the options
-whose code paths the port does not run yet.
+presets, the DiT preset, the CLI parser and the vocabulary rules: the same
+option surface and preset values (reference: core/options.py:17-213), so that
+a command line means the same thing to both packages. `validate` also rejects
+the options whose code paths the port does not run yet.
 """
 
 from __future__ import annotations
@@ -278,6 +278,36 @@ config_defaults["ArAE"] = Options(
     eval_mode="loss",
 )
 
+config_doc["DiT"] = "DiT"
+config_defaults["DiT"] = Options(
+    point_encoder_mode="embed",
+    kl_weight=1e-8,
+    max_face_length=8000,
+    discrete_bins=512,
+    use_num_face_cond=True,
+    use_decimate_aug=False,
+    cond_mode="point",
+    num_cond_tokens=2049,
+    freeze_encoder=False,
+    use_meto=True,
+    meto_backend="LR_ABSCO",
+    max_seq_length=40960,
+    hidden_dim=1536,
+    num_heads=16,
+    num_layers=24,
+    dit_hidden_dim=1024,
+    dit_num_heads=16,
+    dit_num_layers=24,
+    snr_gamma=5.0,
+    noise_scheduler_predtype="v_prediction",
+    batch_size=8,
+    gradient_accumulation_steps=1,
+    lr=1e-5,
+    weight_decay=0.1,
+    num_epochs=300,
+    eval_mode="none",
+)
+
 _HINTS = None
 
 
@@ -383,21 +413,28 @@ _NOT_PORTED = {
 }
 
 
-def validate(opt: Options) -> Options:
+def validate(opt: Options, *, dit: bool = False) -> Options:
     """Cross-field validation (reference: main.py:38-39), plus a refusal of
-    every option the port does not implement yet."""
-    if opt.cond_mode == "point":
+    every option the port does not implement yet. `dit` is for the entry
+    points that run the image pipeline (infer_dit, the server): they take a
+    DiT checkpoint with `--resume2`, which DiT training, not ported yet,
+    would write."""
+    if opt.cond_mode in ("point", "point_latent"):
+        # 'point_latent' takes the latents that 'point' encodes: the same
+        # condition tokens, and the DiT pipeline's frozen 'embed' encoder
         expected = opt.point_latent_size + (1 if opt.use_num_face_cond else 0)
         if opt.num_cond_tokens != expected:
             raise ValueError(
                 f"num_cond_tokens ({opt.num_cond_tokens}) must equal "
-                f"point_latent_size + use_num_face_cond ({expected}) in point "
-                "cond mode")
+                f"point_latent_size + use_num_face_cond ({expected}) in "
+                f"{opt.cond_mode} cond mode")
         if opt.point_encoder_mode != "embed":
             raise ValueError("the port implements point_encoder_mode 'embed' only")
     elif opt.cond_mode != "none":
         raise ValueError(f"the port does not implement cond_mode {opt.cond_mode!r} yet")
     for name, off in _NOT_PORTED.items():
+        if dit and name == "resume2":
+            continue
         if getattr(opt, name) != off:
             raise ValueError(f"the port does not implement --{name} yet")
     # 'attn' saves each layer's attention output through the remat in the

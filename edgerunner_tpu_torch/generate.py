@@ -82,7 +82,9 @@ def generate_tokens(model: LMM, conds, *, num_faces: int = 1000,
                     bench_no_eos: bool = False) -> np.ndarray:
     """Generate mesh token streams (reference: LMM.generate, models.py:204-303).
 
-    conds: [B, N, 3] points (numpy array or tensor) for point conditioning.
+    conds: [B, N, 3] points for point conditioning, or [B, L, D] latents
+    (the DiT's, [B, 2048, 64] at full width) for point_latent conditioning;
+    a numpy array or a tensor.
     Returns np.ndarray [B, T] of generated tokens (BOS excluded), PAD after
     each row's EOS. `generator` drives sampling (generate_mode 'sample'): a
     generator seeded with `opt.seed` on the model's device when None, as the

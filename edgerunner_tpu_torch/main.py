@@ -70,6 +70,10 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     args, rest = pre.parse_known_args(argv)
     device = resolve_device(args.device)
     opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.main"))
+    if opt.cond_mode == "point_latent":
+        raise ValueError("cond_mode 'point_latent' takes the DiT's latents "
+                         "(edgerunner_tpu_torch.infer_dit, serve --resume2); the port "
+                         "does not train on them")
     world = (dist.get_world_size() if dist.is_initialized()
              else int(os.environ.get("WORLD_SIZE", "1")))
     if opt.sp_size != world:

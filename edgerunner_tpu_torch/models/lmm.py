@@ -5,8 +5,10 @@ num-face bucket token, and the ShapeOPT decoder: the teacher-forcing
 `forward` with its loss, which training drives, the `prefill` / `step`
 pair that generate.py drives, `verify_step`, through which the serving
 engine decodes and speculative decoding verifies its proposals, and
-`mtp_logits`, the draft heads' logits. Conditioning modes 'point' and 'none' are
-ported; 'image' and 'point_latent' wait for later slices. `checkpointing`
+`mtp_logits`, the draft heads' logits. Conditioning modes 'point', 'none'
+and 'point_latent' (the DiT pipeline's latents [B, 2048, 64] through
+proj_cond and norm_cond, no point encoder) are ported; 'image' waits until
+DiT training is ported. `checkpointing`
 turns on gradient checkpointing of the point encoder's block and of each
 decoder layer, as in the JAX package (lmm.py:50-58, :80-82).
 """
@@ -34,7 +36,7 @@ class LMM(nn.Module):
     def __init__(self, opt: Options, *, dtype=torch.float32, device=None,
                  use_kernels: bool = True):
         super().__init__()
-        if opt.cond_mode not in ("point", "none"):
+        if opt.cond_mode not in ("point", "point_latent", "none"):
             raise ValueError(f"the port does not implement cond_mode {opt.cond_mode!r}")
         kw = dict(device=device, dtype=dtype)
         self.opt = opt
@@ -44,6 +46,7 @@ class LMM(nn.Module):
                 opt.point_hidden_dim, opt.point_num_heads, opt.point_latent_size,
                 opt.point_latent_dim, use_kernels=use_kernels,
                 remat=opt.checkpointing, **kw)
+        if opt.cond_mode in ("point", "point_latent"):
             self.proj_cond = nn.Linear(opt.point_latent_dim, opt.hidden_dim, **kw)
             self.norm_cond = nn.LayerNorm(opt.hidden_dim, eps=LN_EPS, **kw)
         if opt.use_num_face_cond:
@@ -67,7 +70,8 @@ class LMM(nn.Module):
         self.mesh_decoder = ShapeOPT(self.cfg, use_kernels=use_kernels, **kw)
 
     def encode_cond(self, conds, num_faces):
-        """conds: points [B, N, 3] (point mode); num_faces: [B] int.
+        """conds: points [B, N, 3] (point mode) or latents [B, L, D]
+        (point_latent mode); num_faces: [B] int.
         Returns (cond_embeds [B, C, hidden] or None, kl scalar)."""
         kl = torch.zeros((), device=num_faces.device)
         cond_embeds = None
@@ -75,6 +79,8 @@ class LMM(nn.Module):
             latent = self.point_encoder(conds)
             kl = latent_kl(latent)
             cond_embeds = self.norm_cond(self.proj_cond(latent))
+        elif self.opt.cond_mode == "point_latent":
+            cond_embeds = self.norm_cond(self.proj_cond(conds.to(self.proj_cond.weight.dtype)))
         if self.opt.use_num_face_cond:
             nf = self.embed_num_face(quantize_num_faces(num_faces))[:, None]
             cond_embeds = nf if cond_embeds is None else torch.cat([cond_embeds, nf], 1)

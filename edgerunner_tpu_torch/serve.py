@@ -1,30 +1,44 @@
 """HTTP mesh generation of the port over the continuous-batching engine
-(the counterpart of serve.py:54-597).
+(the counterpart of serve.py:54-597), with the image pipeline.
 
     python -m edgerunner_tpu_torch.serve ArAE [--resume w.safetensors] \\
         --port 8217 --test_batch_size 8 [--kv_quant true [--kv_bits 4] --w_quant true] \\
-        [--mtp_heads 2 --spec_decode true --generate_mode greedy] [--device cuda|cpu]
+        [--mtp_heads 2 --spec_decode true --generate_mode greedy] \\
+        [--resume2 dit.safetensors [--dit_steps 100 --guidance_scale 7.5]] [--device cuda|cpu]
 
 API, with the JAX server's JSON:
-    GET  /healthz         -> {"ok": true, "cond_mode", "batch", "pipeline": false}
+    GET  /healthz         -> {"ok": true, "cond_mode", "batch", "pipeline"}
     GET  /statz           -> {"requests_done", "queue_depth", "slots_busy",
                               "slots_total", "mean_wall_s", "tokens_out", "uptime_s"}
+                              (+ "ddim_runs" in pipeline mode)
     POST /generate        body {"points": [[x,y,z], ...], "num_faces": 1000,
                           "seed": 0} -> {"vertices", "faces", "tokens", "wall_s"};
+                          a pipeline server takes {"latents": [L][D]} instead;
                           malformed input answers 400, a full queue 503
-    POST /generate_image  400: the image pipeline is not ported yet
+    POST /generate_image  pipeline mode: body {"image": [H][W][3] floats in
+                          [0,1] or base64 image file bytes, "num_faces", "seed"}
+                          -> the /generate answer + "ddim_s"; 400 otherwise
 
 Two scheduling engines, as in the JAX server: continuous batching (the
 default, serve_engine.py), and with `--no_continuous` a micro-batcher that
-runs each collected batch to completion through `generate_tokens`. The
-model runs on the card unless `--device cpu` is given; without a card and
-without `--device cpu` it raises. The multi-device fleet (`--dp_size`) and
-the image pipeline (`--resume2`) are not ported yet.
+runs each collected batch to completion through `generate_tokens`. With
+`--resume2` (a DiT checkpoint) the server runs the image pipeline
+(`PipelineFrontend`): the ArAE takes point latents, in bf16, and an image
+request first runs one DDIM pass of the MDiT, in f32, on a lock. A file
+image goes through `load_image_cond` and an array of another size than
+CLIP's through a PIL resize: PIL is needed for those only. The model runs on
+the card unless `--device cpu` is given; without a card and without
+`--device cpu` it raises. The multi-device fleet (`--dp_size`) is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
+import binascii
+import dataclasses
+import io
 import json
 import queue
 import threading
@@ -38,6 +52,8 @@ import torch
 
 def _cond_shape(opt) -> tuple:
     """Per-row conditioning shape (matches ContinuousEngine._dummy_cond)."""
+    if opt.cond_mode == "point_latent":
+        return (opt.point_latent_size, opt.point_latent_dim)
     return (opt.point_num, 3)
 
 
@@ -191,8 +207,72 @@ class ContinuousFrontend:
         res = self.engine.submit(points, num_faces, seed)
         return _mesh_result(self.opt, self.tokenizer, res["tokens"], res["wall_s"])
 
+    def check_overloaded(self):
+        """Raise EngineOverloaded if a submit would be refused now: lets the
+        pipeline shed a request before its DDIM pass (racy by design; the
+        bounded queue still enforces the limit at submit)."""
+        from edgerunner_tpu_torch.serve_engine import EngineOverloaded
+
+        e = self.engine
+        if e.max_queue is not None and e.q.qsize() >= e.max_queue:
+            raise EngineOverloaded(f"queue depth {e.q.qsize()} >= max_queue {e.max_queue}")
+
     def shutdown(self):
         self.engine.shutdown()
+
+
+class PipelineFrontend:
+    """Image serving: image -> DiT DDIM -> point latent -> ArAE decode (the
+    reference's infer_dit.py flow over HTTP; JAX serve.py:414-470). The
+    inner frontend serves a point_latent ArAE, so latent requests still
+    work; an image request runs one DDIM pass first. DDIM passes run one at
+    a time on a lock; decode admission and batching stay with the inner
+    frontend."""
+
+    def __init__(self, inner, model_dit, dit_steps: int = 100,
+                 guidance_scale: float = 7.5):
+        self.inner = inner
+        self.batch = inner.batch
+        self.model_dit = model_dit
+        self.device = next(model_dit.parameters()).device
+        self.dit_steps = dit_steps
+        self.guidance = guidance_scale
+        self._lock = threading.Lock()
+        self._ddim_runs = 0
+
+    def submit(self, points: np.ndarray, num_faces: int, seed) -> dict:
+        return self.inner.submit(points, num_faces, seed)
+
+    def stats(self) -> dict:
+        return {**self.inner.stats(), "ddim_runs": self._ddim_runs}
+
+    def submit_image(self, image: np.ndarray, num_faces: int, seed) -> dict:
+        """image [H, W, 3] in [0,1] -> the mesh answer and "ddim_s"."""
+        from edgerunner_tpu_torch.models.mdit import run_mdit
+
+        # shed load before the serialised DDIM pass: a request the inner
+        # engine would refuse must not take a DDIM run and the lock
+        if hasattr(self.inner, "check_overloaded"):
+            self.inner.check_overloaded()
+        t0 = time.time()
+        seed_ = int(seed) if seed is not None else int(np.random.default_rng().integers(2 ** 31))
+        gen = torch.Generator(device=self.device).manual_seed(seed_)
+        with self._lock:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            with torch.inference_mode():
+                latents = run_mdit(self.model_dit, np.asarray(image, np.float32)[None],
+                                   num_inference_steps=self.dit_steps,
+                                   guidance_scale=self.guidance, generator=gen)
+                latents = latents[0].cpu().numpy()
+            self._ddim_runs += 1
+        ddim_s = time.time() - t0
+        out = self.inner.submit(latents, num_faces, seed)
+        out["ddim_s"] = round(ddim_s, 3)
+        return out
+
+    def shutdown(self):
+        self.inner.shutdown()
 
 
 def make_handler(batcher, opt):
@@ -213,16 +293,23 @@ def make_handler(batcher, opt):
         def do_GET(self):
             if self.path == "/healthz":
                 self._json(200, {"ok": True, "cond_mode": opt.cond_mode,
-                                 "batch": batcher.batch, "pipeline": False})
+                                 "batch": batcher.batch,
+                                 "pipeline": hasattr(batcher, "submit_image")})
             elif self.path == "/statz":
                 self._json(200, batcher.stats())
             else:
                 self._json(404, {"error": "unknown path"})
 
+        def _answer(self, submit, cond, num_faces, seed):
+            try:
+                self._json(200, submit(cond, num_faces, seed))
+            except Exception as e:  # noqa: BLE001
+                self._json(503 if isinstance(e, EngineOverloaded) else 500,
+                           {"error": str(e)})
+
         def do_POST(self):
             if self.path == "/generate_image":
-                self._json(400, {"error": "server not in pipeline mode "
-                                 "(start with --resume2 DIT_CKPT)"})
+                self._generate_image()
                 return
             if self.path != "/generate":
                 self._json(404, {"error": "unknown path"})
@@ -233,38 +320,91 @@ def make_handler(batcher, opt):
                 n = int(self.headers.get("Content-Length", 0))
                 req = json.loads(self.rfile.read(n) or b"{}")
                 num_faces = int(req.get("num_faces", opt.test_num_face[0]))
-                pts = np.asarray(req.get("points", []), np.float32)
-                if pts.ndim != 2 or pts.shape[1] != 3 or len(pts) == 0:
-                    self._json(400, {"error": "points must be [[x,y,z], ...]"})
-                    return
-                # resample to the model's fixed point count
-                rng = np.random.default_rng(int(req.get("seed") or 0))
-                idx = (rng.integers(0, len(pts), size=opt.point_num)
-                       if len(pts) != opt.point_num else np.arange(opt.point_num))
-                cond = pts[idx]
+                if opt.cond_mode == "point_latent":
+                    # a pipeline server also takes a raw latent condition
+                    cond = np.asarray(req.get("latents", []), np.float32)
+                    if cond.shape != _cond_shape(opt):
+                        self._json(400, {"error": f"latents must be {list(_cond_shape(opt))}"})
+                        return
+                else:
+                    pts = np.asarray(req.get("points", []), np.float32)
+                    if pts.ndim != 2 or pts.shape[1] != 3 or len(pts) == 0:
+                        self._json(400, {"error": "points must be [[x,y,z], ...]"})
+                        return
+                    # resample to the model's fixed point count
+                    rng = np.random.default_rng(int(req.get("seed") or 0))
+                    idx = (rng.integers(0, len(pts), size=opt.point_num)
+                           if len(pts) != opt.point_num else np.arange(opt.point_num))
+                    cond = pts[idx]
             except (ValueError, TypeError, AttributeError, json.JSONDecodeError) as e:
                 self._json(400, {"error": f"bad request: {e}"})
                 return
+            self._answer(batcher.submit, cond, num_faces, req.get("seed"))
+
+        def _generate_image(self):
+            """body {"image": base64 file bytes or [H][W][3] floats in [0,1],
+            "num_faces": N, "seed": S} -> the mesh answer and "ddim_s"."""
+            if not hasattr(batcher, "submit_image"):
+                self._json(400, {"error": "server not in pipeline mode "
+                                 "(start with --resume2 DIT_CKPT)"})
+                return
+            s = opt.clip_image_size
             try:
-                self._json(200, batcher.submit(cond, num_faces, req.get("seed")))
-            except Exception as e:  # noqa: BLE001
-                self._json(503 if isinstance(e, EngineOverloaded) else 500,
-                           {"error": str(e)})
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+                num_faces = int(req.get("num_faces", opt.test_num_face[0]))
+                raw = req.get("image")
+                if isinstance(raw, str):
+                    # an image file: background removal, recentring, white
+                    # background (reference: infer.py:71-83)
+                    from edgerunner_tpu_torch.data.image_io import load_image_cond
+
+                    img = load_image_cond(io.BytesIO(base64.b64decode(raw)), size=s)
+                elif raw is not None:
+                    img = np.asarray(raw, np.float32)
+                    if img.ndim != 3 or img.shape[2] != 3:
+                        self._json(400, {"error": "image must be [H][W][3]"})
+                        return
+                    if img.shape[:2] != (s, s):
+                        from edgerunner_tpu_torch.data.image_io import resize_bilinear
+
+                        # bilinear, as load_image_cond resizes, so that both
+                        # inputs condition alike
+                        img = resize_bilinear(img, s, s)
+                else:
+                    self._json(400, {"error": "missing image"})
+                    return
+            except (ValueError, TypeError, AttributeError, OSError, binascii.Error,
+                    json.JSONDecodeError) as e:
+                self._json(400, {"error": f"bad request: {e}"})
+                return
+            self._answer(batcher.submit_image, img, num_faces, req.get("seed"))
 
     return Handler
 
 
 def build_server(opt, port: int = 0, max_wait_ms: float = 30.0, continuous: bool = True,
                  segment_steps: int = 128, max_queue: Optional[int] = None,
-                 device: str = "cuda", dtype=torch.bfloat16, model=None):
+                 device: str = "cuda", dtype=torch.bfloat16, model=None,
+                 pipeline: Optional[bool] = None, dit_steps: int = 100,
+                 guidance_scale: float = 7.5):
     """(server, batcher) for `opt`; separated from main() for tests. The
     model is built and loaded as infer.py loads it (the exact weights, then
-    quantised under w_quant), unless one is given."""
+    quantised under w_quant), unless one is given. `pipeline` (by default:
+    whether `opt.resume2` names a DiT checkpoint) serves images: the LMM
+    takes point latents, and an f32 MDiT with the weights of `resume2`, or
+    drawn from `opt.seed`, runs `dit_steps` DDIM steps at `guidance_scale`."""
     from edgerunner_tpu_torch.infer import load_model, resolve_device
     from edgerunner_tpu_torch.utils import get_tokenizer
 
+    if pipeline is None:
+        pipeline = opt.resume2 is not None
+    if pipeline:
+        # the ArAE takes the DiT's latents (reference: infer_dit.py:55)
+        opt = dataclasses.replace(opt, cond_mode="point_latent")
+    dev = resolve_device(device)
     if model is None:
-        model = load_model(opt, resolve_device(device), dtype=dtype)
+        model = load_model(opt, dev, dtype=dtype)
     tokenizer, _ = get_tokenizer(opt)
     if continuous:
         batcher = ContinuousFrontend(opt, model, tokenizer, batch=max(1, opt.test_batch_size),
@@ -272,6 +412,15 @@ def build_server(opt, port: int = 0, max_wait_ms: float = 30.0, continuous: bool
     else:
         batcher = Batcher(opt, model, tokenizer,
                           max_wait_ms=max_wait_ms)
+    if pipeline:
+        from edgerunner_tpu_torch.models.mdit import MDiT
+        from edgerunner_tpu_torch.weights import load_mdit
+
+        model_dit = load_mdit(MDiT(opt, device=next(model.parameters()).device), opt)
+        if opt.resume2:
+            print(f"[serve] loaded DiT checkpoint from {opt.resume2}")
+        batcher = PipelineFrontend(batcher, model_dit, dit_steps=dit_steps,
+                                   guidance_scale=guidance_scale)
     server = ThreadingHTTPServer(("0.0.0.0", port), make_handler(batcher, opt))
     return server, batcher
 
@@ -288,20 +437,30 @@ def main(argv: Optional[List[str]] = None):
                          "continuous batching")
     ap.add_argument("--segment_steps", type=int, default=128,
                     help="decode steps between admission points (continuous)")
+    ap.add_argument("--dit_steps", type=int, default=100,
+                    help="DDIM steps for /generate_image (pipeline mode)")
+    ap.add_argument("--guidance_scale", type=float, default=7.5)
     ap.add_argument("--max_queue", type=int, default=0,
                     help="shed load (HTTP 503) when this many requests are "
                          "already queued (0 = unbounded)")
     args, rest = ap.parse_known_args(argv)
-    opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.serve"))
+    opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.serve"), dit=True)
     if opt.cond_mode != "point":
-        raise ValueError("the port's server conditions on a point cloud (cond_mode 'point')")
-    server, _ = build_server(opt, port=args.port, max_wait_ms=args.max_wait_ms,
-                             continuous=not args.no_continuous,
-                             segment_steps=args.segment_steps,
-                             max_queue=args.max_queue or None, device=args.device)
+        raise ValueError("the port's server conditions on a point cloud (cond_mode "
+                         "'point'), or with --resume2 on the DiT's latents")
+    server, batcher = build_server(opt, port=args.port, max_wait_ms=args.max_wait_ms,
+                                   continuous=not args.no_continuous,
+                                   segment_steps=args.segment_steps,
+                                   max_queue=args.max_queue or None, device=args.device,
+                                   dit_steps=args.dit_steps,
+                                   guidance_scale=args.guidance_scale)
     mode = "micro-batch" if args.no_continuous else "continuous"
+    cond = opt.cond_mode
+    if hasattr(batcher, "submit_image"):
+        mode += f" + image pipeline ({args.dit_steps}-step DDIM)"
+        cond = "point_latent"  # build_server sets it in pipeline mode
     print(f"[serve] listening on :{server.server_address[1]} (batch "
-          f"{max(1, opt.test_batch_size)}, cond {opt.cond_mode}, {mode}, "
+          f"{max(1, opt.test_batch_size)}, cond {cond}, {mode}, "
           f"device {args.device})", flush=True)
     server.serve_forever()
 

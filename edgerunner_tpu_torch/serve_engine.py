@@ -210,8 +210,12 @@ class ContinuousEngine:
         self._cols = torch.arange(self.T, device=dev)
 
     def _dummy_cond(self):
-        if self.opt.cond_mode == "point":
-            return torch.zeros((1, self.opt.point_num, 3), device=self.device)
+        opt = self.opt
+        if opt.cond_mode == "point":
+            return torch.zeros((1, opt.point_num, 3), device=self.device)
+        if opt.cond_mode == "point_latent":
+            return torch.zeros((1, opt.point_latent_size, opt.point_latent_dim),
+                               device=self.device)
         return torch.zeros((1, 0), device=self.device)
 
     # ------------------------------------------------------------- worker --

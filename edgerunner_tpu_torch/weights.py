@@ -18,6 +18,15 @@ both ways; a model with draft heads loads only weights that hold them
 A `w_quant` model loads as the JAX package loads one (serve.py:497-505,
 infer.py:124-133): the exact weights cross over into the plain model and
 its decoder projections are quantised after (`load_for_inference`).
+
+The MDiT (image pipeline) crosses over the same way: `mdit_state_dict_from_flax`
+takes export_mdit's names for `dit`, `proj_cond`, `norm_cond` and
+`point_encoder` (tools/export_reference_ckpt.py:94-113, :131-140) and gives
+the CLIP tower `image_encoder.` + HuggingFace CLIPVisionModel's names, the
+inverse of the JAX package's `convert_hf_clip_params`. A point_latent LMM
+takes an ArAE checkpoint trained in 'point' mode without its `point_encoder.*`
+entries, which the JAX package's tolerant merge ignores; any other missing or
+extra entry fails the strict load.
 """
 
 from __future__ import annotations
@@ -140,12 +149,16 @@ def load_state(model: torch.nn.Module, state: dict) -> torch.nn.Module:
 def load_for_inference(model: torch.nn.Module, opt) -> torch.nn.Module:
     """The exact weights into an LMM, from the `.safetensors` file
     `opt.resume` or drawn from `opt.seed`; then, with `opt.w_quant`, its
-    decoder projections quantised to int8 in place. Returns it in eval mode."""
+    decoder projections quantised to int8 in place. Returns it in eval mode.
+    A point_latent LMM drops the file's `point_encoder.*` entries."""
     from edgerunner_tpu_torch.models.lmm import init_weights
     from edgerunner_tpu_torch.ops.w_quant import quantize_lmm_params
 
     if opt.resume:
-        load_state(model, read_safetensors(opt.resume))
+        state = read_safetensors(opt.resume)
+        if opt.cond_mode == "point_latent":
+            state = {k: v for k, v in state.items() if not k.startswith("point_encoder.")}
+        load_state(model, state)
     else:
         init_weights(model, opt.seed)
     if opt.w_quant:
@@ -171,25 +184,29 @@ def _unlayernorm(sd, prefix):
     return {"scale": sd[prefix + ".weight"], "bias": sd[prefix + ".bias"]}
 
 
+def _unpoint_encoder(sd, p):
+    cross = p + ".cross_att"
+    att = {n: _unlinear({}, sd, f"{cross}.att.{n}")
+           for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
+    return {
+        "point_embed": {"mlp": _unlinear({}, sd, p + ".point_embed.mlp")},
+        "ln": _unlayernorm(sd, p + ".ln"),
+        "cross_att": {"ln1": _unlayernorm(sd, cross + ".ln1"),
+                      "ln2": _unlayernorm(sd, cross + ".ln2"), "att": att,
+                      "mlp": {"fc_in": _unlinear({}, sd, cross + ".mlp.net.0"),
+                              "fc_out": _unlinear({}, sd, cross + ".mlp.net.2")}},
+        "linear": _unlinear({}, sd, p + ".linear"),
+        "query_embed": sd[p + ".query_embed"],
+    }
+
+
 def flax_from_state_dict(sd: dict) -> dict:
     """The inverse of `state_dict_from_flax`: {reference name: array} -> the
     JAX package's LMM parameter tree {'params': ...} (the point basis, a
     fixed table rather than a weight, has no place in it)."""
     params: dict = {}
     if "point_encoder.linear.weight" in sd:
-        p, cross = "point_encoder", "point_encoder.cross_att"
-        att = {n: _unlinear({}, sd, f"{cross}.att.{n}")
-               for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
-        params["point_encoder"] = {
-            "point_embed": {"mlp": _unlinear({}, sd, p + ".point_embed.mlp")},
-            "ln": _unlayernorm(sd, p + ".ln"),
-            "cross_att": {"ln1": _unlayernorm(sd, cross + ".ln1"),
-                          "ln2": _unlayernorm(sd, cross + ".ln2"), "att": att,
-                          "mlp": {"fc_in": _unlinear({}, sd, cross + ".mlp.net.0"),
-                                  "fc_out": _unlinear({}, sd, cross + ".mlp.net.2")}},
-            "linear": _unlinear({}, sd, p + ".linear"),
-            "query_embed": sd[p + ".query_embed"],
-        }
+        params["point_encoder"] = _unpoint_encoder(sd, "point_encoder")
     if "proj_cond.weight" in sd:
         params["proj_cond"] = _unlinear({}, sd, "proj_cond")
         params["norm_cond"] = _unlayernorm(sd, "norm_cond")
@@ -240,3 +257,152 @@ def write_safetensors(path: str, tensors: dict):
         for raw in blobs:
             f.write(raw)
     os.replace(tmp, path)
+
+
+# ---------------------------------------------------------------- MDiT --
+
+def _dit(sd, prefix, tree):
+    _linear(sd, prefix + ".proj_in", tree["proj_in"])
+    sd[prefix + ".pos_embed"] = np.asarray(tree["pos_embed"], np.float32)
+    _linear(sd, prefix + ".timestep_proj.linear_1", tree["timestep_proj"]["linear_1"])
+    _linear(sd, prefix + ".timestep_proj.linear_2", tree["timestep_proj"]["linear_2"])
+    _linear(sd, prefix + ".adaln_linear", tree["adaln_linear"])
+    sd[prefix + ".scale_shift_table"] = np.asarray(tree["scale_shift_table"], np.float32)
+    _linear(sd, prefix + ".proj_out", tree["proj_out"])
+    i = 0
+    while f"layers_{i}" in tree:
+        lt, lp = tree[f"layers_{i}"], f"{prefix}.layers.{i}"
+        _linear(sd, lp + ".attn1.qkv_proj", lt["attn1"]["qkv_proj"])
+        _linear(sd, lp + ".attn1.out_proj", lt["attn1"]["out_proj"])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, f"{lp}.attn2.{name}", lt["attn2"][name])
+        _linear(sd, lp + ".ff.net.0", lt["ff"]["fc_in"])
+        _linear(sd, lp + ".ff.net.2", lt["ff"]["fc_out"])
+        sd[lp + ".scale_shift_table"] = np.asarray(lt["scale_shift_table"], np.float32)
+        i += 1
+
+
+_CLIP_DENSE = (("self_attn.q_proj", "self_attn", "q_proj"),
+               ("self_attn.k_proj", "self_attn", "k_proj"),
+               ("self_attn.v_proj", "self_attn", "v_proj"),
+               ("self_attn.out_proj", "self_attn", "out_proj"),
+               ("mlp.fc1", None, "fc1"), ("mlp.fc2", None, "fc2"))
+
+
+def clip_state_dict_from_flax(tree, prefix: str = "") -> dict:
+    """The JAX package's CLIP tower tree -> HuggingFace CLIPVisionModel's
+    names under `prefix` (the inverse of convert_hf_clip_params)."""
+    sd: dict = {}
+    p = prefix + "vision_model."
+    # flax conv [kh, kw, in, out] -> torch [out, in, kh, kw]
+    sd[p + "embeddings.patch_embedding.weight"] = np.asarray(
+        tree["patch_embedding"]["kernel"], np.float32).transpose(3, 2, 0, 1)
+    sd[p + "embeddings.class_embedding"] = np.asarray(tree["class_embedding"], np.float32)
+    sd[p + "embeddings.position_embedding.weight"] = np.asarray(
+        tree["position_embedding"], np.float32)
+    _layernorm(sd, p + "pre_layrnorm", tree["pre_layrnorm"])
+    i = 0
+    while f"layers_{i}" in tree:
+        lt, lp = tree[f"layers_{i}"], f"{p}encoder.layers.{i}."
+        _layernorm(sd, lp + "layer_norm1", lt["layer_norm1"])
+        _layernorm(sd, lp + "layer_norm2", lt["layer_norm2"])
+        for name, group, key in _CLIP_DENSE:
+            _linear(sd, lp + name, lt[group][key] if group else lt[key])
+        i += 1
+    return sd
+
+
+def mdit_state_dict_from_flax(tree) -> dict:
+    """The JAX package's MDiT parameter tree (numpy leaves, with or without
+    the top-level 'params') -> {port name: numpy array}."""
+    params = tree.get("params", tree)
+    sd: dict = {}
+    _dit(sd, "dit", params["dit"])
+    sd.update(clip_state_dict_from_flax(params["image_encoder"], "image_encoder."))
+    _linear(sd, "proj_cond", params["proj_cond"])
+    _layernorm(sd, "norm_cond", params["norm_cond"])
+    _point_encoder(sd, "point_encoder", params["point_encoder"])
+    return sd
+
+
+def flax_from_mdit_state_dict(sd: dict) -> dict:
+    """The inverse of `mdit_state_dict_from_flax`: {port name: array} -> the
+    JAX package's MDiT parameter tree {'params': ...}."""
+    d = "dit"
+    dit = {"proj_in": _unlinear({}, sd, d + ".proj_in"), "pos_embed": sd[d + ".pos_embed"],
+           "timestep_proj": {n: _unlinear({}, sd, f"{d}.timestep_proj.{n}")
+                             for n in ("linear_1", "linear_2")},
+           "adaln_linear": _unlinear({}, sd, d + ".adaln_linear"),
+           "scale_shift_table": sd[d + ".scale_shift_table"],
+           "proj_out": _unlinear({}, sd, d + ".proj_out")}
+    i = 0
+    while f"{d}.layers.{i}.scale_shift_table" in sd:
+        lp = f"{d}.layers.{i}"
+        dit[f"layers_{i}"] = {
+            "scale_shift_table": sd[lp + ".scale_shift_table"],
+            "attn1": {n: _unlinear({}, sd, f"{lp}.attn1.{n}") for n in ("qkv_proj", "out_proj")},
+            "attn2": {n: _unlinear({}, sd, f"{lp}.attn2.{n}")
+                      for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "ff": {"fc_in": _unlinear({}, sd, lp + ".ff.net.0"),
+                   "fc_out": _unlinear({}, sd, lp + ".ff.net.2")}}
+        i += 1
+    p = "image_encoder.vision_model."
+    clip = {"patch_embedding": {"kernel": sd[p + "embeddings.patch_embedding.weight"]
+                                .transpose(2, 3, 1, 0)},
+            "class_embedding": sd[p + "embeddings.class_embedding"],
+            "position_embedding": sd[p + "embeddings.position_embedding.weight"],
+            "pre_layrnorm": _unlayernorm(sd, p + "pre_layrnorm")}
+    i = 0
+    while f"{p}encoder.layers.{i}.layer_norm1.weight" in sd:
+        lp = f"{p}encoder.layers.{i}."
+        layer = {"layer_norm1": _unlayernorm(sd, lp + "layer_norm1"),
+                 "layer_norm2": _unlayernorm(sd, lp + "layer_norm2"), "self_attn": {}}
+        for name, group, key in _CLIP_DENSE:
+            (layer[group] if group else layer)[key] = _unlinear({}, sd, lp + name)
+        clip[f"layers_{i}"] = layer
+        i += 1
+    return {"params": {"dit": dit, "image_encoder": clip,
+                       "proj_cond": _unlinear({}, sd, "proj_cond"),
+                       "norm_cond": _unlayernorm(sd, "norm_cond"),
+                       "point_encoder": _unpoint_encoder(sd, "point_encoder")}}
+
+
+@torch.no_grad()
+def init_mdit_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Random MDiT weights from `seed`, at the JAX initialisers' scales: the
+    DiT's, proj_cond's and the point encoder's projections N(0, 0.02) (the
+    package's Dense), the CLIP tower's projections and patch conv
+    N(0, 1/fan_in) (flax's lecun_normal), CLIP's class and position
+    embeddings N(0, 0.02), the DiT's pos_embed and scale_shift_tables
+    N(0, dim^-0.5), the point queries N(0, hidden^-0.5), zero biases, unit
+    LayerNorms. Draws on the weights' own device."""
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for name, mod in model.named_modules():
+        if isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d)):
+            fan_in = mod.weight[0].numel()
+            std = fan_in ** -0.5 if name.startswith("image_encoder.") else 0.02
+            mod.weight.normal_(0.0, std, generator=gen)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, torch.nn.Embedding):
+            mod.weight.normal_(0.0, 0.02, generator=gen)
+        elif isinstance(mod, torch.nn.LayerNorm) and mod.weight is not None:
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+    for name, p in model.named_parameters():
+        if name.endswith(("pos_embed", "scale_shift_table", "query_embed")):
+            p.normal_(0.0, p.shape[-1] ** -0.5, generator=gen)
+        elif name.endswith("class_embedding"):
+            p.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
+def load_mdit(model: torch.nn.Module, opt) -> torch.nn.Module:
+    """The MDiT's weights from the `.safetensors` file `opt.resume2`
+    (strict), or drawn from `opt.seed`. Returns it in eval mode."""
+    if opt.resume2:
+        load_state(model, read_safetensors(opt.resume2))
+    else:
+        init_mdit_weights(model, opt.seed)
+    return model.eval()

@@ -168,3 +168,30 @@ def test_main_sp_size_outside_a_matching_world_raises(monkeypatch):
         main.main([*argv, "--sp_size", "2"])
     with pytest.raises(RuntimeError, match="this world has 4"):
         main.main(argv)
+
+
+def test_image_pipeline_modules_load_no_jax():
+    """The image pipeline's modules are covered by the import scan above, and
+    importing them loads no JAX (nor PIL, which only reading, resizing or
+    writing an image file needs)."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    mods = ("diffusion.schedulers", "models.clip_vit", "models.dit", "models.mdit",
+            "data.image_io", "data.matting", "infer_dit")
+    for mod in mods:
+        assert f"edgerunner_tpu_torch/{mod.replace('.', '/')}.py" in files, mod
+    code = ("import sys; " + "; ".join(f"import edgerunner_tpu_torch.{m}" for m in mods)
+            + "; bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('PIL',)!r}]; print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_pipeline_server_without_a_card_or_device_cpu_raises():
+    from edgerunner_tpu_torch import serve
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve.main(["ArAE", "--resume2", "dit.safetensors"])
