@@ -9,8 +9,9 @@ Phases, one JSON line each:
 
 1. build     nvcc builds every kernel from edgerunner_tpu_torch/csrc; ptxas's
              registers and spills per kernel; fails if a tensor-core flash
-             kernel or a persistent decode kernel (B and the quantised kinds
-             of D) spills.
+             kernel (the forward's bf16 and 3xTF32 instances, the backward's
+             dq and dk/dv, each at D 64 and 96) or a persistent decode
+             kernel (B and the quantised kinds of D) spills.
 2. kernels   each CUDA kernel against its plain PyTorch version on the card,
              at the main paths' shapes (generation, serving, training and
              the sp ring's blocks, where row 5 takes a non-zero lse
@@ -30,7 +31,13 @@ Phases, one JSON line each:
              DiT's shapes, f32 (what the image pipeline runs) and bf16:
              self-attention [2, 2048, 2048, 16, 64] and cross-attention
              [2, 2048 x 257, 16, 64] (257 keys straddle the 64-key tiles),
-             neither causal, and a ragged cross case with kv_len [257, 100].
+             neither causal, and a ragged cross case with kv_len [257, 100];
+             the f32 cases' bound is the tensor cores' f32-exact rate (3xTF32,
+             495 / 3 TFLOP/s), the CUDA cores' 67 TFLOP/s beside it. Last, a
+             diagnostic at the DiT's self-attention shape with q and k scaled
+             so that the logits span tens: the plain version with TF32
+             matmuls fails the f32 tolerance rule where the kernel passes it
+             (both errors printed on a line of their own).
 3. generate  the main path: `generate_tokens` at full ArAE width (24 layers,
              hidden 1536, 8192 points, 2049 condition tokens), bf16, random
              weights from a seed, 12 rows, 1000 faces, bench.py's 4096-token
@@ -189,6 +196,12 @@ DECODE_INSTANCES = 4 + 7 * 3
 # the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# an f32-exact product on the tensor cores: three TF32 products (495 TFLOP/s)
+# of split operands for each (3xTF32), as kernel A's f32 instance runs
+PEAK_F32_TF32X3 = 495e12 / 3
+# tensor-core flash kernels that ptxas must report: the forward's bf16 and
+# 3xTF32 instances and the backward's dq and dk/dv kernels, each at D 64, 96
+MMA_KERNELS = 8
 
 
 def emit(obj):
@@ -292,7 +305,7 @@ def phase_build():
             "nvcc_seconds": _build.build_info.get("seconds"),
             "ptxas": _build.build_info.get("ptxas", []), "mma_kernels": mma,
             "decode_kernels": decode,
-            "ok": (len(mma) == 6 and len(decode) == DECODE_INSTANCES
+            "ok": (len(mma) == MMA_KERNELS and len(decode) == DECODE_INSTANCES
                    and all(f.get("spill_stores") == 0 for f in mma + decode))}
 
 
@@ -307,8 +320,9 @@ def attention_pairs(B, N, M, causal, q_len=None, kv_len=None) -> int:
     return total
 
 
-def bound(flops, nbytes, dtype) -> dict:
-    bounds = {"operations": flops / PEAK_FLOPS[dtype], "bytes": nbytes / PEAK_BYTES_PER_S}
+def bound(flops, nbytes, dtype, peak_flops=None) -> dict:
+    bounds = {"operations": flops / (peak_flops or PEAK_FLOPS[dtype]),
+              "bytes": nbytes / PEAK_BYTES_PER_S}
     by = max(bounds, key=bounds.get)
     return {"bound_by": by, "bound_ms": bounds[by] * 1e3, "flops": flops, "bytes": nbytes}
 
@@ -347,8 +361,39 @@ def flash_case(dev, B, N, M, H, D, causal, dtype, kv_len=None, q_len=None, timed
         # two products of the pairs these inputs need (QK^T and PV)
         flops = 4.0 * H * D * attention_pairs(B, N, M, causal, q_len, kv_len)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + lse.numel() * 4
-        res.update(bound(flops, nbytes, dtype))
+        if dtype == torch.float32:  # f32-exact on the tensor cores; the CUDA cores' bound beside
+            res.update(bound(flops, nbytes, dtype, PEAK_F32_TF32X3),
+                       bound_ms_cuda_cores=bound(flops, nbytes, dtype)["bound_ms"])
+        else:
+            res.update(bound(flops, nbytes, dtype))
     return res
+
+
+def tf32_diagnostic(dev, B, N, M, H, D, scale=3.0) -> dict:
+    """Why kernel A's f32 instance splits its operands: on inputs scaled so
+    that the logits span tens, the plain version run with TF32 matmuls
+    fails the f32 tolerance rule against itself with TF32 off, where the
+    3xTF32 kernel passes it."""
+    from edgerunner_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+
+    _, q, k, v, kw = attention_inputs(dev, B, N, M, H, D, False, torch.float32, None, None)
+    q, k = q * scale, k * scale
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ref, _ = flash_attention_reference(q, k, v, **kw)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32, _ = flash_attention_reference(q, k, v, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    out, _ = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    logits = torch.einsum("bnhd,bmhd->bhnm", q[:, :256], k) / D ** 0.5
+    kernel, plain_tf32 = compare(out, ref, torch.float32), compare(tf32, ref, torch.float32)
+    return {"shape": [B, N, M, H, D], "qk_scale": scale,
+            "logits_range_first_256_rows": [logits.min().item(), logits.max().item()],
+            "kernel": kernel, "plain_tf32": plain_tf32,
+            "ok": kernel["ok"] and not plain_tf32["ok"]}
 
 
 def flash_bwd_case(dev, B, N, M, H, D, causal, dtype, kv_len=None, q_len=None,
@@ -815,9 +860,17 @@ def phase_kernels(dev):
                                  timed=dtype == bf)))
     flash_lse.append(dict(case="ragged 77 d64 causal f32",
                           **flash_lse_case(dev, 3, 77, 2, 64, True, f32)))
-    ok = all(c["ok"] for c in flash + flash_bwd + decode + multi + flash_lse)
+    # the 3xTF32 split at the DiT's self-attention shape, against TF32 alone
+    diag = tf32_diagnostic(dev, 2, dit_n, dit_n, dit_h, dit_d)
+    print(f"tf32 diagnostic {diag['shape']}, q and k x {diag['qk_scale']}: kernel "
+          f"max_abs_err {diag['kernel']['max_abs_err']:.3g} "
+          f"({'passes' if diag['kernel']['ok'] else 'FAILS'}), plain with TF32 matmuls "
+          f"max_abs_err {diag['plain_tf32']['max_abs_err']:.3g} "
+          f"({'passes' if diag['plain_tf32']['ok'] else 'fails'}), "
+          f"{diag['kernel']['tolerance']}", flush=True)
+    ok = all(c["ok"] for c in flash + flash_bwd + decode + multi + flash_lse) and diag["ok"]
     return {"ok": ok, "flash": flash, "flash_bwd": flash_bwd, "decode": decode,
-            "decode_multi": multi, "flash_lse": flash_lse}
+            "decode_multi": multi, "flash_lse": flash_lse, "tf32_diagnostic": diag}
 
 
 def build_model(opt, dev, dtype, seed, use_kernels=True):
@@ -2255,14 +2308,17 @@ def kernels_line(results):
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
-    extra = ("ms_device", "ms_l2_flushed")  # the decode kernels' other timings
+    # the decode kernels' other timings; the f32 flash cases' bound on the CUDA cores
+    extra = ("ms_device", "ms_l2_flushed", "bound_ms_cuda_cores")
 
     def sub(c):
         return {"shape": c["shape"], "max_abs_err": c["max_abs_err"], **{k: c[k] for k in keys},
                 **{k: c[k] for k in extra if k in c}}
 
     def entry(name, source, replaces, launches, c, **more):
-        if source in ("flash_fwd.cu", "flash_bwd.cu"):  # bf16 on tensor cores, f32 scalar
+        if source == "flash_fwd.cu":
+            more = {"route_detail": "cuda, mma.sync bf16; mma.sync 3xTF32 f32", **more}
+        elif source == "flash_bwd.cu":
             more = {"route_detail": "cuda, mma.sync bf16; scalar f32", **more}
         more = {**{k: c[k] for k in extra if k in c}, **more}
         return {"name": name, "route": "cuda", "source": f"edgerunner_tpu_torch/csrc/{source}",

@@ -16,9 +16,11 @@ backward kernel, as the JAX package does outside its kernels
 `flash_attention_lse_bwd`) launch the same kernels as rows 1-4 under their
 own launch counts, so that a run tells ring attention's launches apart from
 the point encoder's. Both kernels are bound by operations at the main path's
-shapes (see the sources' notes): a bf16 tensor launches their tensor-core
-(mma.sync) instances, an f32 tensor their scalar f32 instances, chosen by
-dtype inside the library and never one for the other.
+shapes (see the sources' notes), and the library chooses their instance by
+dtype, never one for the other: a bf16 tensor launches the bf16 mma.sync
+instances; an f32 tensor launches the forward's 3xTF32 mma.sync instance
+(each product as three TF32 products of split operands, f32-exact like the
+TPU kernel's f32 dots) and the backward's scalar f32 kernels.
 """
 
 from __future__ import annotations
