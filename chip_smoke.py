@@ -33,7 +33,11 @@ Phases, one JSON line each:
              [2, 2048 x 257, 16, 64] (257 keys straddle the 64-key tiles),
              neither causal, and a ragged cross case with kv_len [257, 100];
              the f32 cases' bound is the tensor cores' f32-exact rate (3xTF32,
-             495 / 3 TFLOP/s), the CUDA cores' 67 TFLOP/s beside it. Last, a
+             495 / 3 TFLOP/s), the CUDA cores' 67 TFLOP/s beside it. Kernels
+             A and C at the DiT training step's shapes, bf16 at the DiT
+             preset's batch: self [8, 2048, 2048, 16, 64] and cross
+             [8, 2048 x 257, 16, 64], timed; the tile-edge cases include
+             257 keys (4 x 64 + 1), forward and backward. Last, a
              diagnostic at the DiT's self-attention shape with q and k scaled
              so that the logits span tens: the plain version with TF32
              matmuls fails the f32 tolerance rule where the kernel passes it
@@ -110,6 +114,23 @@ Phases, one JSON line each:
              2-layer full-width point_latent LMM decodes greedily from those
              latents, both paths choosing the same token at every step whose
              plain top-2 gap is at least NEAR_TIE.
+16. dit_train  DiT training as `python -m edgerunner_tpu_torch.main_dit DiT`
+             runs it, full width (CLIP ViT-H/14 and the point encoder over
+             8192 points frozen; the DiT 24 x 1024, 16 heads), random weights
+             from seed 0, batch 8 (the preset's), bf16 autocast,
+             checkpointing, --synthetic_size 40 for one epoch in a temporary
+             workspace that is deleted afterwards: s/it and samples/s over
+             four timed steps after one warm-up, peak memory, each step's
+             launches held to kernel A 97 and kernel C 48, frozen parameters
+             bit-unchanged and every trainable one moved; the saved checkpoint
+             loads strictly through load_mdit and samples finite latents in a
+             2-step DDIM run; one profiled step (device time by kernel and by
+             kind: A, C, GEMMs, the rest, and the optimizer's from CUDA
+             events); then two timed steps at batch 32, bench.py's
+             dit_train_probe batch.
+17. dit_train_parity  2 DiT and 2 CLIP layers at full width in f32 (TF32
+             off): the training loss and every trainable gradient of the
+             kernel path against the plain path, from the same draws.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit from nvidia-smi, and last the result line. Exits non-zero, printing
@@ -146,7 +167,8 @@ TRAIN_STEPS = 3          # timed training steps after one warm-up step
 SP_TRAIN_STEPS = 2       # sp phase: timed steps after one warm-up step (three in all)
 GRAD_TOL = 2e-2          # train parity: gradient error over the tensor's largest value
 PHASES = ("build", "kernels", "generate", "generate_q8", "generate_q4", "parity", "parity_q4",
-          "serve", "serve_parity", "spec", "train", "train_parity", "sp", "dit", "dit_parity")
+          "serve", "serve_parity", "spec", "train", "train_parity", "sp", "dit", "dit_parity",
+          "dit_train", "dit_train_parity")
 Q8_BUDGET = 1024         # generate_q8: a shorter budget than the bf16 generate phase
                          # (one decode bucket, cut from 2048 for the sp phase's time)
 Q4_ROWS = 40             # bench.py's quant_fast probe: int4 KV + int8 weights at batch 40 ...
@@ -176,6 +198,12 @@ DIT_BUDGET = 1024        # ... and its decode at 1000 faces, the budget cut for 
 DIT_SERVE_FACES = (10, 20)  # dit: the pipeline server's two image requests
 DIT_PARITY_STEPS = 10    # dit_parity: a 10-step DDIM schedule
 LATENT_TOL = 1e-3        # dit_parity: latents' error over their largest value
+DIT_TRAIN_ROWS = 8       # dit_train: the DiT preset's batch ...
+DIT_TRAIN_SAMPLES = 40   # ... over --synthetic_size 40: one warm-up and four timed steps
+DIT_PROBE_ROWS = 32      # ... then bench.py's dit_train_probe batch ...
+DIT_PROBE_STEPS = 2      # ... for two timed steps
+DIT_DDIM_CHECK_STEPS = 2  # the saved checkpoint's DDIM check
+DIT_PARITY_ROWS = 2      # dit_train_parity: rows of its batch
 # shapes that straddle the flash kernels' 64-row tiles (B, N, M, H, D, causal,
 # kv_len, q_len), as tests/test_torch_attention.py and
 # tests/test_torch_flash_backward.py hold the plain versions at them
@@ -188,6 +216,7 @@ TILE_EDGE_CASES = (
     (2, 129, 129, 1, 96, True, [129, 100], None),
     (1, 191, 65, 2, 96, False, [33], [191]),
     (2, 191, 191, 2, 64, True, [191, 128], [191, 128]),
+    (1, 63, 257, 2, 64, False, None, None),            # the DiT's 257 keys: 4 x 64 + 1
 )
 # instances of the persistent decode kernel: B (bf16, f32 x D 64, 96) and the
 # quantised kinds (int8 D 64, 96; int4 pairs D 64, 96; int4 single heads D 32,
@@ -728,6 +757,11 @@ def phase_kernels(dev):
             dict(case=f"dit cross ragged {name}", **flash_case(
                 dev, 2, dit_n, dit_m, dit_h, dit_d, False, dt, kv_len=[dit_m, 100])),
         ]
+    # the DiT training step's attentions at the preset's batch, bf16 under
+    # autocast: self over the 2048 latents and cross onto CLIP's 257 tokens
+    flash += [dict(case=f"dit train {kind} (main path)", **flash_case(
+        dev, DIT_TRAIN_ROWS, dit_n, m, dit_h, dit_d, False, bf, timed=True))
+        for kind, m in (("self", dit_n), ("cross", dit_m))]
     # the training step's shapes: the decoder's causal self-attention over
     # the train batch's positions (row 1 ragged) and the encoder's cross-attention
     T = train_positions(opt)
@@ -758,6 +792,9 @@ def phase_kernels(dev):
         dict(case="ragged d64", **flash_bwd_case(dev, 2, 100, 45, 4, 64, False, bf,
                                                  kv_len=[45, 0])),
     ]
+    flash_bwd += [dict(case=f"dit train {kind} (main path)", **flash_bwd_case(
+        dev, DIT_TRAIN_ROWS, dit_n, m, dit_h, dit_d, False, bf, timed=True))
+        for kind, m in (("self", dit_n), ("cross", dit_m))]
     flash_bwd += [dict(case=f"keyless causal {str(dt).split('.')[-1]}", **flash_bwd_case(
         dev, 3, 130, 130, 4, D, True, dt, kv_len=[130, 0, 70], q_len=[130, 130, 70]))
         for dt, D in ((bf, 96), (f32, 64))]
@@ -1729,6 +1766,19 @@ def profile_train(trainer, batch):
             "top_kernels_ms": kernels[:10]}
 
 
+def grad_err_over_tol(got: dict, want: dict) -> tuple:
+    """(worst, its tensor's name, the largest reference gradient) of each
+    gradient tensor's error over its tolerance: GRAD_TOL of its largest
+    reference value plus 1e-6 of the model's largest; ok while worst <= 1."""
+    top = max(g.abs().max().item() for g in want.values())
+    worst, worst_name = 0.0, None
+    for n, w in want.items():
+        err = (got[n] - w).abs().max().item() / (GRAD_TOL * w.abs().max().item() + 1e-6 * top)
+        if err > worst:
+            worst, worst_name = err, n
+    return worst, worst_name, top
+
+
 def phase_train_parity(dev):
     """Kernel path against plain path of the training loss and every
     parameter's gradient: 2 layers at full width in f32 (TF32 off), the same
@@ -1775,13 +1825,7 @@ def phase_train_parity(dev):
     vs64 = {name: max((g[n].double() - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
                       for n, w in g64.items() if w.abs().max().item() > 1e-6)
             for name, g in (("kernel", gk), ("plain", gp))}
-    top = max(g.abs().max().item() for g in gp.values())
-    worst, worst_name = 0.0, None
-    for n, g in gp.items():
-        # this tensor's error over its tolerance: ok while <= 1
-        err = (gk[n] - g).abs().max().item() / (GRAD_TOL * g.abs().max().item() + 1e-6 * top)
-        if err > worst:
-            worst, worst_name = err, n
+    worst, worst_name, top = grad_err_over_tol(gk, gp)
     loss_err = abs(lk - lp) / abs(lp)
     ok = loss_err <= 1e-5 and worst <= 1.0 and all(
         torch.isfinite(g).all().item() for g in gk.values())
@@ -1964,12 +2008,7 @@ def sp_parity(dev, sp) -> dict:
     if sp.rank != 0:
         return res
     loss1, grads1 = loss_and_grads(batch)
-    top = max(g.abs().max().item() for g in grads1)
-    worst, worst_name = 0.0, None
-    for n, g, g1 in zip(params, grads, grads1):
-        err = (g - g1).abs().max().item() / (GRAD_TOL * g1.abs().max().item() + 1e-6 * top)
-        if err > worst:
-            worst, worst_name = err, n
+    worst, worst_name, _ = grad_err_over_tol(dict(zip(params, grads)), dict(zip(params, grads1)))
     loss_err = abs(total.item() - loss1.item()) / abs(loss1.item())
     res.update(loss_solo=loss1.item(), loss_rel_err=loss_err, grad_tensors=len(grads1),
                grad_worst_err_over_tol=worst, grad_worst_tensor=worst_name,
@@ -2290,6 +2329,256 @@ def phase_dit_parity(dev):
             "latents_tolerance": f"|err| <= {LATENT_TOL} * {lat_scale:.4g}", "lmm": lmm}
 
 
+# --------------------------------------------------------------- dit train --
+
+def dit_train_args(workspace: str) -> list:
+    """main_dit's command line in the dit_train phase: the DiT preset at full
+    width (its batch, bf16 autocast, checkpointing), synthetic data, one epoch."""
+    return ["DiT", "--data_root", os.path.join(workspace, "absent"), "--workspace", workspace,
+            "--synthetic_size", str(DIT_TRAIN_SAMPLES), "--num_epochs", "1",
+            "--seed", str(SEED)]
+
+
+def kernel_kinds(kernels) -> dict:
+    """Device ms of a profile's kernels by kind: kernel A, kernel C, the
+    GEMMs (cuBLAS's kernels), and the rest (elementwise, reductions, norms)."""
+    kinds = {"flash_fwd": 0.0, "flash_bwd": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, ms in kernels:
+        low = name.lower()
+        if "flash_fwd" in low:
+            kinds["flash_fwd"] += ms
+        elif "flash_bwd" in low:
+            kinds["flash_bwd"] += ms
+        elif any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass")):
+            kinds["gemm"] += ms
+        else:
+            kinds["other"] += ms
+    return kinds
+
+
+def profile_dit_train_step(trainer, batch) -> dict:
+    """One more training step under torch.profiler: device time by kernel
+    and kind; the optimizer's update (elementwise kernels, counted in
+    'other') also alone: the device time of the kernels launched in its
+    profiler range, and the time from CUDA events around it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    update, spans = trainer.optimizer.update, []
+
+    def timed_update(grads):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        with record_function("optimizer_update"):
+            out = update(grads)
+        b.record()
+        spans.append((a, b))
+        return out
+
+    trainer.optimizer.update = timed_update
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del trainer.optimizer.update
+    # the range appears twice: on the host, with the device time of the
+    # kernels launched in it, and on the device as an annotation spanning
+    # them, which is no kernel
+    events = prof.key_averages()
+    kernels = sorted(((e.key, e.device_time_total / 1e3) for e in events
+                      if e.device_type.name == "CUDA" and e.device_time_total > 0
+                      and e.key != "optimizer_update"), key=lambda x: -x[1])
+    device_ms = sum(ms for _, ms in kernels)
+    return {"profiled_wall_ms": wall_ms, "profiled_device_ms": device_ms,
+            "profiled_device_busy_share": device_ms / wall_ms,
+            "device_ms_by_kind": kernel_kinds(kernels),
+            "optimizer_device_ms": sum(e.device_time_total for e in events
+                                       if e.key == "optimizer_update"
+                                       and e.device_type.name == "CPU") / 1e3,
+            "optimizer_ms_cuda_events": spans[0][0].elapsed_time(spans[0][1]),
+            "top_kernels_ms": [(k[:60], ms) for k, ms in kernels[:16]]}
+
+
+def phase_dit_train(dev):
+    """DiT training as `python -m edgerunner_tpu_torch.main_dit DiT` runs it,
+    full width (CLIP ViT-H/14 and the point encoder frozen; the DiT 24 x
+    1024), random weights from seed 0, the preset's batch on synthetic data
+    for one epoch in a temporary workspace (deleted afterwards): one warm-up
+    and four timed steps, each step's launches counted from 0 and held to
+    kernel A 2 x 2 x 24 + 1 (each attention's forward and its replay under
+    checkpointing, and the frozen point encoder) and kernel C 2 x 24; frozen
+    parameters bit-unchanged, every trainable one moved. Then the saved
+    checkpoint loads strictly into a fresh MDiT (weights equal to the
+    trainer's) and samples finite latents in a short DDIM run; one profiled
+    step; and DIT_PROBE_STEPS timed steps at bench.py's dit_train_probe batch."""
+    import dataclasses as dc
+    import gc
+    import shutil
+    import tempfile
+
+    from edgerunner_tpu_torch import main_dit
+    from edgerunner_tpu_torch.data.dataset_dit import DiTMeshDataset, collate_dit
+    from edgerunner_tpu_torch.models.mdit import MDiT, run_mdit
+    from edgerunner_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from edgerunner_tpu_torch.train.trainer import Trainer
+    from edgerunner_tpu_torch.weights import load_mdit
+
+    workspace = tempfile.mkdtemp(prefix="chip_smoke_dit_train_")
+    steps, snapshot = [], {}
+    original = Trainer.train_step
+
+    def counted_step(self, batch):
+        if not snapshot:
+            snapshot.update({n: p.detach().cpu() for n, p in self.model.named_parameters()})
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = original(self, batch)
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t1, **m, "launches": {
+            "flash_attention_fwd": flash_attention.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches}})
+        return m
+
+    try:
+        Trainer.train_step = counted_step
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            trainer = main_dit.main(dit_train_args(workspace))
+        finally:
+            Trainer.train_step = original
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        opt = trainer.opt
+        L = opt.dit_num_layers
+        want = {"flash_attention_fwd": 2 * 2 * L + 1, "flash_attention_bwd": 2 * L}
+        timed = steps[1:]
+        s_per_it = sum(st["s"] for st in timed) / max(len(timed), 1)
+        losses = [st["loss"] for st in steps]
+        n_trainable = len(trainer.params)
+        frozen = [n for n in snapshot if n not in trainer.params]
+        frozen_same = all(torch.equal(p.detach().cpu(), snapshot[n])
+                          for n, p in trainer.model.named_parameters() if n in frozen)
+        unmoved = [n for n, p in trainer.params.items()
+                   if torch.equal(p.detach().cpu(), snapshot[n])]
+        snapshot.clear()
+        # the saved checkpoint, strictly into a fresh MDiT, then a short DDIM run
+        ckpt = os.path.join(workspace, "model.safetensors")
+        fresh = load_mdit(MDiT(opt, device=dev), dc.replace(opt, resume2=ckpt))
+        ckpt_same = all(torch.equal(a, b) for a, b in zip(
+            fresh.state_dict().values(), trainer.model.state_dict().values()))
+        with torch.inference_mode():
+            lat = run_mdit(fresh, dit_image(opt.clip_image_size)[None],
+                           num_inference_steps=DIT_DDIM_CHECK_STEPS,
+                           generator=torch.Generator(device=dev).manual_seed(SEED)).float()
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+        ds = DiTMeshDataset(opt, training=True)
+        batch = collate_dit([ds[i] for i in range(DIT_TRAIN_ROWS)], opt)
+        prof = profile_dit_train_step(trainer, batch)
+        # bench.py's dit_train_probe batch (bench.py:225-230)
+        rng = np.random.default_rng(0)
+        probe = {"images": rng.uniform(0, 1, (DIT_PROBE_ROWS, opt.clip_image_size,
+                                              opt.clip_image_size, 3)).astype(np.float32),
+                 "points": rng.normal(size=(DIT_PROBE_ROWS, opt.point_num, 3)).astype(np.float32)}
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train_step(probe)  # warm-up at this batch
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        probe_losses = [trainer.train_step(probe)["loss"] for _ in range(DIT_PROBE_STEPS)]
+        torch.cuda.synchronize()
+        probe_s = (time.perf_counter() - t2) / DIT_PROBE_STEPS
+        probe_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del trainer
+    finally:
+        shutil.rmtree(workspace, ignore_errors=True)
+    counts_ok = len(steps) == DIT_TRAIN_SAMPLES // DIT_TRAIN_ROWS and all(
+        st["launches"] == want for st in steps)
+    ok = (counts_ok and all(np.isfinite(losses)) and all(np.isfinite(probe_losses))
+          and frozen_same and not unmoved and ckpt_same
+          and tuple(lat.shape) == (1, opt.point_latent_size, opt.point_latent_dim)
+          and bool(torch.isfinite(lat).all()) and prof["profiled_device_ms"] > 0)
+    return {"ok": ok, "rows": DIT_TRAIN_ROWS, "samples": DIT_TRAIN_SAMPLES,
+            "dit_layers": L, "dit_hidden": opt.dit_hidden_dim, "clip_layers": opt.clip_num_layers,
+            "clip_hidden": opt.clip_hidden_dim, "latents": [opt.point_latent_size,
+                                                            opt.point_latent_dim],
+            "point_num": opt.point_num, "autocast": opt.mixed_precision,
+            "checkpointing": opt.checkpointing, "run_s": run_s, "warmup_s": steps[0]["s"],
+            "timed_steps": len(timed), "s_per_it": s_per_it,
+            "samples_per_s": DIT_TRAIN_ROWS / s_per_it, "peak_mem_gib": peak,
+            "losses": losses, "grad_norms": [st["grad_norm"] for st in steps],
+            "launches_per_step": [st["launches"] for st in steps],
+            "launches_expected_per_step": want,
+            "launches": {k: sum(st["launches"][k] for st in steps) for k in want},
+            "frozen_tensors": len(frozen), "frozen_bit_unchanged": frozen_same,
+            "trainable_tensors": n_trainable, "trainable_unmoved": unmoved,
+            "checkpoint_loads_strictly_equal": ckpt_same,
+            "ddim_check_steps": DIT_DDIM_CHECK_STEPS, "ddim_latents_std": lat.std().item(),
+            **prof, "probe_rows": DIT_PROBE_ROWS, "probe_steps": DIT_PROBE_STEPS,
+            "probe_s_per_it": probe_s, "probe_samples_per_s": DIT_PROBE_ROWS / probe_s,
+            "probe_peak_mem_gib": probe_peak, "probe_losses": probe_losses,
+            "card": card_line()}
+
+
+def phase_dit_train_parity(dev):
+    """Kernel path against plain path of the DiT training loss and every
+    trainable gradient: 2 DiT and 2 CLIP layers at full width in f32 (TF32
+    off), the point encoder at full width, the same weights, the same
+    DIT_PARITY_ROWS synthetic samples and the same draws (condition dropout,
+    noise, timesteps), checkpointing on. This runs kernel A's 3xTF32
+    instance and kernel C's scalar f32 instance at D 64, self (2048 keys)
+    and cross (257 keys). Tolerance as train_parity's: the loss within 1e-5
+    relative, each gradient within GRAD_TOL of its largest plain value plus
+    1e-6 of the model's largest plain gradient (the key projections' biases
+    hold only rounding noise)."""
+    from edgerunner_tpu_torch.config import config_defaults
+    from edgerunner_tpu_torch.data.dataset_dit import DiTMeshDataset, collate_dit
+    from edgerunner_tpu_torch.models.mdit import MDiT
+    from edgerunner_tpu_torch.train.state import frozen_param_keys, trainable_parameters
+    from edgerunner_tpu_torch.weights import init_mdit_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt = dataclasses.replace(config_defaults["DiT"], dit_num_layers=2, clip_num_layers=2,
+                              mixed_precision="no", synthetic_size=DIT_PARITY_ROWS)
+    kernel = init_mdit_weights(MDiT(opt, device=dev), SEED + 3)
+    plain = MDiT(opt, device=dev, use_kernels=False)
+    plain.load_state_dict(kernel.state_dict())
+    ds = DiTMeshDataset(opt, training=True)
+    batch = collate_dit([ds[i] for i in range(DIT_PARITY_ROWS)], opt)
+    images, points = (torch.as_tensor(batch[k], device=dev) for k in ("images", "points"))
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    R = DIT_PARITY_ROWS
+    keep = torch.rand((R, 1, 1), generator=g, device=dev) >= 0.1
+    noise = torch.randn((R, opt.point_latent_size, opt.point_latent_dim), generator=g,
+                        device=dev)
+    t = torch.randint(0, 1000, (R,), generator=g, device=dev)
+
+    def loss_and_grads(model):
+        params = trainable_parameters(model, frozen_param_keys(opt, "dit"))
+        out = model(images, points, train=True, keep=keep, noise=noise, t=t)
+        return out["loss"].item(), dict(zip(params, torch.autograd.grad(
+            out["loss"], list(params.values()))))
+
+    (lk, gk), (lp, gp) = (loss_and_grads(m) for m in (kernel, plain))
+    worst, worst_name, top = grad_err_over_tol(gk, gp)
+    loss_err = abs(lk - lp) / abs(lp)
+    ok = loss_err <= 1e-5 and worst <= 1.0 and all(
+        torch.isfinite(g).all().item() for g in gk.values())
+    return {"ok": ok, "dit_layers": 2, "clip_layers": 2, "rows": R, "dtype": "float32",
+            "tf32": False, "keep": keep.flatten().tolist(), "t": t.tolist(),
+            "loss_kernel": lk, "loss_plain": lp, "loss_rel_err": loss_err,
+            "grad_tensors": len(gp), "grad_max_abs": top, "grad_worst_err_over_tol": worst,
+            "grad_worst_tensor": worst_name,
+            "tolerance": f"loss rel <= 1e-5; per tensor max|dg| <= {GRAD_TOL} * max|g_plain| "
+                         "+ 1e-6 * max over tensors of max|g_plain|"}
+
+
 def kernels_line(results):
     """One entry per kernel: main-path numbers from this run; launches from
     the path that runs it, each counted from 0 over its run: the generate
@@ -2298,9 +2587,10 @@ def kernels_line(results):
     7), and the serving engine (rows 9, 11 and 10); launches_by_path adds
     the speculative paths (rows 9 and 10 at T = 3) and the image pipeline
     (kernel A in one DDIM run and in the f32 prefill, kernel B's f32
-    decode)."""
+    decode) and DiT training (kernels A and C, per step)."""
     kern, gen, train, serve, spec, sp = (results[k] for k in (
         "kernels", "generate", "train", "serve", "spec", "sp"))
+    dit_train = results["dit_train"]["launches_per_step"][-1]
     dit = results["dit"]["cli"]
     gen_q8, gen_q4 = results["generate_q8"], results["generate_q4"]
     def case(cases, prefix):
@@ -2350,12 +2640,15 @@ def kernels_line(results):
               launches_by_path={"generate": gen["launches"]["flash_attention_fwd"],
                                 "train": train["launches"]["flash_attention_fwd"],
                                 "dit_ddim": dit["ddim_launches"]["flash_attention_fwd"],
-                                "dit_decode": dit["launches"]["flash_attention_fwd"]},
+                                "dit_decode": dit["launches"]["flash_attention_fwd"],
+                                "dit_train_per_step": dit_train["flash_attention_fwd"]},
               encoder_shape=sub(case(kern["flash"], "encoder (main")),
               train_decoder_shape=sub(case(kern["flash"], "decoder train")),
               train_encoder_shape=sub(case(kern["flash"], "encoder train")),
               **{f"dit_{kind}_{dt}_shape": sub(case(kern["flash"], f"dit {kind} {dt}"))
-                 for kind in ("self", "cross") for dt in ("float32", "bfloat16")}),
+                 for kind in ("self", "cross") for dt in ("float32", "bfloat16")},
+              **{f"dit_train_{kind}_shape": sub(case(kern["flash"], f"dit train {kind}"))
+                 for kind in ("self", "cross")}),
         entry("fused_decode_attention", "decode_attention.cu",
               "edgerunner_tpu/ops/decode_attention_pallas.py:139",
               gen["launches"]["fused_decode_attention"], dec, index=dec["index"],
@@ -2363,7 +2656,11 @@ def kernels_line(results):
                                 "dit_decode_f32": dit["launches"]["fused_decode_attention"]}),
         entry("flash_attention_bwd", "flash_bwd.cu", "edgerunner_tpu/ops/flash_attention.py:520",
               train["launches"]["flash_attention_bwd"], bwd, lengths=bwd["kv_len"],
-              encoder_shape=sub(case(kern["flash_bwd"], "encoder train"))),
+              launches_by_path={"train": train["launches"]["flash_attention_bwd"],
+                                "dit_train_per_step": dit_train["flash_attention_bwd"]},
+              encoder_shape=sub(case(kern["flash_bwd"], "encoder train")),
+              **{f"dit_train_{kind}_shape": sub(case(kern["flash_bwd"], f"dit train {kind}"))
+                 for kind in ("self", "cross")}),
         entry("fused_decode_attention_multi", "decode_attention_multi.cu",
               "edgerunner_tpu/ops/decode_attention_pallas.py:585",
               bench_bf16["launches"]["fused_decode_attention_multi"],
@@ -2435,7 +2732,9 @@ def main(argv=None) -> int:
             "serve_parity": lambda: phase_serve_parity(dev), "spec": lambda: phase_spec(dev),
             "train": lambda: phase_train(dev), "train_parity": lambda: phase_train_parity(dev),
             "sp": lambda: phase_sp(dev), "dit": lambda: phase_dit(dev),
-            "dit_parity": lambda: phase_dit_parity(dev)}
+            "dit_parity": lambda: phase_dit_parity(dev),
+            "dit_train": lambda: phase_dit_train(dev),
+            "dit_train_parity": lambda: phase_dit_train_parity(dev)}
     results, ok = {}, True
     for name in PHASES:
         if name not in wanted:

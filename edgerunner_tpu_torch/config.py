@@ -409,16 +409,17 @@ def parse_cli(argv: Optional[List[str]] = None, prog: str = "edgerunner-tpu") ->
 _NOT_PORTED = {
     "moe_experts": 0, "lora_rank": 0, "tp_size": 1,
     "pp_size": 1, "ep_size": 1, "scan_layers": False,
-    "ema_decay": 0.0, "async_checkpointing": False, "resume2": None, "use_wandb": False,
+    "async_checkpointing": False, "resume2": None, "use_wandb": False,
 }
 
 
 def validate(opt: Options, *, dit: bool = False) -> Options:
     """Cross-field validation (reference: main.py:38-39), plus a refusal of
     every option the port does not implement yet. `dit` is for the entry
-    points that run the image pipeline (infer_dit, the server): they take a
-    DiT checkpoint with `--resume2`, which DiT training, not ported yet,
-    would write."""
+    points of the image pipeline that take an MDiT checkpoint with
+    `--resume2`: DiT training (main_dit, which writes it, and also takes it
+    to continue), infer_dit and the server. `main` keeps `--resume2`
+    refused."""
     if opt.cond_mode in ("point", "point_latent"):
         # 'point_latent' takes the latents that 'point' encodes: the same
         # condition tokens, and the DiT pipeline's frozen 'embed' encoder

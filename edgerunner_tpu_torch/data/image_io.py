@@ -9,6 +9,10 @@ write images, so that nothing else of the port needs it.
 
 from __future__ import annotations
 
+import glob
+import os
+import re
+
 import numpy as np
 
 
@@ -60,6 +64,24 @@ def render_points_image(points: np.ndarray, size: int = 224) -> np.ndarray:
     ys = np.clip(size - 1 - xy[order, 1], 0, size - 1)
     img[ys, xs] = shade[order]
     return np.stack([img] * 3, axis=-1)
+
+
+def find_render_views(mesh_path: str) -> list:
+    """The render views beside a mesh file (reference: provider.py:226-245
+    streams azimuth-indexed views from tarballs): `{stem}.png` is the
+    0-degree view, `{stem}_{deg}.png` the view at azimuth `deg` (also .jpg,
+    .jpeg, .webp). Returns [(azimuth_deg, path)] sorted by azimuth; empty
+    when there is none."""
+    stem = os.path.splitext(mesh_path)[0]
+    views = []
+    for ext in (".png", ".jpg", ".jpeg", ".webp"):
+        if os.path.exists(stem + ext):
+            views.append((0.0, stem + ext))
+        for p in glob.glob(glob.escape(stem) + "_*" + ext):
+            m = re.fullmatch(re.escape(stem) + r"_(\d+)" + re.escape(ext), p)
+            if m:
+                views.append((float(m.group(1)) % 360.0, p))
+    return sorted(set(views))
 
 
 def load_image_cond(path, size: int = 512, border_ratio: float = 0.2,

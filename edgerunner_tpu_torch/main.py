@@ -10,7 +10,9 @@ data_root does not exist. Weights start from `--seed`, or from a
 `--resume_train_state` the step, the optimizer state and the loader's
 position come back too, and training continues exactly. Each epoch saves a
 checkpoint (train/checkpoint.py); with `--eval_mode loss` the held-out loss
-is logged and one batch's ground-truth and argmax meshes are written. The
+is logged and one batch's ground-truth and argmax meshes are written. With
+`--ema_decay` the weights' moving average is kept, saved beside each
+checkpoint, restored on resume and evaluated too. The
 model trains on the card unless `--device cpu` is given; without a card and
 without `--device cpu` it raises.
 
@@ -43,7 +45,11 @@ from edgerunner_tpu_torch.data.dataset import DataLoader, MeshFolderDataset, Syn
 from edgerunner_tpu_torch.infer import resolve_device
 from edgerunner_tpu_torch.models.lmm import LMM, init_weights
 from edgerunner_tpu_torch.parallel import SequenceParallel, init_distributed, rank_device
-from edgerunner_tpu_torch.train.checkpoint import CheckpointManager, find_train_state
+from edgerunner_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    restore_train_state,
+    sibling_ema_path,
+)
 from edgerunner_tpu_torch.train.trainer import Trainer
 from edgerunner_tpu_torch.utils import get_tokenizer, init_logger
 from edgerunner_tpu_torch.weights import load_state, read_safetensors
@@ -72,8 +78,9 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.main"))
     if opt.cond_mode == "point_latent":
         raise ValueError("cond_mode 'point_latent' takes the DiT's latents "
-                         "(edgerunner_tpu_torch.infer_dit, serve --resume2); the port "
-                         "does not train on them")
+                         "(edgerunner_tpu_torch.infer_dit, serve --resume2); main trains "
+                         "the ArAE on point clouds, and the DiT that makes the latents "
+                         "trains with python -m edgerunner_tpu_torch.main_dit DiT")
     world = (dist.get_world_size() if dist.is_initialized()
              else int(os.environ.get("WORLD_SIZE", "1")))
     if opt.sp_size != world:
@@ -138,31 +145,19 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None) -> T
         load_state(model, read_safetensors(opt.resume))
         logger.info(f"loaded weights from {opt.resume}")
         if opt.resume_train_state:
-            ts = find_train_state(opt.resume)
-            if ts is None:
-                logger.warning("[resume] --resume_train_state set but no "
-                               "train_state.json next to the checkpoint")
-            else:
-                resume_step = int(ts.get("step", 0))
-                if ts.get("loader"):
-                    train_loader.restore_state(ts["loader"])
-                    start_epoch = train_loader.epoch
-                opt_state_path = ts.get("opt_state_path")
-                if ts.get("best_loss") is not None:
-                    manager.best_loss = float(ts["best_loss"])
-                logger.info(f"[resume] exact continuation: step {resume_step}, "
-                            f"epoch {start_epoch}, loader {ts.get('loader')}, "
-                            f"opt_state {'yes' if opt_state_path else 'no'}")
+            start_epoch, resume_step, opt_state_path = restore_train_state(
+                opt.resume, train_loader, manager, logger)
     num_params = sum(p.numel() for p in model.parameters())
     logger.info(f"total param count: {num_params / 1e6:.3f} M")
-    trainer.init_state(step=resume_step, opt_state_path=opt_state_path)
+    ema_path = sibling_ema_path(opt.resume) if opt.ema_decay > 0 and opt.resume else None
+    trainer.init_state(step=resume_step, opt_state_path=opt_state_path, ema_path=ema_path)
 
     def on_step(step, metrics):
         if opt.save_every_steps and step % opt.save_every_steps == 0:
             manager.save_step(step, model,
                               trainer.optimizer if opt.save_optimizer_state else None,
                               train_state={"step": step, "loader": train_loader.state()},
-                              log=logger.info)
+                              log=logger.info, ema=trainer.ema)
 
     for epoch in range(start_epoch, opt.num_epochs):
         if not opt.debug_eval:
@@ -173,11 +168,13 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None) -> T
                     epoch, model, trainer.optimizer if opt.save_optimizer_state else None,
                     loss=avg_loss,
                     train_state={"step": trainer.step, "loader": train_loader.state()},
-                    log=logger.info)
+                    log=logger.info, ema=trainer.ema)
         else:
             logger.info(f"epoch: {epoch} skip training for debug !!!")
         if opt.eval_mode == "loss":
             trainer.eval_epoch(test_loader, epoch)
+            if trainer.ema is not None:
+                trainer.eval_epoch(test_loader, epoch, use_ema=True)
             if not trainer.is_main:
                 continue
             # meto streams may be invalid early in training: a failed dump is

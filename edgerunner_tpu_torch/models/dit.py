@@ -24,7 +24,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from edgerunner_tpu_torch.models.layers import CrossAttention, FeedForward, SelfAttention
+from edgerunner_tpu_torch.models.layers import (
+    CrossAttention,
+    FeedForward,
+    SelfAttention,
+    maybe_checkpoint,
+)
 
 DIT_LN_EPS = 1e-6
 
@@ -60,16 +65,23 @@ class TimestepEmbedding(nn.Module):
 
 
 class DiTLayer(nn.Module):
-    """adaLN-single transformer block (reference: dit.py:100-140)."""
+    """adaLN-single transformer block (reference: dit.py:100-140); `remat`
+    checkpoints the whole block (edgerunner_tpu/models/dit.py:58-85). The
+    block has no dropout, so its replay in the backward pass is exact."""
 
-    def __init__(self, dim: int, num_heads: int, *, use_kernels: bool = True, **kw):
+    def __init__(self, dim: int, num_heads: int, *, use_kernels: bool = True,
+                 remat: bool = False, **kw):
         super().__init__()
+        self.remat = remat
         self.scale_shift_table = nn.Parameter(torch.empty(6, dim, **kw))
         self.attn1 = SelfAttention(dim, dim, num_heads, use_kernels=use_kernels, **kw)
         self.attn2 = CrossAttention(dim, dim, dim, num_heads, use_kernels=use_kernels, **kw)
         self.ff = FeedForward(dim, **kw)
 
     def forward(self, x, c, t_adaln):
+        return maybe_checkpoint(self.remat, self._body, x, c, t_adaln)
+
+    def _body(self, x, c, t_adaln):
         # x [B, N, C]; c [B, M, C]; t_adaln [B, 6, C]
         mods = (self.scale_shift_table[None].float() + t_adaln.float()).to(x.dtype)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods.chunk(6, dim=1)
@@ -83,11 +95,12 @@ class DiTLayer(nn.Module):
 class DiT(nn.Module):
     """Latent denoiser (reference: dit.py:143-196): latents [B, N,
     latent_dim], image features [B, M, hidden], timesteps [B] -> the model
-    output (velocity or noise) [B, N, latent_dim]."""
+    output (velocity or noise) [B, N, latent_dim]. `remat` checkpoints each
+    layer (MDiT sets it from opt.checkpointing)."""
 
     def __init__(self, hidden_dim: int = 1024, num_heads: int = 16, latent_size: int = 2048,
                  latent_dim: int = 64, num_layers: int = 24, *, use_kernels: bool = True,
-                 device=None, dtype=None):
+                 remat: bool = False, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.hidden_dim = hidden_dim
@@ -96,7 +109,7 @@ class DiT(nn.Module):
         self.timestep_proj = TimestepEmbedding(256, hidden_dim, **kw)
         self.adaln_linear = nn.Linear(hidden_dim, 6 * hidden_dim, **kw)
         self.layers = nn.ModuleList(DiTLayer(hidden_dim, num_heads, use_kernels=use_kernels,
-                                             **kw) for _ in range(num_layers))
+                                             remat=remat, **kw) for _ in range(num_layers))
         self.scale_shift_table = nn.Parameter(torch.empty(2, hidden_dim, **kw))
         self.proj_out = nn.Linear(hidden_dim, latent_dim, **kw)
 

@@ -5,10 +5,13 @@ The reference MDiT (core/models_dit.py:33-229): a frozen CLIP ViT-H image
 conditioner (`image_encoder`, then `proj_cond` and `norm_cond`), the DiT
 denoiser (`dit`) and the frozen point encoder (`point_encoder`, from the
 ArAE checkpoint; it makes the training targets, and is built here so that a
-DiT checkpoint loads with strict=True). `run_mdit` is the DDIM sampling loop
-with classifier-free guidance at scale 7.5 (reference: MDiT.run,
-models_dit.py:184-229), an img2img start from given latents included. The
-training loss (`MDiT.__call__` in the JAX package) is not ported yet.
+DiT checkpoint loads with strict=True). `MDiT.forward` is the training loss
+(edgerunner_tpu/models/mdit.py:73-103): v-prediction (or epsilon) with
+min-SNR-gamma weighting and 10% condition dropout; the frozen towers run
+without gradient, and the DiT checkpoints each layer under
+`opt.checkpointing`. `run_mdit` is the DDIM sampling loop with
+classifier-free guidance at scale 7.5 (reference: MDiT.run,
+models_dit.py:184-229), an img2img start from given latents included.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ class MDiT(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.opt = opt
         self.dit = DiT(opt.dit_hidden_dim, opt.dit_num_heads, opt.point_latent_size,
-                       opt.point_latent_dim, opt.dit_num_layers, use_kernels=use_kernels, **kw)
+                       opt.point_latent_dim, opt.dit_num_layers, use_kernels=use_kernels,
+                       remat=opt.checkpointing, **kw)
         self.image_encoder = CLIPVisionTower(clip_config_from_options(opt), **kw)
         self.proj_cond = nn.Linear(opt.clip_hidden_dim, opt.dit_hidden_dim, **kw)
         self.norm_cond = nn.LayerNorm(opt.dit_hidden_dim, eps=LN_EPS, **kw)
@@ -54,6 +58,48 @@ class MDiT(nn.Module):
             feats = self.image_encoder(preprocess_images(images,
                                                          size=self.opt.clip_image_size))
         return self.norm_cond(self.proj_cond(feats))
+
+    def encode_points(self, points):
+        """The frozen point encoder's latents [B, latent_size, latent_dim]:
+        the training targets, without gradient."""
+        with torch.no_grad():
+            return self.point_encoder(points)
+
+    def forward(self, images, points, *, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                t: Optional[torch.Tensor] = None) -> dict:
+        """The training loss (reference: models_dit.py:119-181) of images
+        [B, H, W, 3] in [0,1] and surface points [B, N, 3]: {"loss": f32
+        scalar}. Three draws, in this order from `generator` unless given:
+        `keep` [B, 1, 1] bool (uniform >= 0.1, drawn and applied with `train`
+        only: the condition is dropped for the rest), `noise` f32 normals of
+        the latents' shape, `t` [B] ints in [0, 1000)."""
+        opt = self.opt
+        B = points.shape[0]
+        dev = points.device
+        cond = self.get_cond(images)
+        if train:
+            if keep is None:
+                keep = torch.rand((B, 1, 1), generator=generator, device=dev) >= 0.1
+            cond = cond * keep.to(dev, cond.dtype)
+        latents = torch.nan_to_num(self.encode_points(points)).float()
+        if noise is None:
+            noise = torch.randn(latents.shape, generator=generator, device=dev)
+        if t is None:
+            t = torch.randint(0, self.schedule.num_train_timesteps, (B,), generator=generator,
+                              device=dev)
+        noise, t = noise.to(dev, torch.float32), t.to(dev)
+        pred = self.dit(self.schedule.add_noise(latents, noise, t), cond, t)
+        if self.schedule.prediction_type == "epsilon":
+            target = noise
+        else:
+            target = self.schedule.get_velocity(latents, noise, t)
+        err = (pred.float() - target).square()
+        if opt.snr_gamma is None:
+            return {"loss": err.mean()}
+        w = self.schedule.min_snr_weight(t, opt.snr_gamma)
+        return {"loss": (err.mean(dim=tuple(range(1, err.dim()))) * w).mean()}
 
     def prepare_cond_cfg(self, images):
         """[uncond; cond] stacked on the batch: zeros, then get_cond."""

@@ -12,6 +12,12 @@ f32 add, so that both packages take the same step. `torch.optim.AdamW` cannot
 keep a bf16 moment beside f32 parameters, hence the update is written here.
 The JAX optimizer is fused XLA, not a Pallas kernel, so nothing here is a
 kernel either.
+
+Frozen submodules (`frozen_param_keys`: the MDiT's CLIP tower and point
+encoder) take no gradient and no optimizer state: the optimizer holds the
+trainable parameters only, which is what the JAX package's masked AdamW
+with `set_to_zero` does (state.py:115-150). Their gradients there are zero,
+so the global norm that clipping sees is the same.
 """
 
 from __future__ import annotations
@@ -128,9 +134,39 @@ class AdamW:
                 t.copy_(theirs[n])
 
 
+def frozen_param_keys(opt, kind: str) -> tuple:
+    """Module names whose parameters are not optimized
+    (edgerunner_tpu/train/state.py:83-96): for 'dit' the CLIP tower and the
+    point encoder, always (reference: models_dit.py:54,75); for 'arae' the
+    CLIP tower of an image-conditioned model with freeze_encoder."""
+    if kind == "dit":
+        return ("image_encoder", "point_encoder")
+    if kind == "arae":
+        if opt.cond_mode == "image" and opt.freeze_encoder:
+            return ("image_encoder",)
+        return ()
+    raise ValueError(f"unknown model kind {kind!r}")
+
+
+def trainable_parameters(model: torch.nn.Module, frozen_keys: tuple = ()
+                         ) -> Dict[str, torch.Tensor]:
+    """{name: parameter} of the parameters outside the modules named in
+    `frozen_keys` (a name matches any component of the dotted path, as the
+    JAX mask matches any key of the tree path); the others are set to
+    requires_grad=False."""
+    out = {}
+    for name, p in model.named_parameters():
+        if frozen_keys and any(part in frozen_keys for part in name.split(".")):
+            p.requires_grad_(False)
+        else:
+            out[name] = p
+    return out
+
+
 def make_optimizer(opt, params: Dict[str, torch.Tensor], total_steps: int):
     """(AdamW, schedule) for an Options, as the JAX package's
-    `make_optimizer` builds them (state.py:116-150)."""
+    `make_optimizer` builds them (state.py:116-150); `params` are the
+    trainable parameters (`trainable_parameters`)."""
     schedule = cosine_warmup_schedule(opt.lr, total_steps, warmup_ratio=opt.warmup_ratio)
     return AdamW(params, schedule, weight_decay=opt.weight_decay, clip=opt.gradient_clip,
                  accumulate=opt.gradient_accumulation_steps), schedule

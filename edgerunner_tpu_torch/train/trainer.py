@@ -3,10 +3,21 @@
 One device: f32 master parameters, the forward and backward under bf16
 autocast on the card (the counterpart of flax's `dtype=bf16` with f32
 params) and in f32 on the CPU, then the JAX package's optimizer
-(train/state.py). Each step's random draws come from its own seeds, derived
-from (opt.seed, step), the counterpart of `fold_in(rng, step)`: a generator
-for num-face dropout, and the default generators, forked for the step, for
-the decoder's dropout (gradient checkpointing replays them identically).
+(train/state.py) over the trainable parameters. Each step's random draws
+come from its own seeds, derived from (opt.seed, step), the counterpart of
+`fold_in(rng, step)`: a generator for num-face dropout, and the default
+generators, forked for the step, for the decoder's dropout (gradient
+checkpointing replays them identically).
+
+The model kind picks the batch and the call, as the JAX package's
+`step_builder` and `eval_builder` do: 'arae' (the LMM: conds, tokens,
+labels, num_faces, lengths; metrics loss, loss_ce, loss_kl, loss_mtp) and
+'dit' (the MDiT: images and points; its condition-dropout, noise and
+timestep draws come from the step's generator, the eval's from a generator
+seeded with opt.seed, the same for every batch as JAX's `eval_needs_rng`
+passes one key; metric loss). With `--ema_decay` d every parameter's
+moving average `ema <- ema * d + p * (1 - d)` follows each step, from the
+loaded weights or a saved EMA; `eval_epoch(use_ema=True)` evaluates it.
 
 Sequence parallelism (`sp`, a parallel/mesh.py `SequenceParallel` of R
 ranks, dp = 1): every rank takes the same batch, suffix-pads tokens and
@@ -27,6 +38,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from edgerunner_tpu_torch.data.dataset import batch_checksum
 from edgerunner_tpu_torch.parallel import (
@@ -36,9 +48,28 @@ from edgerunner_tpu_torch.parallel import (
     broadcast_,
     sequence_parallel,
 )
-from edgerunner_tpu_torch.train.state import make_optimizer
+from edgerunner_tpu_torch.train.state import (
+    frozen_param_keys,
+    make_optimizer,
+    trainable_parameters,
+)
+from edgerunner_tpu_torch.weights import read_safetensors
 
 METRICS = ("loss", "loss_ce", "loss_kl", "loss_mtp")
+
+
+def _lmm_call(model, b, train, generator):
+    return model(b["conds"], b["tokens"], b["labels"], b["num_faces"], b["lengths"],
+                 train=train, generator=generator)
+
+
+def _dit_call(model, b, train, generator):
+    return model(b["images"], b["points"], train=train, generator=generator)
+
+
+# each model kind's batch keys and call
+MODEL_KINDS = {"arae": (("conds", "tokens", "labels", "num_faces", "lengths"), _lmm_call),
+               "dit": (("images", "points"), _dit_call)}
 
 
 def step_seeds(seed: int, step: int) -> tuple:
@@ -72,16 +103,20 @@ def pad_for_sp(batch: dict, size: int, pad_token_id: int) -> dict:
 
 class Trainer:
     def __init__(self, model, opt, total_steps: int, logger=None,
-                 sp: Optional[SequenceParallel] = None):
+                 sp: Optional[SequenceParallel] = None, kind: str = "arae"):
         self.model = model
         self.opt = opt
         self.logger = logger
+        self.kind = kind
+        self.batch_keys, self.call = MODEL_KINDS[kind]
         self.sp = sp if sp is not None and sp.size > 1 else None
         self.is_main = self.sp is None or self.sp.rank == 0
         self.device = next(model.parameters()).device
-        self.params = dict(model.named_parameters())
+        self.params = trainable_parameters(model, frozen_param_keys(opt, kind))
         self.optimizer, self.schedule = make_optimizer(opt, self.params, total_steps)
         self.autocast = self.device.type == "cuda" and opt.mixed_precision == "bf16"
+        self.ema_decay = float(opt.ema_decay or 0.0)
+        self.ema: Optional[dict] = None  # {name: f32 tensor} of every parameter
         self.step = 0
         self.losses: list[float] = []  # every training step's loss, in order
 
@@ -93,23 +128,40 @@ class Trainer:
         else:
             print(msg)
 
-    def init_state(self, step: int = 0, opt_state_path: Optional[str] = None):
+    def init_state(self, step: int = 0, opt_state_path: Optional[str] = None,
+                   ema_path: Optional[str] = None):
         """`step` restarts the schedule and the step seeds where a run left
         off; `opt_state_path` restores a saved optimizer state. Under sp,
-        every rank takes rank 0's weights."""
+        every rank takes rank 0's weights. With --ema_decay the EMA starts
+        from the weights, or from the EMA file `ema_path`."""
         self.step = step
         if self.sp is not None:
             broadcast_(list(self.params.values()), self.sp)
+        if self.ema_decay > 0:
+            saved = read_safetensors(ema_path) if ema_path else None
+            self.ema = {n: (p.detach().clone() if saved is None else
+                            torch.as_tensor(saved[n]).to(self.device, p.dtype))
+                        for n, p in self.model.named_parameters()}
         if opt_state_path:
             self.optimizer.load_state_dict(
                 torch.load(opt_state_path, map_location=self.device, weights_only=True))
 
-    def forward(self, batch: dict, *, train: bool, generator=None) -> dict:
+    def forward(self, batch: dict, *, train: bool, generator=None, use_ema: bool = False
+                ) -> dict:
         b = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()
-             if k in ("conds", "tokens", "labels", "num_faces", "lengths")}
+             if k in self.batch_keys}
+        model = self.model
+        if use_ema:
+            def model(*args, **kw):
+                return functional_call(self.model, self.ema, args, kw)
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.autocast):
-            return self.model(b["conds"], b["tokens"], b["labels"], b["num_faces"],
-                              b["lengths"], train=train, generator=generator)
+            return self.call(model, b, train, generator)
+
+    @torch.no_grad()
+    def update_ema(self):
+        d = self.ema_decay
+        for n, p in self.model.named_parameters():
+            self.ema[n].mul_(d).add_(p * (1.0 - d))
 
     def _sp_batch(self, batch: dict) -> dict:
         if self.sp is None:
@@ -137,6 +189,8 @@ class Trainer:
         if self.sp is not None:
             all_reduce_(grads, self.sp)
         gnorm = self.optimizer.update(dict(zip(self.params, grads)))
+        if self.ema is not None:
+            self.update_ema()
         self.step += 1
         metrics = self._summed(out)
         metrics["grad_norm"] = float(gnorm)
@@ -185,16 +239,23 @@ class Trainer:
         return avg
 
     @torch.no_grad()
-    def eval_loss(self, batch: dict) -> float:
-        """The held-out loss of `batch`, under sp summed over the ranks."""
+    def eval_loss(self, batch: dict, use_ema: bool = False) -> float:
+        """The held-out loss of `batch` (of the EMA's weights with `use_ema`),
+        under sp summed over the ranks."""
+        # the DiT's draws from opt.seed, the same for every batch
+        generator = (torch.Generator(device=self.device).manual_seed(self.opt.seed)
+                     if self.kind == "dit" else None)
         with sequence_parallel(self.sp):
-            return self._summed(self.forward(self._sp_batch(batch), train=False))["loss"]
+            return self._summed(self.forward(self._sp_batch(batch), train=False,
+                                             generator=generator, use_ema=use_ema))["loss"]
 
-    def eval_epoch(self, loader, epoch: int) -> float:
+    def eval_epoch(self, loader, epoch: int, use_ema: bool = False) -> float:
+        if use_ema and self.ema is None:
+            raise ValueError("use_ema needs --ema_decay > 0")
         total, n = 0.0, 0
         for batch in loader:
-            total += self.eval_loss(batch)
+            total += self.eval_loss(batch, use_ema)
             n += 1
         avg = total / max(n, 1)
-        self.log(f"Eval epoch: {epoch} loss: {avg:.6f}")
+        self.log(f"Eval epoch: {epoch}{' (ema)' if use_ema else ''} loss: {avg:.6f}")
         return avg

@@ -95,13 +95,15 @@ def test_validate_refuses_dp_size_and_the_training_options_not_ported_yet():
 
     import dataclasses
 
-    for change in (dict(dp_size=2), dict(ema_decay=0.999), dict(eval_mode="generate"),
+    for change in (dict(dp_size=2), dict(eval_mode="generate"),
                    dict(async_checkpointing=True), dict(resume2="clip.safetensors"),
                    dict(use_wandb=True), dict(data_root="https://example.com/meshes"),
                    dict(data_root="s3://bucket/meshes"), dict(data_root="dir_a:dir_b")):
         with pytest.raises(ValueError):
             validate(dataclasses.replace(config_defaults["ArAE"], **change))
-    for ok in (dict(dp_size=-1), dict(dp_size=1), dict(data_root="./data")):
+    # the weight EMA is ported: main and main_dit keep one
+    for ok in (dict(dp_size=-1), dict(dp_size=1), dict(data_root="./data"),
+               dict(ema_decay=0.999)):
         validate(dataclasses.replace(config_defaults["ArAE"], **ok))
 
 
