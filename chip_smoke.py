@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: the quickest proof that
 the port still builds, agrees with its plain versions, generates meshes
-from point clouds and from images, serves them over HTTP and trains.
+from point clouds and from images (through the DiT's latents, and through
+the image-conditioned ArAE), serves them over HTTP and trains.
 
     python3 chip_smoke.py [--phases build,kernels,...]
 
@@ -37,7 +38,14 @@ Phases, one JSON line each:
              A and C at the DiT training step's shapes, bf16 at the DiT
              preset's batch: self [8, 2048, 2048, 16, 64] and cross
              [8, 2048 x 257, 16, 64], timed; the tile-edge cases include
-             257 keys (4 x 64 + 1), forward and backward. Last, a
+             257 keys (4 x 64 + 1), forward and backward. The
+             image-conditioned ArAE's shapes (16 heads of 64): kernel A's
+             causal prefill [12, 258, 258, 16, 64] (258 = 4 x 64 + 2), A
+             and C at its causal training step [4, 4355, 4355, 16, 64] with
+             every other row cut to 3000, kernel B over its 1000-face cache
+             [12, 5632, 1024] at the decode's mean position, all timed; and
+             kernel C's scalar f32 instance, timed at the DiT's self shape
+             [2, 2048, 2048, 16, 64], where the f32 parity phases run it. Last, a
              diagnostic at the DiT's self-attention shape with q and k scaled
              so that the logits span tens: the plain version with TF32
              matmuls fails the f32 tolerance rule where the kernel passes it
@@ -49,16 +57,17 @@ Phases, one JSON line each:
              just before and read just after; row 0 is detokenised into a
              mesh with the port's metok copy.
 4. generate_q8  the same path over the int8 KV cache (--kv_quant true) with
-             a 1024-token budget; its decode kernel's launches held exactly;
-             a profiled segment.
+             a 512-token budget (--decode_bucket 512); its decode kernel's
+             launches held exactly; a profiled segment.
 5. generate_q4  bench.py's quant_fast configuration (--kv_quant true
-             --kv_bits 4 --w_quant true, 40 rows) with a 1024-token budget;
+             --kv_bits 4 --w_quant true, 40 rows) with a 512-token budget;
              row 7's launches held exactly; a profiled segment.
 6. parity    2 layers at full width in f32 (TF32 off for matmuls and cuDNN):
              the kernel path and the plain path decode greedily in lockstep
              on the same tokens, and must choose the same token at every
              step where the plain logits' top-2 gap is at least NEAR_TIE.
-7. parity_q4 the same over the int4 cache: per-row, kv_group 96, kv_rotate.
+7. parity_q4 the same over the int4 cache, 512 steps: per-row, kv_group 96,
+             kv_rotate.
 8. serve     the server as the README starts it (--test_batch_size 8), full
              width, bf16, random weights from seed 0: HTTP requests through
              `build_server` (JAX's JSON, a malformed body answered 400), then
@@ -74,7 +83,7 @@ Phases, one JSON line each:
              `generate_tokens` and on the engine, over the bf16 and the int4
              cache: tokens accepted per verify pass, ms per pass, rows 9 and
              10 launched exactly once per layer and pass at T = 3; then f32
-             spec streams against vanilla streams up to near-ties.
+             spec streams against vanilla streams up to near-ties (512 steps).
 11. train    the training path: `Trainer.train_step` at full ArAE width,
              bf16 autocast, gradient checkpointing and dropout on, on
              bench.py's train batch (2 rows of 6147 positions): one warm-up
@@ -99,10 +108,10 @@ Phases, one JSON line each:
              point_latent mode), random weights from seed 0, one 512 x 512
              image rendered from a procedural mesh's points: infer_dit's
              DDIM run as the CLI runs it (f32, 100 steps, guidance 7.5, 2
-             repeats in one group): CLIP ms, DDIM s and ms per step, kernel
+             repeat): CLIP ms, DDIM s and ms per step, kernel
              A's launches held to exactly 2 x 24 x 100 = 4,800, latents
-             finite; then the f32 decode of both rows (1000 faces, a
-             DIT_BUDGET-token budget cut for time, EOS forbidden), tokens/s,
+             finite; then the f32 decode (1000 faces, a DIT_BUDGET-token
+             budget cut for time, EOS forbidden), tokens/s,
              row 0 written as an .obj; peak memory; one profiled DDIM step.
              Then the server in pipeline mode (`build_server(pipeline=True)`,
              bf16 LMM, f32 MDiT): /healthz, two /generate_image requests of
@@ -131,6 +140,26 @@ Phases, one JSON line each:
 17. dit_train_parity  2 DiT and 2 CLIP layers at full width in f32 (TF32
              off): the training loss and every trainable gradient of the
              kernel path against the plain path, from the same draws.
+18. image    the image-conditioned ArAE (the default preset: CLIP ViT-H/14,
+             257 condition tokens, the decoder 24 x 1024 with 16 heads of
+             64) as `infer default` runs it, bf16, random weights from seed
+             0, 12 rows of a 512 x 512 render, 1000 faces, EOS forbidden, a
+             1024-token budget (cut for time from the CLI's 5120): CLIP ms
+             per image, prefill s, tokens/s, ms per step, device ms per step
+             (a profiled segment), peak memory; launches held exactly (A 24
+             in the prefill, B 24 per decode step); then infer's own path
+             after the image's read writes a .ply.
+19. image_parity  2 decoder and 2 CLIP layers at full width in f32 (TF32
+             off): the kernel path's greedy streams of two images against
+             the plain path's up to near-ties (512 steps), and one training
+             step's loss and gradients; no gradient reaches the frozen tower.
+20. image_train  `main default` as the CLI runs it, full width, batch 4,
+             bf16 autocast, checkpointing, synthetic meshes with point-splat
+             renders for one epoch in a temporary workspace: launches per
+             step held to A 48 and C 24, the tower bit-unchanged, every
+             trainable tensor moved, the checkpoint reloaded strictly and
+             equal; then timed steps at 4 x 4355 positions (s/it, tokens/s,
+             peak memory, busy share).
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit from nvidia-smi, and last the result line. Exits non-zero, printing
@@ -142,6 +171,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -168,12 +198,15 @@ SP_TRAIN_STEPS = 2       # sp phase: timed steps after one warm-up step (three i
 GRAD_TOL = 2e-2          # train parity: gradient error over the tensor's largest value
 PHASES = ("build", "kernels", "generate", "generate_q8", "generate_q4", "parity", "parity_q4",
           "serve", "serve_parity", "spec", "train", "train_parity", "sp", "dit", "dit_parity",
-          "dit_train", "dit_train_parity")
-Q8_BUDGET = 1024         # generate_q8: a shorter budget than the bf16 generate phase
-                         # (one decode bucket, cut from 2048 for the sp phase's time)
+          "dit_train", "dit_train_parity", "image", "image_parity", "image_train")
+CUT_BUCKET = 512         # the decode bucket of the paths whose budget is cut below the
+                         # ArAE's 1024-token bucket, for the run's time on the card
+Q8_BUDGET = 512          # generate_q8: a shorter budget than the bf16 generate phase, for
+                         # time (the int8 path's decode is checked, not its length)
 Q4_ROWS = 40             # bench.py's quant_fast probe: int4 KV + int8 weights at batch 40 ...
 Q4_FULL_BUDGET = 4096    # ... and the headline's 4096-token budget (bench.py:464-469)
-Q4_BUDGET = 1024         # generate_q4: that budget cut for time
+Q4_BUDGET = 512          # generate_q4: that budget cut for time
+PARITY_CUT_STEPS = 512   # parity_q4 and spec's parity: steps, in CUT_BUCKET for time
 SERVE_FACES = (100, 200)  # the HTTP requests' face counts (budgets 1024 and 2048 tokens)
 SERVE_HTTP_REQUESTS = 10  # 8 at once, 2 more while they decode
 SERVE_BENCH_REQUESTS = 8  # into SERVE_ROWS slots (one wave, cut from two for the sp
@@ -192,11 +225,13 @@ SERVE_PARITY_BUCKET = 128
 NEAR_TIE = 1e-3          # plain top-2 logit gap under which a flip is allowed
 SP_RING_RANKS = (2, 4)   # sp phase: groups of ranks sharing the card, the ring at full width
 SP_TRAIN_RANKS = 2       # ... and the one that also takes the full-width training step
-DIT_REPEATS = 2          # dit: one DDIM run of infer_dit's, test_batch_size 2 ...
-DIT_BUDGET = 1024        # ... and its decode at 1000 faces, the budget cut for time
+DIT_REPEATS = 1          # dit: one DDIM run of infer_dit's, test_batch_size 1 (the
+                         # device-bound DDIM loop takes ~10 s a repeat) ...
+DIT_BUDGET = 512         # ... and its decode at 1000 faces, the budget cut for time
                          # (the CLI's is 6144 tokens)
 DIT_SERVE_FACES = (10, 20)  # dit: the pipeline server's two image requests
-DIT_PARITY_STEPS = 10    # dit_parity: a 10-step DDIM schedule
+DIT_PARITY_STEPS = 10    # dit_parity: a 10-step DDIM schedule ...
+DIT_PARITY_REPEATS = 2   # ... of 2 repeats
 LATENT_TOL = 1e-3        # dit_parity: latents' error over their largest value
 DIT_TRAIN_ROWS = 8       # dit_train: the DiT preset's batch ...
 DIT_TRAIN_SAMPLES = 40   # ... over --synthetic_size 40: one warm-up and four timed steps
@@ -204,6 +239,13 @@ DIT_PROBE_ROWS = 32      # ... then bench.py's dit_train_probe batch ...
 DIT_PROBE_STEPS = 2      # ... for two timed steps
 DIT_DDIM_CHECK_STEPS = 2  # the saved checkpoint's DDIM check
 DIT_PARITY_ROWS = 2      # dit_train_parity: rows of its batch
+IMAGE_BUDGET = 1024      # image: the decode budget at 1000 faces, cut for time from the
+                         # CLI's 5120 tokens (the kernels phase times B at the full cache)
+IMAGE_CLI_BUDGET = 256   # image: infer's own path on one image, EOS allowed
+IMAGE_TRAIN_ROWS = 4     # image_train: the default preset's batch ...
+IMAGE_TRAIN_SAMPLES = 16  # ... over --synthetic_size 16: one warm-up and three timed steps
+IMAGE_PROBE_STEPS = 3    # ... then timed steps at 4 rows of bench.py's train probe rows
+IMAGE_RAGGED_LEN = 3000  # the kernels' image training case: every other row cut to this
 # shapes that straddle the flash kernels' 64-row tiles (B, N, M, H, D, causal,
 # kv_len, q_len), as tests/test_torch_attention.py and
 # tests/test_torch_flash_backward.py hold the plain versions at them
@@ -356,6 +398,16 @@ def bound(flops, nbytes, dtype, peak_flops=None) -> dict:
     return {"bound_by": by, "bound_ms": bounds[by] * 1e3, "flops": flops, "bytes": nbytes}
 
 
+def flash_bound(flops, nbytes, dtype) -> dict:
+    """`bound` of a flash kernel: f32 at the card's f32-exact rate on the
+    tensor cores (3xTF32), whatever unit the kernel runs on, with the CUDA
+    cores' bound beside it."""
+    if dtype == torch.float32:
+        return {**bound(flops, nbytes, dtype, PEAK_F32_TF32X3),
+                "bound_ms_cuda_cores": bound(flops, nbytes, dtype)["bound_ms"]}
+    return bound(flops, nbytes, dtype)
+
+
 def attention_inputs(dev, B, N, M, H, D, causal, dtype, kv_len, q_len):
     g = torch.Generator(device=dev).manual_seed(N * 7 + M)
     q, k, v = (torch.randn(s, device=dev, generator=g, dtype=torch.float32).to(dtype)
@@ -390,11 +442,7 @@ def flash_case(dev, B, N, M, H, D, causal, dtype, kv_len=None, q_len=None, timed
         # two products of the pairs these inputs need (QK^T and PV)
         flops = 4.0 * H * D * attention_pairs(B, N, M, causal, q_len, kv_len)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + lse.numel() * 4
-        if dtype == torch.float32:  # f32-exact on the tensor cores; the CUDA cores' bound beside
-            res.update(bound(flops, nbytes, dtype, PEAK_F32_TF32X3),
-                       bound_ms_cuda_cores=bound(flops, nbytes, dtype)["bound_ms"])
-        else:
-            res.update(bound(flops, nbytes, dtype))
+        res.update(flash_bound(flops, nbytes, dtype))
     return res
 
 
@@ -466,7 +514,7 @@ def flash_bwd_case(dev, B, N, M, H, D, causal, dtype, kv_len=None, q_len=None,
         # q, k, v, o, dO and lse read once, dq, dk, dv written once
         flops = 10.0 * H * D * attention_pairs(B, N, M, causal, q_len, kv_len)
         nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
-        res.update(bound(flops, nbytes, dtype))
+        res.update(flash_bound(flops, nbytes, dtype))
     return res
 
 
@@ -525,8 +573,8 @@ def flash_lse_case(dev, B, S, H, D, causal, dtype, timed=False):
         except RuntimeError as exc:  # a library kernel that refuses the shape: no yardstick
             res["library_ms"], res["library_refused"] = None, str(exc)[:300]
         pairs = attention_pairs(B, S, S, causal)
-        res.update(bound(4.0 * H * D * pairs,
-                         4 * q.numel() * q.element_size() + lse.numel() * 4, dtype))
+        res.update(flash_bound(4.0 * H * D * pairs,
+                               4 * q.numel() * q.element_size() + lse.numel() * 4, dtype))
         bwd = {"ms": time_ms(lambda: flash_attention_lse_bwd(
             q, k, v, o, lse, do, dlse, causal=causal), 3)}
         bwd["plain_ms"] = time_ms(lambda: flash_attention_bwd_reference(
@@ -544,8 +592,8 @@ def flash_lse_case(dev, B, S, H, D, causal, dtype, timed=False):
             del out
         else:
             bwd["library_ms"] = None
-        bwd.update(bound(10.0 * H * D * pairs, (4 * q.numel() + 4 * k.numel())
-                         * q.element_size() + 2 * lse.numel() * 4, dtype))
+        bwd.update(flash_bound(10.0 * H * D * pairs, (4 * q.numel() + 4 * k.numel())
+                               * q.element_size() + 2 * lse.numel() * 4, dtype))
         res["bwd"] = bwd
     return res
 
@@ -694,6 +742,18 @@ def main_path_shapes():
     return opt, budget, 1 + opt.num_cond_tokens, num_new, max_len
 
 
+def image_path_shapes():
+    """The default preset (cond_mode 'image') and its decode's shapes at the
+    CLI's 1000-face budget: (opt, prompt length: CLIP's 257 tokens and BOS,
+    new tokens, cache length, the decode loop's mean position)."""
+    from edgerunner_tpu_torch.generate import decode_shape
+
+    opt = image_options()
+    num_new, max_len = decode_shape(opt, 1, FACES, None)
+    plen = 1 + opt.num_cond_tokens
+    return opt, plen, num_new, max_len, plen + num_new // 2
+
+
 def dit_cond_tokens(opt) -> int:
     """CLIP's tokens, onto which the DiT cross-attends: patches + class."""
     return (opt.clip_image_size // opt.clip_patch_size) ** 2 + 1
@@ -762,6 +822,21 @@ def phase_kernels(dev):
     flash += [dict(case=f"dit train {kind} (main path)", **flash_case(
         dev, DIT_TRAIN_ROWS, dit_n, m, dit_h, dit_d, False, bf, timed=True))
         for kind, m in (("self", dit_n), ("cross", dit_m))]
+    # the image-conditioned ArAE (the default preset, 16 heads of 64): the
+    # prefill over CLIP's 257 tokens and BOS (258 = 4 x 64 + 2), causal, and
+    # the training step's causal self-attention, every other row ragged
+    img_opt, img_plen, _, img_L, img_mid = image_path_shapes()
+    iH = img_opt.num_heads
+    iD = img_opt.hidden_dim // iH
+    iT = train_positions(img_opt)
+    ilens = [iT, IMAGE_RAGGED_LEN] * (IMAGE_TRAIN_ROWS // 2)
+    flash += [
+        dict(case="image prefill (main path)", **flash_case(
+            dev, ROWS, img_plen, img_plen, iH, iD, True, bf, timed=True)),
+        dict(case="image decoder train (main path)", **flash_case(
+            dev, IMAGE_TRAIN_ROWS, iT, iT, iH, iD, True, bf, kv_len=ilens, q_len=ilens,
+            timed=True)),
+    ]
     # the training step's shapes: the decoder's causal self-attention over
     # the train batch's positions (row 1 ragged) and the encoder's cross-attention
     T = train_positions(opt)
@@ -795,6 +870,15 @@ def phase_kernels(dev):
     flash_bwd += [dict(case=f"dit train {kind} (main path)", **flash_bwd_case(
         dev, DIT_TRAIN_ROWS, dit_n, m, dit_h, dit_d, False, bf, timed=True))
         for kind, m in (("self", dit_n), ("cross", dit_m))]
+    flash_bwd += [
+        dict(case="image decoder train (main path)", **flash_bwd_case(
+            dev, IMAGE_TRAIN_ROWS, iT, iT, iH, iD, True, bf, kv_len=ilens, q_len=ilens,
+            timed=True)),
+        # the scalar f32 instance, which the f32 parity phases run (dit_train_parity
+        # at the DiT's self-attention shape)
+        dict(case="dit self float32 (parity phases)", **flash_bwd_case(
+            dev, 2, dit_n, dit_n, dit_h, dit_d, False, f32, timed=True)),
+    ]
     flash_bwd += [dict(case=f"keyless causal {str(dt).split('.')[-1]}", **flash_bwd_case(
         dev, 3, 130, 130, 4, D, True, dt, kv_len=[130, 0, 70], q_len=[130, 130, 70]))
         for dt, D in ((bf, 96), (f32, 64))]
@@ -815,6 +899,10 @@ def phase_kernels(dev):
     decode.append(dict(case="per-row positions, vector built on the device", **decode_case(
         dev, ROWS, L, hd, H,
         (torch.arange(ROWS, device=dev, dtype=torch.int32) * 557 + 31) % L, bf)))
+    # the image path's decode: 16 heads of 64 over the 1000-face cache
+    decode.append(dict(case=f"image index {img_mid} (main path, mean position)", **decode_case(
+        dev, ROWS, img_L, img_opt.hidden_dim, iH,
+        torch.full((ROWS,), img_mid, dtype=torch.int32, device=dev), bf, timed=True)))
     decode.append(dict(case="f32", **decode_case(dev, 2, 1024, hd, H, 700, f32)))
     decode.append(dict(case="f32 per-row", **decode_case(dev, 3, 1024, hd, H, [5, 700, 1023],
                                                          f32)))
@@ -1009,13 +1097,14 @@ def phase_parity(dev):
 def phase_parity_q4(dev):
     """`parity_run` over the int4 KV cache in three variants: per-row scales,
     one scale per head (kv_group 96 at hidden 1536) and rotated rows."""
-    runs = {name: parity_run(dev, PARITY_STEPS, kv_quant=True, kv_bits=4, **changes)
+    runs = {name: parity_run(dev, PARITY_CUT_STEPS, kv_quant=True, kv_bits=4,
+                             decode_bucket=CUT_BUCKET, **changes)
             for name, changes in (("per-row", {}), ("kv_group 96", {"kv_group": 96}),
                                   ("kv_rotate", {"kv_rotate": True}))}
     return {"ok": all(r["ok"] for r in runs.values()), **runs}
 
 
-def parity_run(dev, steps, conds=None, **changes):
+def parity_run(dev, steps, conds=None, preset="ArAE", **changes):
     """Kernel path against plain path, 2 layers at full width in f32: both
     models generate their own greedy streams through `generate_tokens`; a
     lockstep replay on the plain stream's tokens reads the plain logits'
@@ -1023,19 +1112,19 @@ def parity_run(dev, steps, conds=None, **changes):
     up to the first step whose gap is under NEAR_TIE, the paths may choose
     differently only at such steps, and the logits may differ by less than
     1e-2 (f32 sums in another order differ by ~1e-5). `changes` set options
-    (the KV cache's kind, the condition mode); `conds` are 2 rows of
-    conditions (point clouds from a seed when None)."""
+    (the KV cache's kind, the condition mode) of `preset`; `conds` are the
+    rows' conditions (2 point clouds from a seed when None)."""
     from edgerunner_tpu_torch.config import config_defaults, vocab_size_for
     from edgerunner_tpu_torch.generate import decode_shape, generate_tokens
     from edgerunner_tpu_torch.ops import sampling as S
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    opt = dataclasses.replace(config_defaults["ArAE"], num_layers=2, generate_mode="greedy",
+    opt = dataclasses.replace(config_defaults[preset], num_layers=2, generate_mode="greedy",
                               **changes)
     kernel = build_model(opt, dev, torch.float32, SEED + 1)
     plain = build_model(opt, dev, torch.float32, SEED + 1, use_kernels=False)
-    rows = 2
+    rows = 2 if conds is None else len(conds)
     points = (np.random.default_rng(SEED + 1).normal(size=(rows, opt.point_num, 3)).astype(
         np.float32) if conds is None else conds)
     kw = dict(num_faces=FACES, max_new_tokens=steps, bench_no_eos=True)
@@ -1077,7 +1166,8 @@ def parity_run(dev, steps, conds=None, **changes):
     streams_ok = all(t is None or gaps[r, t] < NEAR_TIE for r, t in enumerate(first))
     ok = (streams_ok and bool(np.array_equal(replay, stream_p))
           and not (flips & (gaps >= NEAR_TIE)).any() and max_diff < 1e-2)
-    return {"ok": ok, "options": changes, "layers": 2, "rows": rows, "steps": steps,
+    return {"ok": ok, "preset": preset, "options": changes, "layers": 2, "rows": rows,
+            "steps": steps,
             "dtype": "float32",
             "tf32": False, "near_tie": NEAR_TIE,
             "streams_identical": bool(np.array_equal(stream_k, stream_p)),
@@ -1151,7 +1241,8 @@ def phase_generate_q8(dev):
     from edgerunner_tpu_torch.ops import decode_attention as DA
 
     opt, *_ = main_path_shapes()
-    opt = dataclasses.replace(opt, generate_mode="greedy", kv_quant=True)
+    opt = dataclasses.replace(opt, generate_mode="greedy", kv_quant=True,
+                              decode_bucket=CUT_BUCKET)
     num_new = decode_shape_of(opt, Q8_BUDGET)[0]
     model = build_model(opt, dev, torch.bfloat16, SEED)
     run = timed_generate(model, opt, dev, ROWS, Q8_BUDGET)
@@ -1184,7 +1275,7 @@ def phase_generate_q4(dev):
 
     opt, *_ = main_path_shapes()
     opt = dataclasses.replace(opt, generate_mode="greedy", kv_quant=True, kv_bits=4,
-                              w_quant=True)
+                              w_quant=True, decode_bucket=CUT_BUCKET)
     num_new = decode_shape_of(opt, Q4_BUDGET)[0]
     model = load_model(opt, dev)
     run = timed_generate(model, opt, dev, Q4_ROWS, Q4_BUDGET)
@@ -1385,8 +1476,6 @@ def phase_serve(dev):
     through `build_server`, then the engine alone with the bf16 cache
     (row 9's kernel), with `--kv_quant true --w_quant true` (row 11's
     kernel), and with `--kv_quant true --kv_bits 4` (row 10's kernel)."""
-    import gc
-
     from edgerunner_tpu_torch.config import config_defaults
     from edgerunner_tpu_torch.infer import load_model
     from edgerunner_tpu_torch.ops import decode_attention as DA
@@ -1519,17 +1608,18 @@ def spec_parity(dev, cache: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     opt = dataclasses.replace(config_defaults["ArAE"], num_layers=2, generate_mode="greedy",
-                              mtp_heads=SPEC_HEADS, spec_decode=True, **cache)
+                              mtp_heads=SPEC_HEADS, spec_decode=True,
+                              decode_bucket=CUT_BUCKET, **cache)
     model = set_draft_heads(build_model(opt, dev, torch.float32, SEED + 4), SEED + 4)
     points = np.random.default_rng(SEED + 4).normal(size=(2, opt.point_num, 3)).astype(
         np.float32)
-    kw = dict(num_faces=FACES, max_new_tokens=PARITY_STEPS, bench_no_eos=True)
+    kw = dict(num_faces=FACES, max_new_tokens=PARITY_CUT_STEPS, bench_no_eos=True)
     with recorded_passes() as seen:
         spec = generate_tokens(model, points, **kw)
     model.opt = dataclasses.replace(opt, spec_decode=False)
     vanilla = generate_tokens(model, points, **kw)
     gaps = replay_gaps(model, model.opt, dev, points, vanilla,
-                       decode_shape(model.opt, 1, FACES, PARITY_STEPS)[1])
+                       decode_shape(model.opt, 1, FACES, PARITY_CUT_STEPS)[1])
     first = [int(np.argmax(a != b)) if (a != b).any() else None for a, b in zip(spec, vanilla)]
     ok = all(t is None or gaps[r, t] < NEAR_TIE for r, t in enumerate(first))
     return {"ok": ok, "layers": 2, "dtype": "float32", "tf32": False, "rows": 2,
@@ -1548,8 +1638,6 @@ def phase_spec(dev):
     pass, ms per pass, each kernel's launches held to 24 per pass. Then the
     f32 spec streams against vanilla streams (kernel path, both caches) up
     to near-ties."""
-    import gc
-
     from edgerunner_tpu_torch.config import config_defaults
     from edgerunner_tpu_torch.infer import load_model
     from edgerunner_tpu_torch.ops import decode_attention as DA
@@ -2093,7 +2181,7 @@ def dit_options(**changes):
     from edgerunner_tpu_torch.config import config_defaults, validate
 
     return validate(dataclasses.replace(config_defaults["ArAE"], cond_mode="point_latent",
-                                        **changes), dit=True)
+                                        **changes))
 
 
 def dit_image(size=512) -> np.ndarray:
@@ -2145,7 +2233,7 @@ def dit_cli(dev) -> dict:
     from edgerunner_tpu_torch.ops.flash_attention import flash_attention
     from edgerunner_tpu_torch.utils import get_tokenizer
 
-    opt = dit_options(test_batch_size=DIT_REPEATS)
+    opt = dit_options(test_batch_size=DIT_REPEATS, decode_bucket=CUT_BUCKET)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, model_dit = infer_dit.load_models(opt, dev)
@@ -2276,8 +2364,6 @@ def dit_serve(dev) -> dict:
 
 
 def phase_dit(dev):
-    import gc
-
     res = {"cli": dit_cli(dev)}
     gc.collect()
     torch.cuda.empty_cache()
@@ -2307,13 +2393,14 @@ def phase_dit_parity(dev):
     plain.load_state_dict(kernel.state_dict())
     image = dit_image()[None]
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    noise = torch.randn((DIT_REPEATS, opt.point_latent_size, opt.point_latent_dim),
+    noise = torch.randn((DIT_PARITY_REPEATS, opt.point_latent_size, opt.point_latent_dim),
                         generator=gen, device=dev)
     with torch.inference_mode():
         img = torch.as_tensor(image, device=dev)
         cond_k, cond_p = kernel.get_cond(img), plain.get_cond(img)
         lat_k, lat_p = (run_mdit(m, image, num_inference_steps=DIT_PARITY_STEPS,
-                                 num_repeat=DIT_REPEATS, noise=noise) for m in (kernel, plain))
+                                 num_repeat=DIT_PARITY_REPEATS, noise=noise)
+                        for m in (kernel, plain))
     cond_err = (cond_k - cond_p).abs().max().item()
     cond_ok = cond_err <= 1e-6 * cond_p.abs().max().item()
     lat_err = (lat_k - lat_p).abs().max().item()
@@ -2402,32 +2489,14 @@ def profile_dit_train_step(trainer, batch) -> dict:
             "top_kernels_ms": [(k[:60], ms) for k, ms in kernels[:16]]}
 
 
-def phase_dit_train(dev):
-    """DiT training as `python -m edgerunner_tpu_torch.main_dit DiT` runs it,
-    full width (CLIP ViT-H/14 and the point encoder frozen; the DiT 24 x
-    1024), random weights from seed 0, the preset's batch on synthetic data
-    for one epoch in a temporary workspace (deleted afterwards): one warm-up
-    and four timed steps, each step's launches counted from 0 and held to
-    kernel A 2 x 2 x 24 + 1 (each attention's forward and its replay under
-    checkpointing, and the frozen point encoder) and kernel C 2 x 24; frozen
-    parameters bit-unchanged, every trainable one moved. Then the saved
-    checkpoint loads strictly into a fresh MDiT (weights equal to the
-    trainer's) and samples finite latents in a short DDIM run; one profiled
-    step; and DIT_PROBE_STEPS timed steps at bench.py's dit_train_probe batch."""
-    import dataclasses as dc
-    import gc
-    import shutil
-    import tempfile
-
-    from edgerunner_tpu_torch import main_dit
-    from edgerunner_tpu_torch.data.dataset_dit import DiTMeshDataset, collate_dit
-    from edgerunner_tpu_torch.models.mdit import MDiT, run_mdit
+@contextlib.contextmanager
+def counted_train_steps(steps: list, snapshot: dict):
+    """`Trainer.train_step` patched inside: each step's seconds, metrics and
+    kernel A's and C's launches (counted from 0) appended to `steps`, and
+    the parameters before the first step copied into `snapshot`."""
     from edgerunner_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
     from edgerunner_tpu_torch.train.trainer import Trainer
-    from edgerunner_tpu_torch.weights import load_mdit
 
-    workspace = tempfile.mkdtemp(prefix="chip_smoke_dit_train_")
-    steps, snapshot = [], {}
     original = Trainer.train_step
 
     def counted_step(self, batch):
@@ -2443,14 +2512,53 @@ def phase_dit_train(dev):
             "flash_attention_bwd": flash_attention_bwd.launches}})
         return m
 
+    Trainer.train_step = counted_step
     try:
-        Trainer.train_step = counted_step
+        yield
+    finally:
+        Trainer.train_step = original
+
+
+def frozen_and_unmoved(trainer, snapshot: dict) -> tuple:
+    """(the frozen parameters' names, whether each is bit-unchanged since
+    `snapshot`, the trainable parameters that did not move)."""
+    frozen = [n for n in snapshot if n not in trainer.params]
+    frozen_same = bool(frozen) and all(
+        torch.equal(p.detach().cpu(), snapshot[n])
+        for n, p in trainer.model.named_parameters() if n in frozen)
+    unmoved = [n for n, p in trainer.params.items()
+               if torch.equal(p.detach().cpu(), snapshot[n])]
+    return frozen, frozen_same, unmoved
+
+
+def phase_dit_train(dev):
+    """DiT training as `python -m edgerunner_tpu_torch.main_dit DiT` runs it,
+    full width (CLIP ViT-H/14 and the point encoder frozen; the DiT 24 x
+    1024), random weights from seed 0, the preset's batch on synthetic data
+    for one epoch in a temporary workspace (deleted afterwards): one warm-up
+    and four timed steps, each step's launches counted from 0 and held to
+    kernel A 2 x 2 x 24 + 1 (each attention's forward and its replay under
+    checkpointing, and the frozen point encoder) and kernel C 2 x 24; frozen
+    parameters bit-unchanged, every trainable one moved. Then the saved
+    checkpoint loads strictly into a fresh MDiT (weights equal to the
+    trainer's) and samples finite latents in a short DDIM run; one profiled
+    step; and DIT_PROBE_STEPS timed steps at bench.py's dit_train_probe batch."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+
+    from edgerunner_tpu_torch import main_dit
+    from edgerunner_tpu_torch.data.dataset_dit import DiTMeshDataset, collate_dit
+    from edgerunner_tpu_torch.models.mdit import MDiT, run_mdit
+    from edgerunner_tpu_torch.weights import load_mdit
+
+    workspace = tempfile.mkdtemp(prefix="chip_smoke_dit_train_")
+    steps, snapshot = [], {}
+    try:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        try:
+        with counted_train_steps(steps, snapshot):
             trainer = main_dit.main(dit_train_args(workspace))
-        finally:
-            Trainer.train_step = original
         run_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         opt = trainer.opt
@@ -2460,11 +2568,7 @@ def phase_dit_train(dev):
         s_per_it = sum(st["s"] for st in timed) / max(len(timed), 1)
         losses = [st["loss"] for st in steps]
         n_trainable = len(trainer.params)
-        frozen = [n for n in snapshot if n not in trainer.params]
-        frozen_same = all(torch.equal(p.detach().cpu(), snapshot[n])
-                          for n, p in trainer.model.named_parameters() if n in frozen)
-        unmoved = [n for n, p in trainer.params.items()
-                   if torch.equal(p.detach().cpu(), snapshot[n])]
+        frozen, frozen_same, unmoved = frozen_and_unmoved(trainer, snapshot)
         snapshot.clear()
         # the saved checkpoint, strictly into a fresh MDiT, then a short DDIM run
         ckpt = os.path.join(workspace, "model.safetensors")
@@ -2579,6 +2683,251 @@ def phase_dit_train_parity(dev):
                          "+ 1e-6 * max over tensors of max|g_plain|"}
 
 
+# ------------------------------------------------------------------- image --
+
+def image_options(**changes):
+    """The default preset (cond_mode 'image': CLIP ViT-H/14, 257 condition
+    tokens, the decoder 24 x 1024 with 16 heads of 64), as `infer default`
+    and `main default` take it."""
+    from edgerunner_tpu_torch.config import config_defaults, validate
+
+    return validate(dataclasses.replace(config_defaults["default"], **changes))
+
+
+def image_train_batch(opt, rows: int, lengths=None) -> dict:
+    """`train_batch` of the image-conditioned ArAE: its tokens and labels
+    after CLIP's 257 condition tokens (4355 positions a row), and as each
+    row's condition the procedural mesh's point-splat render at CLIP's size."""
+    images = np.repeat(dit_image(opt.clip_image_size)[None], rows, axis=0)
+    return dict(train_batch(opt, rows, lengths), conds=images)
+
+
+def phase_image(dev):
+    """The image-conditioned ArAE as `python -m edgerunner_tpu_torch.infer
+    default` runs it: the default preset at full width, bf16, random weights
+    from seed 0 (`infer.load_model`), the CLI's sampling, ROWS rows of the
+    512 x 512 render `dit_image()`, 1000 faces, EOS forbidden, and an
+    IMAGE_BUDGET-token budget: cut for time from the CLI's 5120 tokens
+    (1000 x 5 + 64, rounded up to the 1024-token bucket; kernel B's case in
+    the kernels phase runs at that budget's cache, 5632 rows).
+    CLIP ms per image, prefill s, tokens/s, ms per step, peak memory; the
+    launches held exactly, counted from 0 over the generate call: kernel A
+    once per decoder layer in the prefill (the CLIP tower attends plainly,
+    at head dim 80), kernel B once per layer and decode step, no other
+    decode kernel. A profiled segment of 32 steps gives device ms per step.
+    Then infer's own path after the image's read (`infer.generate_meshes`)
+    on one image, as `infer default --test_max_seq_length 256
+    --decode_bucket 256` runs it, writes a .ply and its tokens."""
+    import tempfile
+
+    from edgerunner_tpu_torch import infer
+    from edgerunner_tpu_torch.generate import generate_tokens
+    from edgerunner_tpu_torch.models.clip_vit import preprocess_images
+    from edgerunner_tpu_torch.ops.flash_attention import flash_attention
+    from edgerunner_tpu_torch.utils import get_tokenizer
+
+    opt = image_options()
+    num_new, max_len = decode_shape_of(opt, IMAGE_BUDGET)
+    t0 = time.perf_counter()
+    model = infer.load_model(opt, dev)
+    setup_s = time.perf_counter() - t0
+    image = dit_image()
+    images = np.repeat(image[None], ROWS, axis=0)
+    nf = torch.full((ROWS,), FACES, device=dev)
+    prompt = torch.full((ROWS, 1), opt.bos_token_id, device=dev)
+    with torch.inference_mode():
+        one = torch.as_tensor(image[None], device=dev)
+        clip_ms = time_ms(lambda: model.image_encoder(
+            preprocess_images(one, size=opt.clip_image_size)), 3)
+        imgs = torch.as_tensor(images, device=dev)
+        for _ in range(2):  # warm-up, then the prefill's time
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model.prefill(imgs, nf, prompt, max_len)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t1
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (flash_attention, *decode_wrappers()):
+        fn.launches = 0
+    t2 = time.perf_counter()
+    tokens = generate_tokens(model, images, num_faces=FACES, max_new_tokens=IMAGE_BUDGET,
+                             generator=torch.Generator(device=dev).manual_seed(SEED),
+                             bench_no_eos=True)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t2
+    launches = {"flash_attention_fwd": flash_attention.launches,
+                **{fn.__name__: fn.launches for fn in decode_wrappers()}}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {fn.__name__: 0 for fn in decode_wrappers()}
+    want.update({"flash_attention_fwd": opt.num_layers,
+                 "fused_decode_attention": opt.num_layers * (num_new - 1)})
+    res = {"rows": ROWS, "num_faces": FACES, "num_new": num_new, "max_len": max_len,
+           "prompt_len": 1 + opt.num_cond_tokens, "layers": opt.num_layers,
+           "hidden": opt.hidden_dim, "heads": opt.num_heads, "clip_layers": opt.clip_num_layers,
+           "clip_hidden": opt.clip_hidden_dim, "image": list(image.shape), "dtype": "bfloat16",
+           "generate_mode": opt.generate_mode, "setup_s": setup_s,
+           "clip_ms_per_image": clip_ms, "prefill_s": prefill_s, "generate_s": gen_s,
+           "ms_per_step": (gen_s - prefill_s) / (num_new - 1) * 1e3,
+           "tokens_per_s": tokens.size / gen_s, "peak_mem_gib": peak, "launches": launches,
+           "launches_expected": want, "card": card_line()}
+    res.update(profile_decode(model, opt, dev, images, max_len, res["prompt_len"] + num_new // 2))
+    # infer's path after the read, as the CLI runs it with a short budget
+    cli_opt = dataclasses.replace(opt, test_max_seq_length=IMAGE_CLI_BUDGET,
+                                  decode_bucket=IMAGE_CLI_BUDGET)
+    model.opt = cli_opt
+    tokenizer, _ = get_tokenizer(opt)
+    with tempfile.TemporaryDirectory() as tmp:
+        t3 = time.perf_counter()
+        written = infer.generate_meshes(dataclasses.replace(cli_opt, workspace=tmp), model,
+                                        tokenizer, "image", image[None],
+                                        torch.Generator(device=dev).manual_seed(SEED))
+        cli_s = time.perf_counter() - t3
+        cli_tokens = np.load(os.path.join(tmp, "image_0_tokens.npy"))
+        ply_bytes = [os.path.getsize(p) for p in written]
+    res.update(cli_s=cli_s, cli_tokens=int(len(cli_tokens)), cli_ply_bytes=ply_bytes)
+    res["ok"] = (launches == want and tokens.shape == (ROWS, num_new)
+                 and not (tokens == 0).any() and not (tokens == 2).any()
+                 and res["device_ms_per_step"] > 0 and len(ply_bytes) == 1
+                 and ply_bytes[0] > 0 and 0 < len(cli_tokens) <= IMAGE_CLI_BUDGET)
+    return res
+
+
+def phase_image_parity(dev):
+    """Kernel path against plain path of the image-conditioned ArAE, f32 with
+    TF32 off, 2 decoder and 2 CLIP layers at full width: `parity_run`'s
+    greedy streams of two images (`dit_image()` and its mirror) over
+    PARITY_CUT_STEPS steps, up to near-ties; then one training step's loss
+    and gradients on `image_train_batch` (2 rows, the second cut to
+    IMAGE_RAGGED_LEN), tolerance as train_parity's: the loss within 1e-5
+    relative, each trainable gradient within GRAD_TOL of its largest plain
+    value plus 1e-6 of the model's largest plain gradient; and no gradient
+    reaches the frozen tower on either path."""
+    from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+
+    image = dit_image()
+    conds = np.stack([image, np.ascontiguousarray(image[:, ::-1])])
+    stream = parity_run(dev, PARITY_CUT_STEPS, conds=conds, preset="default",
+                        clip_num_layers=2, decode_bucket=CUT_BUCKET)
+    opt = image_options(num_layers=2, clip_num_layers=2, mixed_precision="no")
+    kernel = init_weights(LMM(opt, device=dev), SEED + 5)
+    plain = LMM(opt, device=dev, use_kernels=False)
+    plain.load_state_dict(kernel.state_dict())
+    batch = image_train_batch(opt, 2, lengths=[train_positions(opt), IMAGE_RAGGED_LEN])
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def loss_and_grads(model):
+        o = model(b["conds"], b["tokens"], b["labels"], b["num_faces"], b["lengths"],
+                  train=False)
+        params = dict(model.named_parameters())
+        return o["loss"].item(), dict(zip(params, torch.autograd.grad(
+            o["loss"], list(params.values()), allow_unused=True)))
+
+    (lk, gk), (lp, gp) = (loss_and_grads(m) for m in (kernel, plain))
+    tower = [n for n in gk if n.startswith("image_encoder.")]
+    tower_free = bool(tower) and all(gk[n] is None and gp[n] is None for n in tower)
+    gk, gp = ({n: g for n, g in gs.items() if n not in tower} for gs in (gk, gp))
+    worst, worst_name, top = grad_err_over_tol(gk, gp)
+    loss_err = abs(lk - lp) / abs(lp)
+    ok = (stream["ok"] and tower_free and loss_err <= 1e-5 and worst <= 1.0
+          and all(torch.isfinite(g).all().item() for g in gk.values()))
+    return {"ok": ok, "layers": 2, "clip_layers": 2, "dtype": "float32", "tf32": False,
+            "streams": stream, "train_rows": 2, "lengths": batch["lengths"].tolist(),
+            "loss_kernel": lk, "loss_plain": lp, "loss_rel_err": loss_err,
+            "grad_tensors": len(gp), "grad_max_abs": top, "grad_worst_err_over_tol": worst,
+            "grad_worst_tensor": worst_name, "tower_tensors": len(tower),
+            "tower_takes_no_gradient": tower_free,
+            "tolerance": f"loss rel <= 1e-5; per tensor max|dg| <= {GRAD_TOL} * max|g_plain| "
+                         "+ 1e-6 * max over tensors of max|g_plain|"}
+
+
+def image_train_args(workspace: str) -> list:
+    """main's command line in the image_train phase: the default preset at
+    full width (its batch, bf16 autocast, checkpointing), synthetic data, one
+    epoch."""
+    return ["default", "--data_root", os.path.join(workspace, "absent"), "--workspace",
+            workspace, "--synthetic_size", str(IMAGE_TRAIN_SAMPLES), "--num_epochs", "1",
+            "--seed", str(SEED)]
+
+
+def phase_image_train(dev):
+    """Training of the image-conditioned ArAE as `python -m
+    edgerunner_tpu_torch.main default` runs it: full width (CLIP ViT-H/14
+    frozen, the decoder 24 x 1024 with 16 heads of 64), random weights from
+    seed 0, the preset's batch of 4, bf16 autocast, checkpointing, synthetic
+    meshes with point-splat renders for one epoch in a temporary workspace
+    outside the repository (deleted afterwards; a save holds ~3.8 GB of f32
+    weights): one warm-up and three timed steps, each step's launches
+    counted from 0 and held to kernel A 2 x 24 (each layer's forward and its
+    replay under checkpointing) and kernel C 24; the tower bit-unchanged and
+    every trainable tensor moved; the saved checkpoint loads strictly into a
+    fresh LMM, equal to the trainer's weights at the end of the epoch. Then
+    IMAGE_PROBE_STEPS timed steps after a warm-up on bench.py's train rows
+    at 4 x 4355 positions (`image_train_batch`), launches held there too:
+    s/it, tokens/s, peak memory, and one profiled step's busy share."""
+    import shutil
+    import tempfile
+
+    from edgerunner_tpu_torch import main as main_cli
+    from edgerunner_tpu_torch.models.lmm import LMM
+    from edgerunner_tpu_torch.weights import load_state, read_safetensors
+
+    workspace = tempfile.mkdtemp(prefix="chip_smoke_image_train_")
+    steps, snapshot = [], {}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with counted_train_steps(steps, snapshot):
+            trainer = main_cli.main(image_train_args(workspace))
+            run_s = time.perf_counter() - t0
+            opt, n_trainable = trainer.opt, len(trainer.params)
+            n_epoch = len(steps)
+            # the saved checkpoint, before the probe steps move the weights
+            fresh = LMM(opt, device=dev)
+            load_state(fresh, read_safetensors(os.path.join(workspace, "model.safetensors")))
+            ckpt_same = all(torch.equal(a, b) for a, b in zip(
+                fresh.state_dict().values(), trainer.model.state_dict().values()))
+            del fresh
+            gc.collect()
+            torch.cuda.empty_cache()
+            probe = image_train_batch(opt, IMAGE_TRAIN_ROWS)
+            trainer.train_step(probe)  # warm-up at this batch
+            probe_steps = [trainer.train_step(probe) for _ in range(IMAGE_PROBE_STEPS)]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        L = opt.num_layers
+        want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L}
+        epoch_steps, probe_runs = steps[:n_epoch], steps[n_epoch + 1:]
+        s_per_it = sum(st["s"] for st in epoch_steps[1:]) / max(len(epoch_steps) - 1, 1)
+        probe_s = sum(st["s"] for st in probe_runs) / len(probe_runs)
+        T = train_positions(opt)
+        frozen, frozen_same, unmoved = frozen_and_unmoved(trainer, snapshot)
+        snapshot.clear()
+        prof = profile_train(trainer, probe)
+        del trainer
+    finally:
+        shutil.rmtree(workspace, ignore_errors=True)
+    losses = [st["loss"] for st in steps]
+    counts_ok = (n_epoch == IMAGE_TRAIN_SAMPLES // IMAGE_TRAIN_ROWS
+                 and all(st["launches"] == want for st in steps))
+    ok = (counts_ok and all(np.isfinite(losses)) and frozen_same and not unmoved and ckpt_same
+          and len(probe_steps) == IMAGE_PROBE_STEPS and prof["profiled_device_ms"] > 0)
+    return {"ok": ok, "rows": IMAGE_TRAIN_ROWS, "samples": IMAGE_TRAIN_SAMPLES,
+            "layers": L, "hidden": opt.hidden_dim, "heads": opt.num_heads,
+            "clip_layers": opt.clip_num_layers, "clip_hidden": opt.clip_hidden_dim,
+            "autocast": opt.mixed_precision, "checkpointing": opt.checkpointing,
+            "run_s": run_s, "warmup_s": epoch_steps[0]["s"],
+            "timed_steps": len(epoch_steps) - 1, "s_per_it": s_per_it,
+            "peak_mem_gib": peak, "losses": losses,
+            "grad_norms": [st["grad_norm"] for st in steps],
+            "launches_per_step": [st["launches"] for st in steps],
+            "launches_expected_per_step": want,
+            "frozen_tensors": len(frozen), "frozen_bit_unchanged": frozen_same,
+            "trainable_tensors": n_trainable,
+            "trainable_unmoved": unmoved, "checkpoint_loads_strictly_equal": ckpt_same,
+            "probe_positions": T, "probe_steps": IMAGE_PROBE_STEPS,
+            "probe_s_per_it": probe_s, "probe_tokens_per_s": IMAGE_TRAIN_ROWS * T / probe_s,
+            **prof, "card": card_line()}
+
+
 def kernels_line(results):
     """One entry per kernel: main-path numbers from this run; launches from
     the path that runs it, each counted from 0 over its run: the generate
@@ -2587,11 +2936,14 @@ def kernels_line(results):
     7), and the serving engine (rows 9, 11 and 10); launches_by_path adds
     the speculative paths (rows 9 and 10 at T = 3) and the image pipeline
     (kernel A in one DDIM run and in the f32 prefill, kernel B's f32
-    decode) and DiT training (kernels A and C, per step)."""
+    decode), DiT training (kernels A and C, per step) and the
+    image-conditioned ArAE (kernels A and B in its generate call, A and C
+    per training step)."""
     kern, gen, train, serve, spec, sp = (results[k] for k in (
         "kernels", "generate", "train", "serve", "spec", "sp"))
     dit_train = results["dit_train"]["launches_per_step"][-1]
     dit = results["dit"]["cli"]
+    image, image_train = results["image"], results["image_train"]["launches_per_step"][-1]
     gen_q8, gen_q4 = results["generate_q8"], results["generate_q4"]
     def case(cases, prefix):
         return next(c for c in cases if c["case"].startswith(prefix))
@@ -2616,7 +2968,8 @@ def kernels_line(results):
                 **{k: c[k] for k in keys}, "shape": c["shape"], **more}
 
     prefill, bwd = case(kern["flash"], "prefill"), case(kern["flash_bwd"], "decoder train")
-    dec = next(c for c in kern["decode"] if "main path" in c["case"])
+    dec = next(c for c in kern["decode"] if c["case"].startswith("index")
+               and "main path" in c["case"])
     multi = kern["decode_multi"]
     bench_bf16, bench_q8, bench_q4 = (serve[k] for k in (
         "bench_bf16", "bench_int8_wquant", "bench_int4"))
@@ -2641,26 +2994,35 @@ def kernels_line(results):
                                 "train": train["launches"]["flash_attention_fwd"],
                                 "dit_ddim": dit["ddim_launches"]["flash_attention_fwd"],
                                 "dit_decode": dit["launches"]["flash_attention_fwd"],
-                                "dit_train_per_step": dit_train["flash_attention_fwd"]},
+                                "dit_train_per_step": dit_train["flash_attention_fwd"],
+                                "image": image["launches"]["flash_attention_fwd"],
+                                "image_train_per_step": image_train["flash_attention_fwd"]},
               encoder_shape=sub(case(kern["flash"], "encoder (main")),
               train_decoder_shape=sub(case(kern["flash"], "decoder train")),
               train_encoder_shape=sub(case(kern["flash"], "encoder train")),
               **{f"dit_{kind}_{dt}_shape": sub(case(kern["flash"], f"dit {kind} {dt}"))
                  for kind in ("self", "cross") for dt in ("float32", "bfloat16")},
               **{f"dit_train_{kind}_shape": sub(case(kern["flash"], f"dit train {kind}"))
-                 for kind in ("self", "cross")}),
+                 for kind in ("self", "cross")},
+              image_prefill_shape=sub(case(kern["flash"], "image prefill")),
+              image_train_shape=sub(case(kern["flash"], "image decoder train"))),
         entry("fused_decode_attention", "decode_attention.cu",
               "edgerunner_tpu/ops/decode_attention_pallas.py:139",
               gen["launches"]["fused_decode_attention"], dec, index=dec["index"],
               launches_by_path={"generate": gen["launches"]["fused_decode_attention"],
-                                "dit_decode_f32": dit["launches"]["fused_decode_attention"]}),
+                                "dit_decode_f32": dit["launches"]["fused_decode_attention"],
+                                "image": image["launches"]["fused_decode_attention"]},
+              image_d64_shape=sub(case(kern["decode"], "image index"))),
         entry("flash_attention_bwd", "flash_bwd.cu", "edgerunner_tpu/ops/flash_attention.py:520",
               train["launches"]["flash_attention_bwd"], bwd, lengths=bwd["kv_len"],
               launches_by_path={"train": train["launches"]["flash_attention_bwd"],
-                                "dit_train_per_step": dit_train["flash_attention_bwd"]},
+                                "dit_train_per_step": dit_train["flash_attention_bwd"],
+                                "image_train_per_step": image_train["flash_attention_bwd"]},
               encoder_shape=sub(case(kern["flash_bwd"], "encoder train")),
               **{f"dit_train_{kind}_shape": sub(case(kern["flash_bwd"], f"dit train {kind}"))
-                 for kind in ("self", "cross")}),
+                 for kind in ("self", "cross")},
+              image_train_shape=sub(case(kern["flash_bwd"], "image decoder train")),
+              f32_shape=sub(case(kern["flash_bwd"], "dit self float32"))),
         entry("fused_decode_attention_multi", "decode_attention_multi.cu",
               "edgerunner_tpu/ops/decode_attention_pallas.py:585",
               bench_bf16["launches"]["fused_decode_attention_multi"],
@@ -2734,7 +3096,9 @@ def main(argv=None) -> int:
             "sp": lambda: phase_sp(dev), "dit": lambda: phase_dit(dev),
             "dit_parity": lambda: phase_dit_parity(dev),
             "dit_train": lambda: phase_dit_train(dev),
-            "dit_train_parity": lambda: phase_dit_train_parity(dev)}
+            "dit_train_parity": lambda: phase_dit_train_parity(dev),
+            "image": lambda: phase_image(dev), "image_parity": lambda: phase_image_parity(dev),
+            "image_train": lambda: phase_image_train(dev)}
     results, ok = {}, True
     for name in PHASES:
         if name not in wanted:
@@ -2746,6 +3110,9 @@ def main(argv=None) -> int:
         except Exception as exc:  # noqa: BLE001 - a failed phase is reported, the run goes on
             res = {"ok": False, "error": f"{type(exc).__name__}: {exc}",
                    "traceback": traceback.format_exc()[-3000:]}
+        # a phase's models may sit in reference cycles (its server's threads):
+        # free them before the next phase reads its peak memory
+        gc.collect()
         torch.cuda.empty_cache()
         res = {"phase": name, "seconds": time.perf_counter() - t0, **res}
         emit(res)

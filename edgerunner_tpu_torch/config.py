@@ -409,17 +409,17 @@ def parse_cli(argv: Optional[List[str]] = None, prog: str = "edgerunner-tpu") ->
 _NOT_PORTED = {
     "moe_experts": 0, "lora_rank": 0, "tp_size": 1,
     "pp_size": 1, "ep_size": 1, "scan_layers": False,
-    "async_checkpointing": False, "resume2": None, "use_wandb": False,
+    "async_checkpointing": False, "use_wandb": False,
 }
 
 
-def validate(opt: Options, *, dit: bool = False) -> Options:
+def validate(opt: Options) -> Options:
     """Cross-field validation (reference: main.py:38-39), plus a refusal of
-    every option the port does not implement yet. `dit` is for the entry
-    points of the image pipeline that take an MDiT checkpoint with
-    `--resume2`: DiT training (main_dit, which writes it, and also takes it
-    to continue), infer_dit and the server. `main` keeps `--resume2`
-    refused."""
+    every option the port does not implement yet. `--resume2` is taken by
+    every entry point: `main` and `infer` overlay it on the ArAE as the JAX
+    package's tolerant merge does (e.g. a pretrained CLIP tower), the image
+    pipeline's entry points (main_dit, infer_dit, serve) read an MDiT
+    checkpoint from it."""
     if opt.cond_mode in ("point", "point_latent"):
         # 'point_latent' takes the latents that 'point' encodes: the same
         # condition tokens, and the DiT pipeline's frozen 'embed' encoder
@@ -431,11 +431,17 @@ def validate(opt: Options, *, dit: bool = False) -> Options:
                 f"{opt.cond_mode} cond mode")
         if opt.point_encoder_mode != "embed":
             raise ValueError("the port implements point_encoder_mode 'embed' only")
+    elif opt.cond_mode == "image":
+        # CLIP's patch tokens and its class token (edgerunner_tpu/config.py:421-427)
+        patches = (opt.clip_image_size // opt.clip_patch_size) ** 2 + 1
+        expected = patches + (1 if opt.use_num_face_cond else 0)
+        if opt.num_cond_tokens != expected:
+            raise ValueError(
+                f"num_cond_tokens ({opt.num_cond_tokens}) must equal CLIP patch tokens "
+                f"+ cls + use_num_face_cond ({expected}) in image cond mode")
     elif opt.cond_mode != "none":
-        raise ValueError(f"the port does not implement cond_mode {opt.cond_mode!r} yet")
+        raise ValueError(f"the port does not implement cond_mode {opt.cond_mode!r}")
     for name, off in _NOT_PORTED.items():
-        if dit and name == "resume2":
-            continue
         if getattr(opt, name) != off:
             raise ValueError(f"the port does not implement --{name} yet")
     # 'attn' saves each layer's attention output through the remat in the

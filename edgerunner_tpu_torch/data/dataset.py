@@ -3,7 +3,9 @@
 
 Host numpy code, copied with the same random draws in the same order: one
 seed gives both packages bit-equal batches. Ported: the local mesh folder
-(with or without `manifest.json`), the synthetic procedural dataset,
+(with or without `manifest.json`; point or image conditions, the image
+from a render view beside the mesh or a point-splat render of it), the
+synthetic procedural dataset,
 `collate` with its bucketed lengths, and a thread-pool loader whose order
 and position (`state()` / `restore_state()`) follow the JAX package's. Remote
 roots and `MixedDataset` are not ported yet (config.validate refuses them).
@@ -22,6 +24,11 @@ import torch
 
 from edgerunner_tpu_torch.config import Options
 from edgerunner_tpu_torch.data._procgen import icosphere
+from edgerunner_tpu_torch.data.image_io import (
+    find_render_views,
+    load_image_cond,
+    render_points_image,
+)
 from edgerunner_tpu_torch.data.mesh_io import clean_mesh, load_mesh, normalize_mesh
 from edgerunner_tpu_torch.data.tokenize import tokenize_mesh
 from edgerunner_tpu_torch.ops.pointops import sample_surface_points
@@ -89,7 +96,10 @@ class MeshFolderDataset:
     """Meshes (.obj/.ply) from a local directory tree, or those a
     `manifest.json` at its root lists with their face counts, with the
     reference's augmentations and its retry-with-resample loop
-    (reference: provider.py:150-315). Point conditioning only."""
+    (reference: provider.py:150-315). In image mode the mesh turns to the
+    azimuth of the render view it is paired with (`find_render_views`;
+    view 0 in the test split), or, without one, to a random azimuth and is
+    rendered as a point splat; there is no scale augmentation."""
 
     def __init__(self, opt: Options, training: bool = True, tokenizer=None,
                  root: Optional[str] = None):
@@ -127,11 +137,20 @@ class MeshFolderDataset:
         path = self.items[idx]
         for _ in range(64):  # resample on bad meshes (provider.py:300-304)
             try:
-                if opt.use_scale_aug and self.training:
+                if opt.use_scale_aug and self.training and opt.cond_mode != "image":
                     bound = rng.uniform(0.75, 0.95)
                 else:
                     bound = 0.95
-                azimuth = float(rng.choice(np.arange(0, 360, 30))) if self.training else 0.0
+                # image mode: the mesh faces the camera of its render view
+                # (reference: provider.py:209-220, 265-272)
+                views = find_render_views(path) if opt.cond_mode == "image" else []
+                img_view = None
+                if views:
+                    pick = int(rng.integers(0, len(views))) if self.training else 0
+                    azimuth, img_view = views[pick]
+                else:
+                    azimuth = (float(rng.choice(np.arange(0, 360, 30))) if self.training
+                               else 0.0)
 
                 v, f = load_mesh(path)
                 if f.shape[0] > opt.max_face_length:
@@ -150,6 +169,13 @@ class MeshFolderDataset:
                     if self.training and rng.random() < 0.5:
                         pts = pts + rng.normal(0, 0.01, pts.shape).astype(np.float32)
                     cond = pts.astype(np.float32)
+                elif opt.cond_mode == "image":
+                    if img_view is not None:
+                        cond = load_image_cond(img_view, size=opt.clip_image_size)
+                    else:
+                        pts = sample_surface_points(v, f, opt.point_num, rng)
+                        cond = render_points_image(pts, size=opt.clip_image_size)
+                    cond = cond.astype(np.float32)
 
                 coords = tokenize_mesh(v, f, opt.discrete_bins, self.tokenizer)
                 if (coords - 3 < 0).any():
@@ -208,6 +234,9 @@ class SyntheticMeshDataset:
                 cond = np.zeros((0,), np.float32)
                 if opt.cond_mode == "point":
                     cond = sample_surface_points(v, f, opt.point_num, rng)
+                elif opt.cond_mode == "image":
+                    pts = sample_surface_points(v, f, opt.point_num, rng)
+                    cond = render_points_image(pts, size=opt.clip_image_size)
                 coords = tokenize_mesh(v, f, opt.discrete_bins, self.tokenizer)
                 if (coords - 3 < 0).any() or coords.shape[0] > opt.max_seq_length:
                     raise ValueError("bad tokens")

@@ -2,12 +2,18 @@
 
     python -m edgerunner_tpu_torch.infer ArAE --test_path mesh.obj \\
         --resume weights.safetensors --workspace out/ [--device cuda|cpu]
+    python -m edgerunner_tpu_torch.infer default --test_path image.png ...
 
-Loads the mesh, cleans and normalises it, samples `point_num` surface
-points, generates `test_repeat` meshes per face count and writes
+The condition of each input (`prepare_cond`): in point mode (ArAE) the
+mesh, cleaned and normalised, gives `point_num` surface points (written as
+{name}_pc.obj); in image mode (the default preset) the image, its
+background removed and recentred, at 512 x 512; in 'none' mode nothing.
+Then `test_repeat` meshes per face count (`generate_meshes`), written as
 {name}_{i}[_{nf}f].ply plus the tokens. Weights come from a reference-format
 .safetensors file (tools/export_reference_ckpt.py), or are drawn from
-`--seed` without `--resume`. `--kv_quant true` decodes over the int8 KV
+`--seed` without `--resume`; `--resume2` merges a second, possibly partial
+file over them (e.g. a pretrained CLIP tower, also in HuggingFace's
+naming). `--kv_quant true` decodes over the int8 KV
 cache, with `--kv_bits 4` over the int4 cache (`--kv_group N` lanes per
 scale, `--kv_rotate true` rotated rows); `--w_quant true` quantises the
 decoder's projections after the weights load; `--mtp_heads N --spec_decode
@@ -45,21 +51,52 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def load_model(opt, device: torch.device, dtype=torch.bfloat16) -> LMM:
-    """The LMM of `opt` with its weights (weights.load_for_inference): with
+def load_model(opt, device: torch.device, dtype=torch.bfloat16,
+               overlay: Optional[str] = None) -> LMM:
+    """The LMM of `opt` with its weights (weights.load_for_inference), and
+    the file `overlay` merged over them (infer's `--resume2`): with
     `--kv_quant` it decodes over the int8 or int4 cache, with `--w_quant` its
     decoder projections are quantised after the exact weights are loaded."""
-    return load_for_inference(LMM(opt, dtype=dtype, device=device), opt)
+    return load_for_inference(LMM(opt, dtype=dtype, device=device), opt, overlay)
+
+
+def prepare_cond(opt, path: str, rng: np.random.Generator) -> np.ndarray:
+    """The condition that an input file gives (infer.py:37-49): surface
+    points [1, N, 3] of the cleaned mesh, the image [1, 512, 512, 3] in
+    [0, 1], or [1, 0] without a condition."""
+    if opt.cond_mode == "point":
+        v, f = clean_mesh(*load_mesh(path))
+        v = normalize_mesh(v, bound=0.95)
+        return sample_surface_points(v, f, opt.point_num, rng)[None].astype(np.float32)
+    if opt.cond_mode == "image":
+        from edgerunner_tpu_torch.data.image_io import load_image_cond
+
+        return load_image_cond(path)[None]
+    if opt.cond_mode == "none":
+        return np.zeros((1, 0), np.float32)
+    raise ValueError(f"cond_mode {opt.cond_mode} not supported by infer "
+                     "(point_latent: python -m edgerunner_tpu_torch.infer_dit)")
 
 
 def process(opt, model: LMM, tokenizer, path: str, generator: torch.Generator):
     name = os.path.splitext(os.path.basename(path))[0]
     os.makedirs(opt.workspace, exist_ok=True)
-    v, f = clean_mesh(*load_mesh(path))
-    v = normalize_mesh(v, bound=0.95)
-    points = sample_surface_points(v, f, opt.point_num, np.random.default_rng(opt.seed))
-    save_mesh_file(os.path.join(opt.workspace, f"{name}_pc.obj"), points,
-                   np.zeros((0, 3), np.int64))
+    cond = prepare_cond(opt, path, np.random.default_rng(opt.seed))
+    if opt.cond_mode == "point":
+        save_mesh_file(os.path.join(opt.workspace, f"{name}_pc.obj"), cond[0],
+                       np.zeros((0, 3), np.int64))
+    generate_meshes(opt, model, tokenizer, name, cond, generator, source=path)
+
+
+def generate_meshes(opt, model: LMM, tokenizer, name: str, cond: np.ndarray,
+                    generator: torch.Generator, source: Optional[str] = None) -> List[str]:
+    """What follows the read of an input: `test_repeat` meshes of the
+    condition `cond` [1, ...] per face count, `test_batch_size` rows at a
+    time, each written as {name}_{i}[_{nf}f].ply with its tokens. Returns
+    the .ply paths."""
+    source = source or name
+    os.makedirs(opt.workspace, exist_ok=True)
+    written = []
     resume_ids = None
     if opt.test_resume_tokens:
         resume_ids = np.load(opt.test_resume_tokens)[None] + 3
@@ -70,7 +107,7 @@ def process(opt, model: LMM, tokenizer, path: str, generator: torch.Generator):
         for num_faces in opt.test_num_face:
             t0 = time.time()
             all_tokens = generate_tokens(
-                model, np.repeat(points[None], nrep, axis=0), num_faces=num_faces,
+                model, np.repeat(cond, nrep, axis=0), num_faces=num_faces,
                 max_new_tokens=opt.test_max_seq_length,
                 resume_ids=None if resume_ids is None else np.repeat(resume_ids, nrep, 0),
                 generator=generator, use_grammar=opt.use_meto)
@@ -84,8 +121,10 @@ def process(opt, model: LMM, tokenizer, path: str, generator: torch.Generator):
                                      tokenizer=tokenizer, clean=True, verbose=True)
                 np.save(os.path.join(opt.workspace, filename + "_tokens.npy"),
                         trim_eos(all_tokens[j]) - 3)
-                print(f"[INFO] Processing {path} --> {filename}.ply "
+                written.append(os.path.join(opt.workspace, filename + ".ply"))
+                print(f"[INFO] Processing {source} --> {filename}.ply "
                       f"({faces.shape[0]} faces), time = {(t1 - t0) / nrep:.4f}s/mesh")
+    return written
 
 
 def main(argv: Optional[List[str]] = None):
@@ -94,13 +133,13 @@ def main(argv: Optional[List[str]] = None):
     args, rest = pre.parse_known_args(argv)
     device = resolve_device(args.device)
     opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.infer"))
-    if opt.cond_mode != "point":
-        raise ValueError("the port's infer entry conditions on a point cloud "
-                         "(cond_mode 'point')")
+    if opt.cond_mode == "point_latent":
+        raise ValueError("cond_mode 'point_latent' takes the DiT's latents: run "
+                         "python -m edgerunner_tpu_torch.infer_dit")
     if opt.test_path is None:
         raise ValueError("--test_path is required")
     tokenizer, _ = get_tokenizer(opt)
-    model = load_model(opt, device)
+    model = load_model(opt, device, overlay=opt.resume2)
     generator = torch.Generator(device=device).manual_seed(opt.seed)
     paths = (sorted(glob.glob(os.path.join(opt.test_path, "*")))
              if os.path.isdir(opt.test_path) else [opt.test_path])

@@ -98,9 +98,9 @@ def main(argv: Optional[List[str]] = None):
     pre.add_argument("--device", default="cuda")
     args, rest = pre.parse_known_args(argv)
     device = resolve_device(args.device)
-    opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.infer_dit"), dit=True)
+    opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.infer_dit"))
     # the LMM takes the DiT's latents (reference: infer_dit.py:55)
-    opt = validate(dataclasses.replace(opt, cond_mode="point_latent"), dit=True)
+    opt = validate(dataclasses.replace(opt, cond_mode="point_latent"))
     if opt.test_path is None:
         raise ValueError("--test_path is required")
     tokenizer, _ = get_tokenizer(opt)

@@ -2,13 +2,20 @@
 
     python -m edgerunner_tpu_torch.main ArAE --data_root ./data \\
         --workspace ./workspace [--device cuda|cpu] [--flags]
+    python -m edgerunner_tpu_torch.main default ...   (image-conditioned)
 
 Data: a local directory of .obj/.ply meshes (optionally listed with their
 face counts in a manifest.json); the synthetic procedural dataset when
-data_root does not exist. Weights start from `--seed`, or from a
-`.safetensors` file the port wrote (`--resume`, loaded strictly); with
-`--resume_train_state` the step, the optimizer state and the loader's
-position come back too, and training continues exactly. Each epoch saves a
+data_root does not exist. In image mode (the default preset) each mesh is
+paired with a render view beside it, or with a point-splat render of its
+surface (data/dataset.py), and the CLIP tower stays frozen under
+`freeze_encoder`: it takes no optimizer state and is saved with the rest.
+Weights start from `--seed`, or from a `.safetensors` file the port wrote
+(`--resume`, loaded strictly); `--resume2` then merges a second, possibly
+partial file over them (`overlay_checkpoint`: a pretrained CLIP tower, in
+the port's or HuggingFace's naming); with `--resume_train_state` the step,
+the optimizer state and the loader's position come back too, and training
+continues exactly. Each epoch saves a
 checkpoint (train/checkpoint.py); with `--eval_mode loss` the held-out loss
 is logged and one batch's ground-truth and argmax meshes are written. With
 `--ema_decay` the weights' moving average is kept, saved beside each
@@ -52,7 +59,7 @@ from edgerunner_tpu_torch.train.checkpoint import (
 )
 from edgerunner_tpu_torch.train.trainer import Trainer
 from edgerunner_tpu_torch.utils import get_tokenizer, init_logger
-from edgerunner_tpu_torch.weights import load_state, read_safetensors
+from edgerunner_tpu_torch.weights import load_state, overlay_checkpoint, read_safetensors
 
 
 def save_eval_meshes(trainer: Trainer, test_loader, opt, tokenizer, epoch: int):
@@ -147,8 +154,12 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None) -> T
         if opt.resume_train_state:
             start_epoch, resume_step, opt_state_path = restore_train_state(
                 opt.resume, train_loader, manager, logger)
+    if opt.resume2 is not None:
+        overlay_checkpoint(model, opt.resume2, opt.align_posemb, log=logger.warning)
+        logger.info(f"merged secondary checkpoint from {opt.resume2}")
     num_params = sum(p.numel() for p in model.parameters())
-    logger.info(f"total param count: {num_params / 1e6:.3f} M")
+    logger.info(f"total param count: {num_params / 1e6:.3f} M, trainable "
+                f"{sum(p.numel() for p in trainer.params.values()) / 1e6:.3f} M")
     ema_path = sibling_ema_path(opt.resume) if opt.ema_decay > 0 and opt.resume else None
     trainer.init_state(step=resume_step, opt_state_path=opt_state_path, ema_path=ema_path)
 

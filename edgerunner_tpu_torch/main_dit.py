@@ -41,7 +41,6 @@ from edgerunner_tpu_torch.train.checkpoint import (
     CheckpointManager,
     restore_train_state,
     sibling_ema_path,
-    tolerant_merge,
 )
 from edgerunner_tpu_torch.train.trainer import Trainer
 from edgerunner_tpu_torch.utils import init_logger
@@ -50,6 +49,7 @@ from edgerunner_tpu_torch.weights import (
     load_state,
     read_safetensors,
     reference_state_dict,
+    tolerant_merge,
 )
 
 
@@ -58,7 +58,7 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     pre.add_argument("--device", default="cuda")
     args, rest = pre.parse_known_args(argv)
     device = resolve_device(args.device)
-    opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.main_dit"), dit=True)
+    opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.main_dit"))
     if opt.sp_size != 1:
         raise ValueError("main_dit trains on one device; --sp_size is main's")
     return train(opt, device)

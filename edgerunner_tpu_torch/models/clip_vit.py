@@ -151,6 +151,26 @@ class CLIPVisionTower(nn.Module):
         return self.vision_model(pixels)
 
 
+@torch.no_grad()
+def init_clip_tower(tower: CLIPVisionTower, gen: torch.Generator) -> CLIPVisionTower:
+    """Random tower weights from `gen` at flax's default scales, as the JAX
+    package initialises the tower: the projections and the patch conv
+    N(0, 1/fan_in) (lecun_normal), the class and position embeddings
+    N(0, 0.02), zero biases, unit LayerNorms."""
+    for mod in tower.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            mod.weight.normal_(0.0, mod.weight[0].numel() ** -0.5, generator=gen)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.normal_(0.0, 0.02, generator=gen)
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+    tower.vision_model.embeddings.class_embedding.normal_(0.0, 0.02, generator=gen)
+    return tower
+
+
 def preprocess_images(images: torch.Tensor, size: int = 224) -> torch.Tensor:
     """[B, H, W, 3] in [0,1] -> resized and CLIP-normalised [B, size, size, 3].
 

@@ -1,16 +1,18 @@
 """LMM, the ArAE top-level model of the port (edgerunner_tpu/models/lmm.py:36-196).
 
-Point-cloud conditioner (point encoder -> proj_cond -> norm_cond), the
+The conditioner (point encoder or CLIP tower -> proj_cond -> norm_cond), the
 num-face bucket token, and the ShapeOPT decoder: the teacher-forcing
 `forward` with its loss, which training drives, the `prefill` / `step`
 pair that generate.py drives, `verify_step`, through which the serving
 engine decodes and speculative decoding verifies its proposals, and
-`mtp_logits`, the draft heads' logits. Conditioning modes 'point', 'none'
-and 'point_latent' (the DiT pipeline's latents [B, 2048, 64] through
-proj_cond and norm_cond, no point encoder) are ported; 'image' waits until
-DiT training is ported. `checkpointing`
-turns on gradient checkpointing of the point encoder's block and of each
-decoder layer, as in the JAX package (lmm.py:50-58, :80-82).
+`mtp_logits`, the draft heads' logits. Every conditioning mode of the JAX
+package is ported: 'point', 'none', 'point_latent' (the DiT pipeline's
+latents [B, 2048, 64] through proj_cond and norm_cond, no point encoder)
+and 'image' (the default preset: images [B, H, W, 3] in [0, 1] through the
+CLIP tower's last hidden state [B, 257, 1280], frozen under
+`freeze_encoder`; lmm.py:44-47, :111-116). `checkpointing` turns on
+gradient checkpointing of the point encoder's block and of each decoder
+layer, as in the JAX package (lmm.py:50-58, :80-82).
 """
 
 from __future__ import annotations
@@ -22,6 +24,12 @@ import torch
 from torch import nn
 
 from edgerunner_tpu_torch.config import Options, vocab_size_for
+from edgerunner_tpu_torch.models.clip_vit import (
+    CLIPVisionTower,
+    clip_config_from_options,
+    init_clip_tower,
+    preprocess_images,
+)
 from edgerunner_tpu_torch.models.layers import LN_EPS
 from edgerunner_tpu_torch.models.point_encoder import PointEncoderEmbed, latent_kl
 from edgerunner_tpu_torch.models.shape_opt import Caches, ShapeOPT, ShapeOPTConfig
@@ -36,11 +44,17 @@ class LMM(nn.Module):
     def __init__(self, opt: Options, *, dtype=torch.float32, device=None,
                  use_kernels: bool = True):
         super().__init__()
-        if opt.cond_mode not in ("point", "point_latent", "none"):
+        if opt.cond_mode not in ("point", "point_latent", "image", "none"):
             raise ValueError(f"the port does not implement cond_mode {opt.cond_mode!r}")
         kw = dict(device=device, dtype=dtype)
         self.opt = opt
         self.vocab_size = vocab_size_for(opt)
+        if opt.cond_mode == "image":
+            # its attention stays plain, as in the JAX package: head dim 80
+            # is no instance of the flash kernels
+            self.image_encoder = CLIPVisionTower(clip_config_from_options(opt), **kw)
+            self.proj_cond = nn.Linear(opt.clip_hidden_dim, opt.hidden_dim, **kw)
+            self.norm_cond = nn.LayerNorm(opt.hidden_dim, eps=LN_EPS, **kw)
         if opt.cond_mode == "point":
             self.point_encoder = PointEncoderEmbed(
                 opt.point_hidden_dim, opt.point_num_heads, opt.point_latent_size,
@@ -70,12 +84,20 @@ class LMM(nn.Module):
         self.mesh_decoder = ShapeOPT(self.cfg, use_kernels=use_kernels, **kw)
 
     def encode_cond(self, conds, num_faces):
-        """conds: points [B, N, 3] (point mode) or latents [B, L, D]
-        (point_latent mode); num_faces: [B] int.
+        """conds: points [B, N, 3] (point mode), latents [B, L, D]
+        (point_latent mode) or images [B, H, W, 3] in [0, 1] (image mode,
+        resized inside); num_faces: [B] int.
         Returns (cond_embeds [B, C, hidden] or None, kl scalar)."""
         kl = torch.zeros((), device=num_faces.device)
         cond_embeds = None
-        if self.opt.cond_mode == "point":
+        if self.opt.cond_mode == "image":
+            pixels = preprocess_images(conds, size=self.opt.clip_image_size)
+            # a frozen tower takes no gradient (the JAX package's stop_gradient)
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and not self.opt.freeze_encoder):
+                feats = self.image_encoder(pixels)
+            cond_embeds = self.norm_cond(self.proj_cond(feats))
+        elif self.opt.cond_mode == "point":
             latent = self.point_encoder(conds)
             kl = latent_kl(latent)
             cond_embeds = self.norm_cond(self.proj_cond(latent))
@@ -161,12 +183,15 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     """Random weights from `seed`, with the JAX package's init distributions:
     N(0, 0.02) for projections and embeddings (pad row zero), decoder
     out-projections scaled by 1/sqrt(2L), queries N(0, hidden^-0.5), zero
-    biases, unit LayerNorms. Draws on the weights' own device."""
+    biases, unit LayerNorms; a CLIP tower at flax's defaults
+    (`init_clip_tower`). Draws on the weights' own device."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     std = 0.02
     n_layers = getattr(getattr(model, "cfg", None), "num_hidden_layers", 1)
     for name, mod in model.named_modules():
+        if name.startswith("image_encoder"):
+            continue
         if isinstance(mod, nn.Linear):
             s = std / math.sqrt(2 * n_layers) if name.endswith("self_attn.out_proj") else std
             mod.weight.normal_(0.0, s, generator=gen)
@@ -180,6 +205,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     for name, p in model.named_parameters():
         if name.endswith("query_embed"):
             p.normal_(0.0, p.shape[-1] ** -0.5, generator=gen)
+    if hasattr(model, "image_encoder"):
+        init_clip_tower(model.image_encoder, gen)
     decoder = getattr(model, "mesh_decoder", None)
     if decoder is not None:
         decoder.model.embd.weight[decoder.cfg.pad_token_id] = 0.0

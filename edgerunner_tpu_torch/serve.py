@@ -29,7 +29,9 @@ image goes through `load_image_cond` and an array of another size than
 CLIP's through a PIL resize: PIL is needed for those only. The model runs on
 the card unless `--device cpu` is given; without a card and without
 `--device cpu` it raises. The multi-device fleet (`--dp_size`) is not ported
-yet.
+yet. An image-conditioned ArAE (cond_mode 'image', the default preset) is
+refused, because the JAX server has no request body for it
+(`IMAGE_MODE_REFUSED`).
 """
 
 from __future__ import annotations
@@ -383,6 +385,16 @@ def make_handler(batcher, opt):
     return Handler
 
 
+# the JAX server reads "points" in every mode but point_latent and sizes its
+# condition as (point_num, 3) (serve.py:54-58, :281-305): it has no request
+# body for an image-conditioned ArAE, so the port serves none either
+IMAGE_MODE_REFUSED = (
+    "the server does not serve cond_mode 'image': the JAX server has no image "
+    "request body in this mode (its /generate reads point clouds); generate "
+    "from images with python -m edgerunner_tpu_torch.infer default --test_path "
+    "IMAGE, or serve images through the DiT pipeline (serve ArAE --resume2 DIT_CKPT)")
+
+
 def build_server(opt, port: int = 0, max_wait_ms: float = 30.0, continuous: bool = True,
                  segment_steps: int = 128, max_queue: Optional[int] = None,
                  device: str = "cuda", dtype=torch.bfloat16, model=None,
@@ -399,6 +411,8 @@ def build_server(opt, port: int = 0, max_wait_ms: float = 30.0, continuous: bool
 
     if pipeline is None:
         pipeline = opt.resume2 is not None
+    if opt.cond_mode == "image" and not pipeline:
+        raise ValueError(IMAGE_MODE_REFUSED)
     if pipeline:
         # the ArAE takes the DiT's latents (reference: infer_dit.py:55)
         opt = dataclasses.replace(opt, cond_mode="point_latent")
@@ -444,8 +458,8 @@ def main(argv: Optional[List[str]] = None):
                     help="shed load (HTTP 503) when this many requests are "
                          "already queued (0 = unbounded)")
     args, rest = ap.parse_known_args(argv)
-    opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.serve"), dit=True)
-    if opt.cond_mode != "point":
+    opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.serve"))
+    if opt.cond_mode not in ("point", "image"):  # image mode: build_server decides
         raise ValueError("the port's server conditions on a point cloud (cond_mode "
                          "'point'), or with --resume2 on the DiT's latents")
     server, batcher = build_server(opt, port=args.port, max_wait_ms=args.max_wait_ms,

@@ -14,9 +14,9 @@ sequence parallelism (`sp`) every rank holds the same weights, optimizer
 state and EMA: rank 0 writes, and every rank waits at a barrier until it
 has.
 
-`tolerant_merge` is the non-strict load of `main_dit`'s `--resume` and
-`--resume2` (edgerunner_tpu/train/checkpoint.py:84-130): it copies the
-entries whose name and shape match and realigns position embeddings.
+The non-strict loads (`--resume2`, `main_dit`'s `--resume`) are a question
+of the weights' format and live in weights.py (`tolerant_merge`,
+`overlay_checkpoint`).
 """
 
 from __future__ import annotations
@@ -26,61 +26,20 @@ import os
 import shutil
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
-from edgerunner_tpu_torch.weights import reference_state_dict, write_safetensors
+from edgerunner_tpu_torch.weights import (
+    load_state,
+    read_safetensors,
+    reference_state_dict,
+    write_safetensors,
+)
 
 MODEL_FILE = "model.safetensors"
 EMA_FILE = "ema.safetensors"
 OPT_FILE = "opt_state.pt"
 STATE_FILE = "train_state.json"
-
-
-def _realign_posemb(ckpt_w: np.ndarray, model_w: np.ndarray, align: str) -> np.ndarray:
-    """A loaded position-embedding table laid onto a table of another length,
-    at its left or right end (reference: main.py:77-89)."""
-    out = np.array(model_w)
-    n_ckpt, n_model = ckpt_w.shape[0], model_w.shape[0]
-    if n_model > n_ckpt:
-        if align == "right":
-            out[-n_ckpt:] = ckpt_w
-        else:
-            out[:n_ckpt] = ckpt_w
-    else:
-        out = ckpt_w[:n_model] if align == "left" else ckpt_w[-n_model:]
-    return out
-
-
-def tolerant_merge(model_state: dict, ckpt_state: dict, align_posemb: str = "right",
-                   log=print) -> dict:
-    """{name: array} of the model's entries, each taken from the checkpoint
-    where the name and the shape match (in the model's dtype), an
-    `embed_positions` table of another length realigned, every other entry
-    kept; missing, mismatched and unexpected entries are logged."""
-    merged = {}
-    for key, mv in model_state.items():
-        mv = np.asarray(mv)
-        if key not in ckpt_state:
-            log(f"[ckpt] missing param {key}: keeping init")
-            merged[key] = mv
-            continue
-        cv = np.asarray(ckpt_state[key])
-        if cv.shape == mv.shape:
-            merged[key] = cv.astype(mv.dtype)
-        elif "embed_positions" in key and cv.ndim == 2 and cv.shape[1] == mv.shape[1]:
-            log(f"[ckpt] realigning position embeddings {cv.shape} -> {mv.shape} "
-                f"({align_posemb})")
-            merged[key] = _realign_posemb(cv, mv, align_posemb).astype(mv.dtype)
-        else:
-            log(f"[ckpt] shape mismatch for {key}: ckpt {cv.shape} != model {mv.shape}, "
-                f"ignored")
-            merged[key] = mv
-    for key in ckpt_state:
-        if key not in model_state:
-            log(f"[ckpt] unexpected param {key}")
-    return merged
 
 
 def ema_state_dict(model, ema: dict) -> dict:

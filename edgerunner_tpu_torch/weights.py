@@ -23,10 +23,23 @@ The MDiT (image pipeline) crosses over the same way: `mdit_state_dict_from_flax`
 takes export_mdit's names for `dit`, `proj_cond`, `norm_cond` and
 `point_encoder` (tools/export_reference_ckpt.py:94-113, :131-140) and gives
 the CLIP tower `image_encoder.` + HuggingFace CLIPVisionModel's names, the
-inverse of the JAX package's `convert_hf_clip_params`. A point_latent LMM
+inverse of the JAX package's `convert_hf_clip_params`; an image-conditioned
+LMM's tower (cond_mode 'image') crosses over under the same names, both
+ways. tools/export_reference_ckpt.py:export_lmm leaves the tower out, so a
+JAX image checkpoint crosses over through `state_dict_from_flax` (which
+keeps it), or gets its tower through `--resume2` (`overlay_checkpoint`).
+A point_latent LMM
 takes an ArAE checkpoint trained in 'point' mode without its `point_encoder.*`
 entries, which the JAX package's tolerant merge ignores; any other missing or
 extra entry fails the strict load.
+
+`tolerant_merge` is the non-strict load of `main_dit`'s `--resume` and
+`--resume2` (edgerunner_tpu/train/checkpoint.py:84-130): it copies the
+entries whose name and shape match and realigns position embeddings.
+`overlay_checkpoint` is the ArAE's `--resume2` in `main` and `infer`
+(edgerunner_tpu/train/checkpoint.py:334-342, main.py:142-149): a partial
+file, such as a pretrained CLIP tower in HuggingFace naming, merged over
+the weights that `--resume` or the seed gave.
 """
 
 from __future__ import annotations
@@ -34,10 +47,12 @@ from __future__ import annotations
 import json
 import os
 import struct
+from typing import Optional
 
 import numpy as np
 import torch
 
+from edgerunner_tpu_torch.models.clip_vit import clip_state_from_hf, init_clip_tower
 from edgerunner_tpu_torch.models.point_encoder import point_freq_basis
 
 
@@ -98,6 +113,8 @@ def state_dict_from_flax(tree) -> dict:
     the top-level 'params') -> {reference name: numpy array}."""
     params = tree.get("params", tree)
     sd: dict = {}
+    if "image_encoder" in params:
+        sd.update(clip_state_dict_from_flax(params["image_encoder"], "image_encoder."))
     if "point_encoder" in params:
         _point_encoder(sd, "point_encoder", params["point_encoder"])
     if "proj_cond" in params:
@@ -146,11 +163,14 @@ def load_state(model: torch.nn.Module, state: dict) -> torch.nn.Module:
     return model
 
 
-def load_for_inference(model: torch.nn.Module, opt) -> torch.nn.Module:
+def load_for_inference(model: torch.nn.Module, opt, overlay: Optional[str] = None
+                       ) -> torch.nn.Module:
     """The exact weights into an LMM, from the `.safetensors` file
-    `opt.resume` or drawn from `opt.seed`; then, with `opt.w_quant`, its
-    decoder projections quantised to int8 in place. Returns it in eval mode.
-    A point_latent LMM drops the file's `point_encoder.*` entries."""
+    `opt.resume` (strict) or drawn from `opt.seed`; with `overlay` (infer's
+    `--resume2`), that file merged over them (`overlay_checkpoint`); then,
+    with `opt.w_quant`, its decoder projections quantised to int8 in place.
+    Returns it in eval mode. A point_latent LMM drops the file's
+    `point_encoder.*` entries."""
     from edgerunner_tpu_torch.models.lmm import init_weights
     from edgerunner_tpu_torch.ops.w_quant import quantize_lmm_params
 
@@ -161,6 +181,9 @@ def load_for_inference(model: torch.nn.Module, opt) -> torch.nn.Module:
         load_state(model, state)
     else:
         init_weights(model, opt.seed)
+    if overlay:
+        overlay_checkpoint(model, overlay, opt.align_posemb)
+        print(f"[INFO] Merged secondary checkpoint from {overlay}")
     if opt.w_quant:
         quantize_lmm_params(model)
     return model.eval()
@@ -171,6 +194,66 @@ def reference_state_dict(model: torch.nn.Module) -> dict:
     parameter names are the reference naming, so this is the state_dict that
     `state_dict_from_flax` would give for the same weights."""
     return {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+
+
+def _realign_posemb(ckpt_w: np.ndarray, model_w: np.ndarray, align: str) -> np.ndarray:
+    """A loaded position-embedding table laid onto a table of another length,
+    at its left or right end (reference: main.py:77-89)."""
+    out = np.array(model_w)
+    n_ckpt, n_model = ckpt_w.shape[0], model_w.shape[0]
+    if n_model > n_ckpt:
+        if align == "right":
+            out[-n_ckpt:] = ckpt_w
+        else:
+            out[:n_ckpt] = ckpt_w
+    else:
+        out = ckpt_w[:n_model] if align == "left" else ckpt_w[-n_model:]
+    return out
+
+
+def tolerant_merge(model_state: dict, ckpt_state: dict, align_posemb: str = "right",
+                   log=print) -> dict:
+    """{name: array} of the model's entries, each taken from the checkpoint
+    where the name and the shape match (in the model's dtype), an
+    `embed_positions` table of another length realigned, every other entry
+    kept; missing, mismatched and unexpected entries are logged."""
+    merged = {}
+    for key, mv in model_state.items():
+        mv = np.asarray(mv)
+        if key not in ckpt_state:
+            log(f"[ckpt] missing param {key}: keeping init")
+            merged[key] = mv
+            continue
+        cv = np.asarray(ckpt_state[key])
+        if cv.shape == mv.shape:
+            merged[key] = cv.astype(mv.dtype)
+        elif "embed_positions" in key and cv.ndim == 2 and cv.shape[1] == mv.shape[1]:
+            log(f"[ckpt] realigning position embeddings {cv.shape} -> {mv.shape} "
+                f"({align_posemb})")
+            merged[key] = _realign_posemb(cv, mv, align_posemb).astype(mv.dtype)
+        else:
+            log(f"[ckpt] shape mismatch for {key}: ckpt {cv.shape} != model {mv.shape}, "
+                f"ignored")
+            merged[key] = mv
+    for key in ckpt_state:
+        if key not in model_state:
+            log(f"[ckpt] unexpected param {key}")
+    return merged
+
+
+def overlay_checkpoint(model, path: str, align_posemb: str = "right", log=print):
+    """Merge the `.safetensors` file `path` over the model's weights with
+    `tolerant_merge`, which logs every missing, mismatched and unexpected
+    entry. Entries in HuggingFace CLIPVisionModel's naming (`vision_model.*`,
+    e.g. the reference's laion/CLIP-ViT-H-14) are the tower's: they land
+    under `image_encoder.`, without the entries the tower never reads."""
+    ckpt = read_safetensors(path)
+    hf = {k: v for k, v in ckpt.items() if k.startswith("vision_model.")}
+    if hf:
+        ckpt = {k: v for k, v in ckpt.items() if k not in hf}
+        ckpt.update(clip_state_from_hf(hf, "image_encoder."))
+    load_state(model, tolerant_merge(reference_state_dict(model), ckpt,
+                                     align_posemb=align_posemb, log=log))
 
 
 def _unlinear(tree, sd, prefix):
@@ -205,6 +288,8 @@ def flax_from_state_dict(sd: dict) -> dict:
     JAX package's LMM parameter tree {'params': ...} (the point basis, a
     fixed table rather than a weight, has no place in it)."""
     params: dict = {}
+    if "image_encoder.vision_model.pre_layrnorm.weight" in sd:
+        params["image_encoder"] = flax_from_clip_state_dict(sd, "image_encoder.")
     if "point_encoder.linear.weight" in sd:
         params["point_encoder"] = _unpoint_encoder(sd, "point_encoder")
     if "proj_cond.weight" in sd:
@@ -312,6 +397,27 @@ def clip_state_dict_from_flax(tree, prefix: str = "") -> dict:
     return sd
 
 
+def flax_from_clip_state_dict(sd: dict, prefix: str = "") -> dict:
+    """The inverse of `clip_state_dict_from_flax`: the tower's entries under
+    `prefix` -> the JAX package's CLIP tower tree."""
+    p = prefix + "vision_model."
+    clip = {"patch_embedding": {"kernel": sd[p + "embeddings.patch_embedding.weight"]
+                                .transpose(2, 3, 1, 0)},
+            "class_embedding": sd[p + "embeddings.class_embedding"],
+            "position_embedding": sd[p + "embeddings.position_embedding.weight"],
+            "pre_layrnorm": _unlayernorm(sd, p + "pre_layrnorm")}
+    i = 0
+    while f"{p}encoder.layers.{i}.layer_norm1.weight" in sd:
+        lp = f"{p}encoder.layers.{i}."
+        layer = {"layer_norm1": _unlayernorm(sd, lp + "layer_norm1"),
+                 "layer_norm2": _unlayernorm(sd, lp + "layer_norm2"), "self_attn": {}}
+        for name, group, key in _CLIP_DENSE:
+            (layer[group] if group else layer)[key] = _unlinear({}, sd, lp + name)
+        clip[f"layers_{i}"] = layer
+        i += 1
+    return clip
+
+
 def mdit_state_dict_from_flax(tree) -> dict:
     """The JAX package's MDiT parameter tree (numpy leaves, with or without
     the top-level 'params') -> {port name: numpy array}."""
@@ -346,22 +452,7 @@ def flax_from_mdit_state_dict(sd: dict) -> dict:
             "ff": {"fc_in": _unlinear({}, sd, lp + ".ff.net.0"),
                    "fc_out": _unlinear({}, sd, lp + ".ff.net.2")}}
         i += 1
-    p = "image_encoder.vision_model."
-    clip = {"patch_embedding": {"kernel": sd[p + "embeddings.patch_embedding.weight"]
-                                .transpose(2, 3, 1, 0)},
-            "class_embedding": sd[p + "embeddings.class_embedding"],
-            "position_embedding": sd[p + "embeddings.position_embedding.weight"],
-            "pre_layrnorm": _unlayernorm(sd, p + "pre_layrnorm")}
-    i = 0
-    while f"{p}encoder.layers.{i}.layer_norm1.weight" in sd:
-        lp = f"{p}encoder.layers.{i}."
-        layer = {"layer_norm1": _unlayernorm(sd, lp + "layer_norm1"),
-                 "layer_norm2": _unlayernorm(sd, lp + "layer_norm2"), "self_attn": {}}
-        for name, group, key in _CLIP_DENSE:
-            (layer[group] if group else layer)[key] = _unlinear({}, sd, lp + name)
-        clip[f"layers_{i}"] = layer
-        i += 1
-    return {"params": {"dit": dit, "image_encoder": clip,
+    return {"params": {"dit": dit, "image_encoder": flax_from_clip_state_dict(sd, "image_encoder."),
                        "proj_cond": _unlinear({}, sd, "proj_cond"),
                        "norm_cond": _unlayernorm(sd, "norm_cond"),
                        "point_encoder": _unpoint_encoder(sd, "point_encoder")}}
@@ -371,30 +462,26 @@ def flax_from_mdit_state_dict(sd: dict) -> dict:
 def init_mdit_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Random MDiT weights from `seed`, at the JAX initialisers' scales: the
     DiT's, proj_cond's and the point encoder's projections N(0, 0.02) (the
-    package's Dense), the CLIP tower's projections and patch conv
-    N(0, 1/fan_in) (flax's lecun_normal), CLIP's class and position
-    embeddings N(0, 0.02), the DiT's pos_embed and scale_shift_tables
-    N(0, dim^-0.5), the point queries N(0, hidden^-0.5), zero biases, unit
-    LayerNorms. Draws on the weights' own device."""
+    package's Dense), the CLIP tower at flax's defaults (`init_clip_tower`),
+    the DiT's pos_embed and scale_shift_tables N(0, dim^-0.5), the point
+    queries N(0, hidden^-0.5), zero biases, unit LayerNorms. Draws on the
+    weights' own device."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     for name, mod in model.named_modules():
-        if isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d)):
-            fan_in = mod.weight[0].numel()
-            std = fan_in ** -0.5 if name.startswith("image_encoder.") else 0.02
-            mod.weight.normal_(0.0, std, generator=gen)
+        if name.startswith("image_encoder"):
+            continue
+        if isinstance(mod, torch.nn.Linear):
+            mod.weight.normal_(0.0, 0.02, generator=gen)
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, torch.nn.Embedding):
-            mod.weight.normal_(0.0, 0.02, generator=gen)
         elif isinstance(mod, torch.nn.LayerNorm) and mod.weight is not None:
             mod.weight.fill_(1.0)
             mod.bias.zero_()
     for name, p in model.named_parameters():
         if name.endswith(("pos_embed", "scale_shift_table", "query_embed")):
             p.normal_(0.0, p.shape[-1] ** -0.5, generator=gen)
-        elif name.endswith("class_embedding"):
-            p.normal_(0.0, 0.02, generator=gen)
+    init_clip_tower(model.image_encoder, gen)
     return model
 
 

@@ -23,13 +23,9 @@ import torch
 from edgerunner_tpu.train.checkpoint import tolerant_merge as j_tolerant_merge
 from edgerunner_tpu_torch.config import Options as TOptions
 from edgerunner_tpu_torch.models.lmm import LMM, init_weights
-from edgerunner_tpu_torch.train.checkpoint import (
-    CheckpointManager,
-    sibling_ema_path,
-    tolerant_merge,
-)
+from edgerunner_tpu_torch.train.checkpoint import CheckpointManager, sibling_ema_path
 from edgerunner_tpu_torch.train.trainer import Trainer
-from edgerunner_tpu_torch.weights import read_safetensors
+from edgerunner_tpu_torch.weights import read_safetensors, tolerant_merge
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 POS = "mesh_decoder.model.decoder.embed_positions.weight"

@@ -144,8 +144,7 @@ def test_resume_drops_the_point_encoder_and_nothing_else(tmp_path):
     assert any(k.startswith("point_encoder.") for k in state)
     ckpt = str(tmp_path / "arae.safetensors")
     write_safetensors(ckpt, state)
-    opt = validate(dataclasses.replace(point_opt, cond_mode="point_latent", resume=ckpt),
-                   dit=True)
+    opt = validate(dataclasses.replace(point_opt, cond_mode="point_latent", resume=ckpt))
     model, _ = infer_dit.load_models(opt, torch.device("cpu"))
     for k, v in model.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), state[k])
@@ -173,23 +172,28 @@ def test_resume2_loads_an_mdit_strictly(tmp_path):
         load_mdit(MDiT(opt), opt)
 
 
-def test_validate_accepts_point_latent_and_main_refuses_resume2_and_latents():
+def test_validate_accepts_point_latent_and_main_refuses_resume2_and_latents(tmp_path):
+    """main refuses cond_mode 'point_latent'. `--resume2`, refused by main
+    until the image-conditioned ArAE was ported, is now main's overlay of a
+    second file: main reads it (a file that is not there raises)."""
     from edgerunner_tpu_torch import main
 
     validate(dataclasses.replace(config_defaults["ArAE"], cond_mode="point_latent"))
     validate(dataclasses.replace(config_defaults["DiT"], cond_mode="point_latent",
-                                 resume2="dit.safetensors"), dit=True)
+                                 resume2="dit.safetensors"))
     assert config_defaults["DiT"].dit_num_layers == 24
     with pytest.raises(ValueError, match="num_cond_tokens"):
         validate(dataclasses.replace(config_defaults["ArAE"], cond_mode="point_latent",
                                      num_cond_tokens=257))
-    for change in (dict(resume2="dit.safetensors"), dict(cond_mode="image")):
-        with pytest.raises(ValueError):
-            validate(dataclasses.replace(config_defaults["ArAE"], **change))
+    validate(dataclasses.replace(config_defaults["ArAE"], resume2="dit.safetensors"))
+    # the ArAE preset's 2049 condition tokens are not CLIP's 257
+    with pytest.raises(ValueError, match="num_cond_tokens"):
+        validate(dataclasses.replace(config_defaults["ArAE"], cond_mode="image"))
     argv = ["ArAE", "--device", "cpu", "--data_root", "/nonexistent", "--workspace",
-            "/nonexistent/ws"]
-    with pytest.raises(ValueError, match="resume2"):
-        main.main([*argv, "--resume2", "dit.safetensors"])
+            str(tmp_path / "ws")]
+    absent = str(tmp_path / "absent.safetensors")
+    with pytest.raises(FileNotFoundError, match="absent.safetensors"):
+        main.main([*argv, *TINY, "--resume2", absent])
     with pytest.raises(ValueError, match="point_latent"):
         main.main([*argv, "--cond_mode", "point_latent"])
 
