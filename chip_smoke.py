@@ -11,8 +11,8 @@ Phases, one JSON line each:
 1. build     nvcc builds every kernel from edgerunner_tpu_torch/csrc; ptxas's
              registers and spills per kernel; fails if a tensor-core flash
              kernel (the forward's bf16 and 3xTF32 instances, the backward's
-             dq and dk/dv, each at D 64 and 96) or a persistent decode
-             kernel (B and the quantised kinds of D) spills.
+             bf16 and 3xTF32 dq and dk/dv, each at D 64 and 96) or a
+             persistent decode kernel (B and every kind of D) spills.
 2. kernels   each CUDA kernel against its plain PyTorch version on the card,
              at the main paths' shapes (generation, serving, training and
              the sp ring's blocks, where row 5 takes a non-zero lse
@@ -44,8 +44,13 @@ Phases, one JSON line each:
              and C at its causal training step [4, 4355, 4355, 16, 64] with
              every other row cut to 3000, kernel B over its 1000-face cache
              [12, 5632, 1024] at the decode's mean position, all timed; and
-             kernel C's scalar f32 instance, timed at the DiT's self shape
-             [2, 2048, 2048, 16, 64], where the f32 parity phases run it. Last, a
+             kernel C's 3xTF32 f32 instance, timed at the DiT's self shape
+             [2, 2048, 2048, 16, 64], where the f32 parity phases run it, and
+             at the f32 ArAE training step's decoder [2, 6147, 6147, 16, 96]
+             (causal, rows [6147, 5000]) and encoder [2, 2048 x 8192, 16,
+             64]. Kernel D's bf16/f32 kind also at every T from 1 to 8, both
+             dtypes and D 64 and 96, at positions 0, 255, 256 and the
+             cache's last. Last, a
              diagnostic at the DiT's self-attention shape with q and k scaled
              so that the logits span tens: the plain version with TF32
              matmuls fails the f32 tolerance rule where the kernel passes it
@@ -90,6 +95,10 @@ Phases, one JSON line each:
              and TRAIN_STEPS timed steps (s/it, tokens/s, peak memory), each
              step's kernel launches counted from 0 and held to their exact
              counts, the last loss below the first; then one profiled step.
+             Then the same path in f32 (--mixed_precision no): two steps
+             with every flash launch f32 and held to A 50 and C 25 per step
+             (s/it, peak memory), then one profiled step (device ms by
+             kernel).
 12. train_parity  2 layers at full width in f32: the training loss and every
              parameter's gradient of the kernel path against the plain path.
 13. sp       sequence parallelism with ranks that share the card (gloo,
@@ -194,6 +203,7 @@ TRAIN_ROWS = 2           # bench.py's train probe: batch 2 ...
 TRAIN_MESH_TOKENS = 4096  # ... of BOS + 4096 mesh tokens + EOS after the condition
 TRAIN_RAGGED_LEN = 5000  # a shorter second row for the kernels' ragged train cases
 TRAIN_STEPS = 3          # timed training steps after one warm-up step
+TRAIN_F32_STEPS = 2      # train phase: steps at --mixed_precision no, launches held per step
 SP_TRAIN_STEPS = 2       # sp phase: timed steps after one warm-up step (three in all)
 GRAD_TOL = 2e-2          # train parity: gradient error over the tensor's largest value
 PHASES = ("build", "kernels", "generate", "generate_q8", "generate_q4", "parity", "parity_q4",
@@ -262,8 +272,9 @@ TILE_EDGE_CASES = (
 )
 # instances of the persistent decode kernel: B (bf16, f32 x D 64, 96) and the
 # quantised kinds (int8 D 64, 96; int4 pairs D 64, 96; int4 single heads D 32,
-# 64, 96; each at 1, 2 and 3 queries per pass)
-DECODE_INSTANCES = 4 + 7 * 3
+# 64, 96; each at 1, 2 and 3 queries per pass) and the bf16/f32 kind (bf16,
+# f32 x D 64, 96 x 1, 2 and 3 queries per pass)
+DECODE_INSTANCES = 4 + 7 * 3 + 4 * 3
 # the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -271,8 +282,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # of split operands for each (3xTF32), as kernel A's f32 instance runs
 PEAK_F32_TF32X3 = 495e12 / 3
 # tensor-core flash kernels that ptxas must report: the forward's bf16 and
-# 3xTF32 instances and the backward's dq and dk/dv kernels, each at D 64, 96
-MMA_KERNELS = 8
+# 3xTF32 instances and the backward's bf16 and 3xTF32 dq and dk/dv kernels,
+# each at D 64, 96
+MMA_KERNELS = 12
 
 
 def emit(obj):
@@ -641,11 +653,14 @@ def decode_case(dev, B, L, hidden, H, index, dtype, timed=False):
     return res
 
 
+ENGINE_ADMITTED = 2050    # a freshly admitted engine row's position (prompt 2050 rows)
+
+
 def engine_indices(L: int, T: int) -> list:
     """Per-row positions of the engine-shape cases: 7 spread over [2050,
     7000] (a freshly admitted row sits at 2050) and one at L - T, the last
     position a verify pass may start at."""
-    return [int(i) for i in np.linspace(2050, 7000, 7)] + [L - T]
+    return [int(i) for i in np.linspace(ENGINE_ADMITTED, 7000, 7)] + [L - T]
 
 
 def multi_inputs(dev, kind, B, L, hidden, T, seed, group=0):
@@ -847,6 +862,13 @@ def phase_kernels(dev):
         dict(case="encoder train (main path)", **flash_case(
             dev, TRAIN_ROWS, opt.point_latent_size, opt.point_num, pH, ph // pH, False, bf,
             timed=True)),
+        # the 3xTF32 f32 instance at the f32 training step's shapes (the train
+        # phase's --mixed_precision no steps): 6147 and 8192 keys a row
+        dict(case="decoder train float32 (f32 training)", **flash_case(
+            dev, TRAIN_ROWS, T, T, H, hd // H, True, f32, kv_len=lens, q_len=lens, timed=True)),
+        dict(case="encoder train float32 (f32 training)", **flash_case(
+            dev, TRAIN_ROWS, opt.point_latent_size, opt.point_num, pH, ph // pH, False, f32,
+            timed=True)),
     ]
     flash_bwd = [
         dict(case="decoder train (main path)", **flash_bwd_case(
@@ -874,17 +896,25 @@ def phase_kernels(dev):
         dict(case="image decoder train (main path)", **flash_bwd_case(
             dev, IMAGE_TRAIN_ROWS, iT, iT, iH, iD, True, bf, kv_len=ilens, q_len=ilens,
             timed=True)),
-        # the scalar f32 instance, which the f32 parity phases run (dit_train_parity
-        # at the DiT's self-attention shape)
+        # the 3xTF32 f32 instance, which the f32 parity phases run (dit_train_parity
+        # at the DiT's self-attention shape) and the f32 training step (the
+        # train phase's --mixed_precision no steps) at the ArAE's shapes
         dict(case="dit self float32 (parity phases)", **flash_bwd_case(
             dev, 2, dit_n, dit_n, dit_h, dit_d, False, f32, timed=True)),
+        dict(case="decoder train float32 (f32 training)", **flash_bwd_case(
+            dev, TRAIN_ROWS, T, T, H, hd // H, True, f32, kv_len=lens, q_len=lens, timed=True)),
+        dict(case="encoder train float32 (f32 training)", **flash_bwd_case(
+            dev, TRAIN_ROWS, opt.point_latent_size, opt.point_num, pH, ph // pH, False, f32,
+            timed=True)),
     ]
     flash_bwd += [dict(case=f"keyless causal {str(dt).split('.')[-1]}", **flash_bwd_case(
         dev, 3, 130, 130, 4, D, True, dt, kv_len=[130, 0, 70], q_len=[130, 130, 70]))
         for dt, D in ((bf, 96), (f32, 64))]
-    flash_bwd += [dict(case=f"tile edges {n}x{m}", **flash_bwd_case(
-        dev, b, n, m, h, d, c, bf, kv_len=kv, q_len=ql))
-        for b, n, m, h, d, c, kv, ql in TILE_EDGE_CASES]
+    # the tile edges in both dtypes: bf16's 64-row tiles and f32's 32-row
+    # streamed tiles
+    flash_bwd += [dict(case=f"tile edges {n}x{m} {str(dt).split('.')[-1]}", **flash_bwd_case(
+        dev, b, n, m, h, d, c, dt, kv_len=kv, q_len=ql))
+        for dt in (bf, f32) for b, n, m, h, d, c, kv, ql in TILE_EDGE_CASES]
     mid = plen + num_new // 2  # the mean position of the decode loop
     decode = [dict(case=f"index {i}", **decode_case(dev, ROWS, L, hd, H, i, bf))
               for i in sorted({0, 255, 256, 257, 511, 512, L - 1}) if i < L]
@@ -919,6 +949,11 @@ def phase_kernels(dev):
                   **multi_case(dev, kind, SERVE_ROWS, eng_L, hd, H, T,
                                engine_indices(eng_L, T), timed=True))
              for kind in ("bf16", "f32", "int8") for T in (1, 3)]
+    # the bf16 kind where the serve phase profiles the engine: every slot
+    # just admitted (the 2049-token prompt and BOS, position 2050)
+    multi += [dict(case=f"engine bf16 T={T} at admission", **multi_case(
+        dev, "bf16", SERVE_ROWS, eng_L, hd, H, T, [ENGINE_ADMITTED] * SERVE_ROWS, timed=True))
+        for T in (1, 3)]
     multi += [
         dict(case="ragged d64", **multi_case(dev, "bf16", 3, 300, 1024, 16, 5, [0, 255, 295])),
         dict(case="ragged f32 T=8", **multi_case(dev, "f32", 3, 1000, 192, 2, 8, [0, 500, 992])),
@@ -971,6 +1006,14 @@ def phase_kernels(dev):
         dict(case="int4 straddling 3x32 T=8", **multi_case(dev, "int4", 2, 300, 96, 3, 8,
                                                            [16, 292])),
     ]
+    # the bf16/f32 kind at every T (one, two and three passes of up to three
+    # queries), both dtypes and head dims (3 heads of 64: a gang of four
+    # heads with one missing), at index 0, the 16-row (bf16) and 8-row (f32)
+    # tiles' and the old 256-row chunks' edges, and the cache's last rows
+    multi += [dict(case=f"{kind} d{D} T={T}", **multi_case(
+        dev, kind, 4, 520, 3 * D if D == 64 else 2 * D, 3 if D == 64 else 2, T,
+        [0, 255, 256, 520 - T]))
+        for kind in ("bf16", "f32") for D in (64, 96) for T in range(1, 9)]
     # row 5 at the ring's blocks of the train batch padded for R ranks: the
     # causal diagonal and the full off-diagonal blocks
     flash_lse = []
@@ -1438,7 +1481,10 @@ def profile_segment(engine, dev, ms_per_step, kernel_name) -> dict:
     the device time per step by the timed run's `ms_per_step` (the profiler
     itself slows the host about twofold; the share over the profiled wall
     time is reported too). The profile must show the path's decode kernel,
-    `kernel_name`."""
+    `kernel_name` (a part of its full name: the persistent decode kernels
+    share the name `decode_kernel` and differ in their kind, `DecodeM<` for
+    the bf16/f32 cache, `DecodeQ<` for int8 and int4), and its device ms
+    per step is reported."""
     from torch.profiler import ProfilerActivity, profile
 
     from edgerunner_tpu_torch.serve_engine import Request
@@ -1457,7 +1503,7 @@ def profile_segment(engine, dev, ms_per_step, kernel_name) -> dict:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             steps = engine.steps - s0
-    kernels = sorted(((e.key[:60], e.device_time_total / 1e3 / steps)
+    kernels = sorted(((e.key, e.device_time_total / 1e3 / steps)
                       for e in prof.key_averages()
                       if e.device_type.name == "CUDA" and e.device_time_total > 0),
                      key=lambda x: -x[1])
@@ -1465,7 +1511,8 @@ def profile_segment(engine, dev, ms_per_step, kernel_name) -> dict:
     return {"profiled_steps": steps, "profiled_wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": device_ms, "device_busy_share": device_ms / ms_per_step,
             "profiled_busy_share": device_ms * steps / wall_ms,
-            "top_kernels_ms_per_step": kernels[:10],
+            "top_kernels_ms_per_step": [(k[:60], ms) for k, ms in kernels[:10]],
+            "decode_kernel_ms_per_step": sum(ms for k, ms in kernels if kernel_name in k),
             "profile_ok": any(kernel_name in k for k, _ in kernels),
             "profile_s": time.perf_counter() - t_start}
 
@@ -1491,7 +1538,7 @@ def phase_serve(dev):
     res["bench_bf16"], engine = serve_bench(model, opt, dev, DA.fused_decode_attention_multi,
                                             SERVE_BENCH_REQUESTS)
     res["bench_bf16"].update(profile_segment(engine, dev, res["bench_bf16"]["ms_per_step"],
-                                             "multi_chunk_kernel"))
+                                             "DecodeM<"))
     del engine, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1500,7 +1547,7 @@ def phase_serve(dev):
     res["bench_int8_wquant"], engine = serve_bench(
         model, q_opt, dev, DA.fused_decode_attention_q8_multi, SERVE_BENCH_Q8_REQUESTS)
     res["bench_int8_wquant"].update(
-        profile_segment(engine, dev, res["bench_int8_wquant"]["ms_per_step"], "decode_kernel"))
+        profile_segment(engine, dev, res["bench_int8_wquant"]["ms_per_step"], "DecodeQ<"))
     del engine, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1509,7 +1556,7 @@ def phase_serve(dev):
     res["bench_int4"], engine = serve_bench(
         model, q4_opt, dev, DA.fused_decode_attention_q4_multi, SERVE_BENCH_Q4_REQUESTS)
     res["bench_int4"].update(profile_segment(engine, dev, res["bench_int4"]["ms_per_step"],
-                                             "decode_kernel"))
+                                             "DecodeQ<"))
     benches = ("bench_bf16", "bench_int8_wquant", "bench_int4")
     res["ok"] = res["http"]["ok"] and all(res[k]["ok"] and res[k]["profile_ok"]
                                           for k in benches)
@@ -1832,6 +1879,78 @@ def phase_train(dev):
            "launches": {k: sum(st["launches"][k] for st in steps) for k in want},
            "card": card_line()}
     res.update(profile_train(trainer, batch))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["f32"] = train_f32(dev, opt, batch)
+    res["ok"] = res["ok"] and res["f32"]["ok"]
+    return res
+
+
+@contextlib.contextmanager
+def flash_dtypes():
+    """The dtype of every flash kernel launch (forward and backward, from
+    any wrapper) while open, appended to the list it yields."""
+    from edgerunner_tpu_torch.ops import flash_attention as FA
+
+    seen, fwd, bwd = [], FA._forward_kernel, FA._backward_kernel
+
+    def forward(q, *args, **kw):
+        seen.append(("fwd", str(q.dtype)))
+        return fwd(q, *args, **kw)
+
+    def backward(q, *args, **kw):
+        seen.append(("bwd", str(q.dtype)))
+        return bwd(q, *args, **kw)
+
+    FA._forward_kernel, FA._backward_kernel = forward, backward
+    try:
+        yield seen
+    finally:
+        FA._forward_kernel, FA._backward_kernel = fwd, bwd
+
+
+def train_f32(dev, opt, batch) -> dict:
+    """The train phase's path in f32 (`--mixed_precision no`: no autocast,
+    the flash kernels' f32 instances: kernel A's 3xTF32 forward and kernel
+    C's 3xTF32 backward), at full width on the same batch, TF32 off for the
+    GEMMs as PyTorch's default leaves it: TRAIN_F32_STEPS steps, each step's
+    launches counted from 0 and held to A 2 and C 1 per attention call, every
+    one f32; s/it from the last; then one profiled step (device ms by kernel
+    and kind)."""
+    from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+    from edgerunner_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from edgerunner_tpu_torch.train.trainer import Trainer
+
+    opt = dataclasses.replace(opt, mixed_precision="no")
+    trainer = Trainer(init_weights(LMM(opt, device=dev), SEED), opt, total_steps=1000)
+    calls = opt.num_layers + 1
+    want = {"flash_attention_fwd": 2 * calls, "flash_attention_bwd": calls}
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    with flash_dtypes() as seen:
+        for _ in range(TRAIN_F32_STEPS):
+            flash_attention.launches = flash_attention_bwd.launches = 0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            steps.append({"s": time.perf_counter() - t1, **m, "launches": {
+                "flash_attention_fwd": flash_attention.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dtypes = sorted({d for _, d in seen})
+    losses = [st["loss"] for st in steps]
+    T = train_positions(opt)
+    res = {"ok": (all(st["launches"] == want for st in steps) and dtypes == ["torch.float32"]
+                  and len(seen) == TRAIN_F32_STEPS * 3 * calls and all(np.isfinite(losses))),
+           "mixed_precision": "no", "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+           "steps": TRAIN_F32_STEPS, "launch_dtypes": dtypes,
+           "s_per_it": steps[-1]["s"], "first_step_s": steps[0]["s"],
+           "tokens_per_s": TRAIN_ROWS * T / steps[-1]["s"], "peak_mem_gib": peak,
+           "losses": losses, "launches_per_step": [st["launches"] for st in steps],
+           "launches_expected_per_step": want}
+    res.update(profile_dit_train_step(trainer, batch))
     return res
 
 
@@ -2931,7 +3050,8 @@ def phase_image_train(dev):
 def kernels_line(results):
     """One entry per kernel: main-path numbers from this run; launches from
     the path that runs it, each counted from 0 over its run: the generate
-    path (forward and decode kernels), the train path (backward kernel), the
+    path (forward and decode kernels), the train path (backward kernel; its
+    f32 steps in launches_by_path), the
     generate path over the int8 cache (row 8) and over the int4 cache (row
     7), and the serving engine (rows 9, 11 and 10); launches_by_path adds
     the speculative paths (rows 9 and 10 at T = 3) and the image pipeline
@@ -2961,7 +3081,7 @@ def kernels_line(results):
         if source == "flash_fwd.cu":
             more = {"route_detail": "cuda, mma.sync bf16; mma.sync 3xTF32 f32", **more}
         elif source == "flash_bwd.cu":
-            more = {"route_detail": "cuda, mma.sync bf16; scalar f32", **more}
+            more = {"route_detail": "cuda, mma.sync bf16; mma.sync 3xTF32 f32", **more}
         more = {**{k: c[k] for k in extra if k in c}, **more}
         return {"name": name, "route": "cuda", "source": f"edgerunner_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": c["max_abs_err"],
@@ -2992,6 +3112,8 @@ def kernels_line(results):
               gen["launches"]["flash_attention_fwd"], prefill,
               launches_by_path={"generate": gen["launches"]["flash_attention_fwd"],
                                 "train": train["launches"]["flash_attention_fwd"],
+                                "train_f32_per_step":
+                                    train["f32"]["launches_per_step"][-1]["flash_attention_fwd"],
                                 "dit_ddim": dit["ddim_launches"]["flash_attention_fwd"],
                                 "dit_decode": dit["launches"]["flash_attention_fwd"],
                                 "dit_train_per_step": dit_train["flash_attention_fwd"],
@@ -3000,6 +3122,8 @@ def kernels_line(results):
               encoder_shape=sub(case(kern["flash"], "encoder (main")),
               train_decoder_shape=sub(case(kern["flash"], "decoder train")),
               train_encoder_shape=sub(case(kern["flash"], "encoder train")),
+              f32_train_decoder_shape=sub(case(kern["flash"], "decoder train float32")),
+              f32_train_encoder_shape=sub(case(kern["flash"], "encoder train float32")),
               **{f"dit_{kind}_{dt}_shape": sub(case(kern["flash"], f"dit {kind} {dt}"))
                  for kind in ("self", "cross") for dt in ("float32", "bfloat16")},
               **{f"dit_train_{kind}_shape": sub(case(kern["flash"], f"dit train {kind}"))
@@ -3016,13 +3140,17 @@ def kernels_line(results):
         entry("flash_attention_bwd", "flash_bwd.cu", "edgerunner_tpu/ops/flash_attention.py:520",
               train["launches"]["flash_attention_bwd"], bwd, lengths=bwd["kv_len"],
               launches_by_path={"train": train["launches"]["flash_attention_bwd"],
+                                "train_f32_per_step":
+                                    train["f32"]["launches_per_step"][-1]["flash_attention_bwd"],
                                 "dit_train_per_step": dit_train["flash_attention_bwd"],
                                 "image_train_per_step": image_train["flash_attention_bwd"]},
               encoder_shape=sub(case(kern["flash_bwd"], "encoder train")),
               **{f"dit_train_{kind}_shape": sub(case(kern["flash_bwd"], f"dit train {kind}"))
                  for kind in ("self", "cross")},
               image_train_shape=sub(case(kern["flash_bwd"], "image decoder train")),
-              f32_shape=sub(case(kern["flash_bwd"], "dit self float32"))),
+              f32_shape=sub(case(kern["flash_bwd"], "dit self float32")),
+              f32_train_decoder_shape=sub(case(kern["flash_bwd"], "decoder train float32")),
+              f32_train_encoder_shape=sub(case(kern["flash_bwd"], "encoder train float32"))),
         entry("fused_decode_attention_multi", "decode_attention_multi.cu",
               "edgerunner_tpu/ops/decode_attention_pallas.py:585",
               bench_bf16["launches"]["fused_decode_attention_multi"],

@@ -7,302 +7,300 @@
 // decode_attention_quant.cu.
 // For row b, head h and query t < T, q[b, t, h*D:(h+1)*D] attends over the
 // cache rows [0, index[b] + t] of K and V [B, L, H*D], which already hold
-// the T new tokens' rows at index[b] .. index[b]+T-1. `index` is an int32
-// [B] tensor on the device: the grid is sized from the cache length L and
-// each block reads index[b] itself, so a launch needs no host value of a
-// position (and no host synchronisation to get one). q * (1/sqrt(D)) is
-// rounded to the cache type before QK^T, and p before PV, as the TPU kernel
-// rounds its operands (:509-512, :557-559); sums in f32. The output is
-// acc / l where l > 0, and acc (zero) where it is not.
+// the T new tokens' rows at index[b] .. index[b]+T-1 (rows at or past L are
+// never read). `index` is an int32 [B] tensor on the device, read by the
+// kernel: no host value of a position sizes or steers a launch. p is
+// rounded to the cache type before PV, as the TPU kernel rounds that
+// operand (:557-559); sums in f32. q * (1/sqrt(D)) stays f32, as in kernel
+// B (decode_attention.cu): the TPU kernel rounds it too (:509-512), only
+// because its MXU takes operands of the cache type; with both roundings
+// the outputs sit at the edge of the bf16 tolerance rule against the plain
+// version, which keeps q f32, and cross it at the engine's shapes. The
+// output is acc / l where l > 0, and acc (zero) where it is not.
 //
 // What bounds it on the H100: bytes. Each cached K and V element enters T
 // multiply-adds (T <= 8), far below the ~300 operations per byte at which
-// the card's compute would be the limit. What the design does about it: the
-// split-KV scheme of the first decode kernel. Blocks (chunk, head, row) each
-// reduce kChunk cache positions, so a step launches thousands of blocks and
-// keeps every SM streaming; a block whose chunk starts past index[b]+T-1
-// exits at once. Lanes read a cache row's head slice 8 elements at a time
-// (16 bytes of bf16), neighbouring lanes on neighbouring bytes, and each K
-// and V row is read once for all T queries. A second small kernel merges the
-// chunks through their maxima (the TPU kernel's online softmax, across
-// blocks); it reads index[b] to know which chunks ran.
+// the card's compute would be the limit (8 slots of ~4.5k positions x 1536
+// x 2 caches x 2 bytes is ~0.24 GB per layer and step, 0.072 ms at 3.35
+// TB/s). What the design does about it (decode_common.cuh, the skeleton of
+// kernel B and the quantised kinds): a persistent grid of as many 4-warp
+// blocks as fit on the SMs, whose warps split the live (row, item, tile)
+// work evenly from the device positions; an item is a head and a pass over
+// the queries (T <= 3 in one pass, more in passes of up to 3, each reading
+// the cache once: a lane holds every query of its pass in registers). Each
+// warp streams its tiles' K and V head slices (16 cache rows of bf16, 8 of
+// f32: 6 KB a stage at D 96 either way) through a 3-stage ring of 16-byte
+// cp.async copies, so that two tiles' bytes are in flight while it scores a
+// third; each of its four 8-lane groups runs its own base-2 online softmax
+// per query over its rows; the partial sums of an item that several warps
+// share merge in the same launch, by the last of them to finish (per-item
+// tickets). K and V are each read once per pass, and the wrapper's scratch
+// and tickets are allocated once per configuration and kept.
 
-#include "common.cuh"
+#include "decode_common.cuh"
 
 namespace edgerunner {
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 256;  // cache positions per block
-constexpr int kMaxT = 8;
+using decode::Cursor;
+using decode::queries_per_pass;
+using decode::query_passes;
 
-// 8 consecutive elements widened to float: 16 bytes of bf16, 32 of f32.
-template <typename E> struct Vec8;
+// C is the type of the queries, caches and output; D the head dim; TC the
+// queries of a pass.
+template <typename C, int D, int TC>
+struct DecodeM {
+  struct Params {
+    const C* q;
+    const C* k;
+    const C* v;
+    const int* index;
+    C* out;
+    int B, L, H, T, passes;
+    float scale;  // 1/sqrt(D) as the caller rounds it to f32
+  };
+  static constexpr int kD = D;
+  static constexpr int kNS = TC;                  // softmax streams: the queries of a pass
+  static constexpr int kE = D / 8;                // columns per lane
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(C));
+  static constexpr int kChunks = kRowBytes / 16;  // 16-byte copies per row
+  static constexpr int kGang = 4;       // the warps of a gang take neighbouring heads
+  static constexpr int kStages = 3;
+  // cache rows per stage: 16 bf16 or 8 f32 rows, the same bytes, so that
+  // three blocks fit on an SM in either type
+  static constexpr int kTileRows = 32 / static_cast<int>(sizeof(C));
+  static constexpr int kRowsPerGroup = kTileRows / decode::kGroups;
+  static constexpr int kMinBlocks = 1;
+  static constexpr int kStageBytes = 2 * kTileRows * kRowBytes;  // K rows, then V rows
+  static constexpr int kWarpBytes = kStages * kStageBytes;
+  static constexpr int kWords = kE * static_cast<int>(sizeof(C)) / 8;  // 8-byte loads per row
+  static_assert(kRowBytes % 16 == 0 && (2 * kTileRows * kChunks) % 32 == 0, "row slice");
 
-template <> struct Vec8<__nv_bfloat16> {
-  float v[8];
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  const Params& p;  // the kernel's __grid_constant__ parameter: no copy in registers
+  const int B, items, real;  // gangs of items, and items (passes x heads) per row
+  int sub;                   // this warp's item in its gang
+  char* extra;               // (no shared memory past the stages)
+  // the consumer's item
+  int pass, hd, pos;
+  float q[TC][kE];
+  float m[kNS], l[kNS], acc[kNS][kE];
+
+  __device__ explicit DecodeM(const Params& p_)
+      : p(p_), B(p_.B), items((p_.passes * p_.H + kGang - 1) / kGang),
+        real(p_.passes * p_.H) {}
+
+  // item c.item * kGang + sub: pass it / H over head it % H
+  __device__ __forceinline__ int item(const Cursor& c) const { return c.item * kGang + sub; }
+  __device__ __forceinline__ bool has(const Cursor& c) const { return item(c) < real; }
+
+  __device__ __forceinline__ int rows(int b) const {
+    return min(max(__ldg(p.index + b), 0) + p.T, p.L);
+  }
+
+  // rows [kTileRows j, kTileRows (j + 1)) of the item's head in row b that
+  // are < rows, K and V
+  __device__ __forceinline__ void issue(char* stage, const Cursor& c) const {
+    const int lane = threadIdx.x & 31;
+    const int r0 = c.j * kTileRows, nr = min(kTileRows, c.rows - r0);
+    const int64_t hidden = static_cast<int64_t>(p.H) * D;
+    const int64_t at = (static_cast<int64_t>(c.b) * p.L + r0) * hidden + (item(c) % p.H) * D;
+    const char* kb = reinterpret_cast<const char*>(p.k + at);
+    const char* vb = reinterpret_cast<const char*>(p.v + at);
+    const uint32_t s = smem_addr(stage);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
+    for (int i = 0; i < 2 * kTileRows * kChunks / 32; ++i) {
+      const int e = lane + 32 * i;
+      const int which = e / (kTileRows * kChunks);
+      const int r = (e / kChunks) % kTileRows, ch = e % kChunks;
+      if (r < nr) {
+        cp_async16(s + which * kTileRows * kRowBytes + r * kRowBytes + ch * 16,
+                   (which ? vb : kb) + r * hidden * static_cast<int64_t>(sizeof(C)) + ch * 16,
+                   true);
+      }
+    }
+  }
+
+  // the pass's queries, scaled by 1/sqrt(D) and taken to base 2, in f32
+  __device__ __forceinline__ void begin(const Cursor& c) {
+    const int col0 = (threadIdx.x & 7) * kE;
+    pass = item(c) / p.H;
+    hd = item(c) % p.H;
+    pos = max(__ldg(p.index + c.b), 0);
+    const float scale2 = p.scale * decode::kLog2e;
+#pragma unroll
+    for (int t = 0; t < TC; ++t) {
+      const int tg = pass * TC + t;
+      const C* qb = p.q + ((static_cast<int64_t>(c.b) * p.T + tg) * p.H + hd) * D + col0;
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        q[t][e] = tg < p.T ? to_float(qb[e]) * scale2 : 0.f;
+      }
+      m[t] = kNegInf;
+      l[t] = 0.f;
+#pragma unroll
+      for (int e = 0; e < kE; ++e) acc[t][e] = 0.f;
+    }
+  }
+
+  // this lane's kE elements of a row slice in shared memory, widened
+  __device__ __forceinline__ void load(float (&x)[kE], const char* row) const {
+    const uint2* src = reinterpret_cast<const uint2*>(row + (threadIdx.x & 7) * kE * sizeof(C));
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) {
+      const uint2 u = src[w];
+      const C* e = reinterpret_cast<const C*>(&u);
+#pragma unroll
+      for (int i = 0; i < 8 / static_cast<int>(sizeof(C)); ++i) {
+        x[w * (8 / sizeof(C)) + i] = to_float(e[i]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void consume(const char* stage, const Cursor& c) {
+    const int g = (threadIdx.x & 31) >> 3;
+    const int r0 = c.j * kTileRows;
+    const int live = c.rows - r0;  // rows of this tile that exist
+    // query t of the pass sees the tile's rows r < last[t]
+    int last[TC];
+#pragma unroll
+    for (int t = 0; t < TC; ++t) last[t] = min(live, pos + pass * TC + t + 1 - r0);
+    float s[kRowsPerGroup][TC];
+#pragma unroll
+    for (int i = 0; i < kRowsPerGroup; ++i) {
+      const int r = g + decode::kGroups * i;
+      float x[kE];
+      load(x, stage + r * kRowBytes);
+#pragma unroll
+      for (int t = 0; t < TC; ++t) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) dot = fmaf(q[t][e], x[e], dot);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+        s[i][t] = r < last[t] ? dot : kNegInf;
+      }
+    }
+    // one online-softmax step per query over the group's rows of the tile
+#pragma unroll
+    for (int t = 0; t < TC; ++t) {
+      float mt = s[0][t];
+#pragma unroll
+      for (int i = 1; i < kRowsPerGroup; ++i) mt = fmaxf(mt, s[i][t]);
+      decode::rescale(m[t], l[t], acc[t], mt);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < kRowsPerGroup; ++i) {
+        s[i][t] = g + decode::kGroups * i < last[t] ? ex2(s[i][t] - m[t]) : 0.f;
+        sum += s[i][t];
+      }
+      l[t] += sum;
+    }
+    // PV, p rounded to the cache type; l summed the unrounded p
+    const char* vs = stage + kTileRows * kRowBytes;
+#pragma unroll
+    for (int i = 0; i < kRowsPerGroup; ++i) {
+      const int r = g + decode::kGroups * i;
+      if (r < live) {
+        float x[kE];
+        load(x, vs + r * kRowBytes);
+#pragma unroll
+        for (int t = 0; t < TC; ++t) {
+          const float pr = round_to<C>(s[i][t]);
+#pragma unroll
+          for (int e = 0; e < kE; ++e) acc[t][e] = fmaf(pr, x[e], acc[t][e]);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(const Cursor& c, int st, int col, float x) const {
+    const int tg = pass * TC + st;
+    if (tg >= p.T) return;
+    p.out[((static_cast<int64_t>(c.b) * p.T + tg) * p.H + hd) * D + col] = from_float<C>(x);
   }
 };
 
-template <> struct Vec8<float> {
-  float v[8];
-  __device__ __forceinline__ void load(const float* p) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+// calls f.template operator()<C, D, TC>() for the instance that takes
+// these arguments; returns cudaErrorInvalidValue where there is none
+template <class F>
+int dispatch(int dtype, int D, int T, const F& f) {
+  const int tc = queries_per_pass(T);
+#define ER_M_TC(CC, DD)                                            \
+  if (D == DD) {                                                   \
+    if (tc == 1) return f.template operator()<CC, DD, 1>();        \
+    if (tc == 2) return f.template operator()<CC, DD, 2>();        \
+    if (tc == 3) return f.template operator()<CC, DD, 3>();        \
+  }
+  if (dtype == kBFloat16) {
+    ER_M_TC(__nv_bfloat16, 64)
+    ER_M_TC(__nv_bfloat16, 96)
+  } else if (dtype == kFloat32) {
+    ER_M_TC(float, 64)
+    ER_M_TC(float, 96)
+  }
+#undef ER_M_TC
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the instance's grid, in warps
+struct GridWarps {
+  template <typename C, int DD, int TC> int operator()() const {
+    return decode::grid_blocks<DecodeM<C, DD, TC>>() * decode::kWarps;
   }
 };
 
-// grid (L / kChunk rounded up, H, B): block (s, h, b) reduces the positions
-// [s*kChunk, min((s+1)*kChunk, index[b]+T, L)) of head h in row b for all T
-// queries. C is the type of the queries, the caches and the output.
-template <typename C, int D, int T>
-__global__ void __launch_bounds__(kThreads)
-multi_chunk_kernel(const C* __restrict__ q, const C* __restrict__ k, const C* __restrict__ v,
-                   const int* __restrict__ index, float* __restrict__ part_o,
-                   float* __restrict__ part_m, float* __restrict__ part_l,
-                   int B, int L, int H, float scale) {
-  constexpr int kG = D / 8;                             // lanes that read one row
-  constexpr int kGp = kG <= 8 ? 8 : (kG <= 16 ? 16 : 32);  // a power of two
-  constexpr int kRows = kThreads / kGp;                 // rows in flight per pass
-  static_assert(kG <= 32 && D % 8 == 0, "head dim");
-  __shared__ float p_s[T][kChunk];  // scores, then the probabilities
-  __shared__ float acc_s[kWarps][T][D];
-  __shared__ float m_s[T], l_s[T];
-
-  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int idx = index[b];
-  const int k0 = s * kChunk;
-  const int n = min(min(k0 + kChunk, idx + T), L) - k0;  // positions read
-  if (n <= 0) return;  // the merge pass skips this chunk too
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int c = tid % kGp, g = tid / kGp;
-  const bool on = c < kG;
-  const int hidden = H * D;
-  const int col = h * D + (on ? c : 0) * 8;
-  const int64_t row0 = static_cast<int64_t>(b) * L + k0;
-
-  // the queries' slices, scaled and rounded to the cache type
-  float qs[T][8];
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-    Vec8<C> qv;
-    qv.load(q + (static_cast<int64_t>(b) * T + t) * hidden + col);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) qs[t][i] = round_to<C>(qv.v[i] * scale);
-  }
-
-  // scores: the kG lanes of a group dot their slices of one cache row with
-  // every query, then sum across the group by shuffles; every lane of a warp
-  // runs the same number of passes, so the shuffles are uniform
-  for (int j0 = 0; j0 < n; j0 += kRows) {
-    const int j = j0 + g;
-    float dot[T];
-#pragma unroll
-    for (int t = 0; t < T; ++t) dot[t] = 0.f;
-    if (on && j < n) {
-      Vec8<C> kk;
-      kk.load(k + (row0 + j) * hidden + col);
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) dot[t] = fmaf(qs[t][i], kk.v[i], dot[t]);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-#pragma unroll
-      for (int o = kGp / 2; o > 0; o >>= 1) dot[t] += __shfl_xor_sync(0xffffffffu, dot[t], o);
-    }
-    if (c == 0 && j < n) {
-#pragma unroll
-      for (int t = 0; t < T; ++t) p_s[t][j] = dot[t];
-    }
-  }
-  __syncthreads();
-
-  // softmax of each query over its valid positions of the chunk, one warp
-  // per query; positions past index[b]+t get p = 0
-  for (int t = warp; t < T; t += kWarps) {
-    const int nt = min(n, idx + t + 1 - k0);
-    float mx = kNegInf;
-    for (int j = lane; j < nt; j += 32) mx = fmaxf(mx, p_s[t][j]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      float p = 0.f;
-      if (j < nt) {
-        p = expf(p_s[t][j] - mx);
-        sum += p;
-        p = round_to<C>(p);
-      }
-      p_s[t][j] = p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      m_s[t] = nt > 0 ? mx : kNegInf;
-      l_s[t] = sum;
-    }
-  }
-  __syncthreads();
-
-  // PV: each lane accumulates its 8 columns over its rows for every query
-  float acc[T][8];
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[t][i] = 0.f;
-  }
-  if (on) {
-    for (int j = g; j < n; j += kRows) {
-      Vec8<C> vv;
-      vv.load(v + (row0 + j) * hidden + col);
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        const float p = p_s[t][j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[t][i] = fmaf(p, vv.v[i], acc[t][i]);
-      }
-    }
-  }
-  // sum the groups of a warp by shuffles, then the warps through shared memory
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int o = kGp; o < 32; o <<= 1) acc[t][i] += __shfl_xor_sync(0xffffffffu, acc[t][i], o);
-    }
-  }
-  if (lane < kGp && on) {
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc_s[warp][t][c * 8 + i] = acc[t][i];
-    }
-  }
-  __syncthreads();
-  const int64_t slot0 = (static_cast<int64_t>(s) * B + b) * T;  // [splits, B, T, H]
-  for (int e = tid; e < T * D; e += kThreads) {
-    const int t = e / D, d = e % D;
-    float o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) o += acc_s[w][t][d];
-    part_o[((slot0 + t) * H + h) * D + d] = o;
-  }
-  if (tid < T) {
-    part_m[(slot0 + tid) * H + h] = m_s[tid];
-    part_l[(slot0 + tid) * H + h] = l_s[tid];
-  }
-}
-
-// grid (H, B): merges the chunks that ran for row b (those starting before
-// min(index[b]+T, L)) through their maxima, then divides by the total l
-// where it is > 0. One thread per (query, lane of the head).
-template <typename C>
-__global__ void multi_merge_kernel(const float* __restrict__ part_o,
-                                   const float* __restrict__ part_m,
-                                   const float* __restrict__ part_l,
-                                   const int* __restrict__ index, C* __restrict__ out,
-                                   int B, int L, int H, int D, int T) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int live = max(0, (min(index[b] + T, L) + kChunk - 1) / kChunk);
-  for (int e = threadIdx.x; e < T * D; e += blockDim.x) {
-    const int t = e / D, d = e % D;
-    float mx = kNegInf;
-    for (int s = 0; s < live; ++s) {
-      mx = fmaxf(mx, part_m[((static_cast<int64_t>(s) * B + b) * T + t) * H + h]);
-    }
-    float l = 0.f, o = 0.f;
-    for (int s = 0; s < live; ++s) {
-      const int64_t slot = ((static_cast<int64_t>(s) * B + b) * T + t) * H + h;
-      const float w = expf(part_m[slot] - mx);
-      l = fmaf(part_l[slot], w, l);
-      o = fmaf(part_o[slot * D + d], w, o);
-    }
-    out[((static_cast<int64_t>(b) * T + t) * H + h) * D + d] =
-        from_float<C>(o / (l > 0.f ? l : 1.f));
-  }
-}
-
-struct Args {
+struct Launch {
   const void* q;
   const void* k;
   const void* v;
   const int* index;
   void* out;
-  float* part_o;
-  float* part_m;
-  float* part_l;
-  int B, L, H;
+  float* scratch;
+  int* ticket;
+  int scratch_warps, B, L, H, T;
   float scale;
   cudaStream_t stream;
-};
 
-template <typename C, int D, int T>
-int launch(const Args& a) {
-  const int splits = (a.L + kChunk - 1) / kChunk;
-  multi_chunk_kernel<C, D, T><<<dim3(splits, a.H, a.B), kThreads, 0, a.stream>>>(
-      static_cast<const C*>(a.q), static_cast<const C*>(a.k), static_cast<const C*>(a.v),
-      a.index, a.part_o, a.part_m, a.part_l, a.B, a.L, a.H, a.scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  multi_merge_kernel<C><<<dim3(a.H, a.B), kThreads, 0, a.stream>>>(
-      a.part_o, a.part_m, a.part_l, a.index, static_cast<C*>(a.out), a.B, a.L, a.H, D, T);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename C, int D>
-int launch_t(const Args& a, int T) {
-  switch (T) {
-    case 1: return launch<C, D, 1>(a);
-    case 2: return launch<C, D, 2>(a);
-    case 3: return launch<C, D, 3>(a);
-    case 4: return launch<C, D, 4>(a);
-    case 5: return launch<C, D, 5>(a);
-    case 6: return launch<C, D, 6>(a);
-    case 7: return launch<C, D, 7>(a);
-    case 8: return launch<C, D, 8>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  template <typename C, int DD, int TC> int operator()() const {
+    using K = DecodeM<C, DD, TC>;
+    const typename K::Params p{static_cast<const C*>(q), static_cast<const C*>(k),
+                               static_cast<const C*>(v), index, static_cast<C*>(out),
+                               B, L, H, T, query_passes(T), scale};
+    return decode::launch<K>(p, scratch, ticket, scratch_warps, stream);
   }
-}
-
-template <typename C>
-int launch_d(const Args& a, int D, int T) {
-  if (D == 64) return launch_t<C, 64>(a, T);
-  if (D == 96) return launch_t<C, 96>(a, T);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+};
 
 }  // namespace
 }  // namespace edgerunner
 
+// Warps of the persistent grid of kernel D's bf16/f32 instance for (D, T,
+// dtype); its scratch holds 2 slots of TC * (D + 2) floats, rounded up to a
+// multiple of 4, per warp, TC the queries per pass. Returns < 0 where there
+// is no instance.
+extern "C" int decode_attention_multi_warps(int D, int T, int dtype) {
+  using namespace edgerunner;
+  if (T < 1 || T > 8) return -1;
+  const int r = dispatch(dtype, D, T, GridWarps{});
+  return r == static_cast<int>(cudaErrorInvalidValue) ? -1 : r;
+}
+
 // q [B, T, H*D] and out like it; k and v [B, L, H*D] caches of q's type
 // (dtype kFloat32 or kBFloat16); index int32 [B] on the device. All
-// contiguous, 16-byte aligned. Scratch: part_o f32 [splits, B, T, H, D],
-// part_m / part_l f32 [splits, B, T, H] with splits = ceil(L / 256). scale is
-// 1/sqrt(D) as the caller rounds it to f32. Returns the CUDA error of the
-// launches (0 = launched), or cudaErrorInvalidValue for arguments the kernel
-// does not take.
+// contiguous, 16-byte aligned. scratch f32 [scratch_warps, 2, slot] (slot as
+// above) and ticket int32 [B * passes * H], zero before the first launch
+// (each launch leaves it zero). scale is 1/sqrt(D) as the caller rounds it
+// to f32. Returns the CUDA error of the launch (0 = launched), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int decode_attention_multi_fwd(const void* q, const void* k, const void* v,
-                                          const int* index, void* out, float* part_o,
-                                          float* part_m, float* part_l, int B, int L, int H,
+                                          const int* index, void* out, float* scratch,
+                                          int* ticket, int scratch_warps, int B, int L, int H,
                                           int D, int T, int dtype, float scale, void* stream) {
   using namespace edgerunner;
-  if (B <= 0 || L <= 0 || H <= 0 || T < 1 || T > kMaxT) {
+  if (B <= 0 || L <= 0 || H <= 0 || T < 1 || T > 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, index, out, part_o, part_m, part_l, B, L, H, scale,
-               static_cast<cudaStream_t>(stream)};
-  if (dtype == kBFloat16) return launch_d<__nv_bfloat16>(a, D, T);
-  if (dtype == kFloat32) return launch_d<float>(a, D, T);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Launch run{q, k, v, index, out, scratch, ticket, scratch_warps, B, L, H, T, scale,
+                   static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, D, T, run);
 }

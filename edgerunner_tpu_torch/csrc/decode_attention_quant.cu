@@ -63,6 +63,8 @@ namespace edgerunner {
 namespace {
 
 using decode::Cursor;
+using decode::queries_per_pass;
+using decode::query_passes;
 
 // the item of a quantised launch
 constexpr int kQInt8 = 0;      // int8, one head
@@ -72,7 +74,6 @@ constexpr int kQInt4 = 2;      // int4, one head (its 8-lane vectors in either n
 constexpr int kScaleRow = 0;   // per row: plane lanes 0 and v_lane
 constexpr int kScaleHead = 1;  // one group per head or more: lanes h*D/G, v_lane + h*D/G
 constexpr int kScaleLane = 2;  // several groups per head: each lane scaled before the dots
-constexpr int kMaxTC = 3;      // queries per pass
 
 template <int Kind, int D, int TC>
 struct DecodeQ {
@@ -406,15 +407,6 @@ struct DecodeQ {
     }
   }
 };
-
-// passes over the cache and queries per pass for T queries: T <= 3 in one
-// pass, more in ceil(T / 3) passes of equal size (the last may hold
-// queries past T, computed and not written)
-__host__ __device__ inline int query_passes(int T) { return (T + kMaxTC - 1) / kMaxTC; }
-__host__ __device__ inline int queries_per_pass(int T) {
-  const int n = query_passes(T);
-  return (T + n - 1) / n;
-}
 
 // the item kind: int4 heads pair when H is even (head dims 64 and 96)
 inline int item_kind(int bits, int H, int D) {

@@ -1,5 +1,6 @@
 // The skeleton shared by the decode kernels of decode_attention.cu (kernel
-// B) and decode_attention_quant.cu (kernel D's int8 and int4 kinds): a
+// B), decode_attention_multi.cu (kernel D's bf16/f32 kind) and
+// decode_attention_quant.cu (kernel D's int8 and int4 kinds): a
 // persistent grid whose warps split the launch's live work evenly, each
 // streaming its cache rows through a cp.async ring of shared-memory stages,
 // and a merge of the partial softmax sums fused into the same launch.
@@ -48,6 +49,17 @@ constexpr int kWarps = 4;                     // warps per block
 constexpr int kThreads = kWarps * 32;
 constexpr int kGroups = 4;                    // row groups of a warp
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxTC = 3;                     // queries per pass of the multi-query kinds
+
+// Passes over the cache and queries per pass for T queries (kernel D's
+// kinds, whose registers hold every query of a pass): T <= 3 in one pass,
+// more in ceil(T / 3) passes of equal size (the last may hold queries past
+// T, computed and not written).
+__host__ __device__ inline int query_passes(int T) { return (T + kMaxTC - 1) / kMaxTC; }
+__host__ __device__ inline int queries_per_pass(int T) {
+  const int n = query_passes(T);
+  return (T + n - 1) / n;
+}
 
 // 8 bytes global -> shared, through L1 (the int4 kind's split vectors).
 __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {

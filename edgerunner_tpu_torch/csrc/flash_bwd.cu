@@ -58,10 +58,33 @@
 // loads and warp specialisation, and perhaps one fused pass (dq by
 // atomics) that saves the two repeated products.
 //
-// f32 inputs take the scalar kernels (flash_bwd_*_f32_kernel): a
-// tensor-core f32 product would be TF32, another function than the TPU
-// kernel's full-precision f32 dots. They run the products as f32 FMAs from
-// tiles of 32 rows in shared memory, four threads per row.
+// f32 inputs (flash_bwd_dq_tf32_mma_kernel, flash_bwd_dkv_tf32_mma_kernel)
+// keep the TPU kernel's full-precision f32 dots: one TF32 product keeps
+// about three decimal digits and would be another function, so every
+// product runs as 3xTF32 on mma.sync.m16n8k8, as kernel A's f32 instance
+// runs its two (flash_fwd.cu): each f32 operand splits into big (rounded to
+// tf32) and small (the rest, rounded the same way), and each product
+// accumulates small*big, big*small and big*big (split_tf32, mma_tf32x3).
+// The bound is then the tensor cores' f32-exact rate, 495 / 3 = 165
+// TFLOP/s. The split and the roles are the bf16 kernels': the dq kernel
+// forms S = Q K^T, dP = dO V^T and dQ += dS K; the dk/dv kernel S^T = K Q^T,
+// dP^T = V dO^T, dV += P^T dO and dK += dS^T Q, over 64 owned rows (16 a
+// warp; the dq kernel at D 64 owns 128, 32 a warp, as kernel A's f32
+// instance does). What differs: the streamed tiles hold 32 rows (see
+// kStream), so that two or three blocks fit on an SM and a warp's S and dP
+// fragments fit beside its dK and dV accumulators; the f32 rows load with
+// plain ldmatrix straight into tf32 A and column-major B fragments (the
+// owned tile as A, the streamed one as B of the QK^T-like products); the B
+// operand of the three products that sum over the streamed rows (dS K, P^T
+// dO, dS^T Q) is read with scalar loads from the padded tile, and the
+// weights' accumulator columns are permuted per 8-column chunk so that P
+// and dS become tf32 A fragments in registers without a shuffle; those
+// three sums over all streamed rows take each tile's products in a fresh
+// fragment and add it with a rounded f32 add, as the tensor cores truncate
+// what they accumulate (the note at mma_weights_tf32x3). Every operand is
+// split where it is read, per warp.
+// What holds it back: the splits, the scalar B loads and the softmax are
+// four to five instructions per mma.sync, and the two repeated products.
 
 #include "mma.cuh"
 
@@ -450,240 +473,437 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------------- f32: scalar --
+// ------------------------------------------------ f32: 3xTF32 on tensor cores --
 
-constexpr int kRows = 32;          // rows (queries or keys) owned per block
-constexpr int kParts = 4;          // threads per row
-constexpr int kThreads = kRows * kParts;
-constexpr int kTile = 32;          // rows of the other side per shared tile
+// The f32 kernels keep the bf16 kernels' split (a block of 4 warps owns the
+// rows of one side and streams the other side's rows), with every product
+// run as 3xTF32 on mma.sync.m16n8k8 (split_tf32, mma_tf32x3), as kernel A's
+// f32 instance runs its two. The streamed tiles hold 32 rows: f32 rows are
+// twice bf16's, and with 32 a block's shared memory (its own tiles and two
+// stages of the two streamed ones) stays at 70-104 KB, two or three blocks
+// an SM, and a warp's S and dP fragments (16 x 32 f32 each) sit beside the
+// dK and dV accumulators (2 x 16 x D f32) of the dk/dv kernel without a
+// spill at D 96.
+constexpr int kStream = 32;
+constexpr int kStreamNT = kStream / 8;  // 8-row n-tiles of a streamed tile
 
-// A thread's share of a row of D values: chunks part, part + 4, ... of four
-// values each, so the four threads of a row read four neighbouring chunks.
-template <int D> struct Lanes {
-  static constexpr int kChunks = D / (4 * kParts);
-  float v[kChunks * 4];
+template <int D> struct Bwd32Shape {
+  using T = Tile<D, float>;
+  // 16-row m-tiles per warp of the dq kernel: two at D 64, so that each K
+  // or V value a warp splits, and each K value it loads for dS K, feeds two
+  // products (kernel A's f32 choice); one at D 96, where two spill
+  static constexpr int kDqMT = D == 64 ? 2 : 1;
+  static constexpr int kDqRows = 16 * kDqMT * kMmaWarps;  // query rows per dq block
+  static constexpr int kStreamElems = kStream * T::kStride;
+  // dq: Q and dO, then K and V in two stages
+  static constexpr int kDqSmem = (2 * kDqMT * T::kElems + 2 * 2 * kStreamElems) * 4;
+  // dk/dv: K and V, then Q and dO in two stages, then lse and delta in two stages
+  static constexpr int kDkvSmem = (2 * T::kElems + 2 * 2 * kStreamElems) * 4 + 2 * 2 * kStream * 4;
 };
 
-// This thread's lanes of the row at `src` (zeros when !ok).
-template <int D>
-__device__ __forceinline__ void load_lanes(Lanes<D>& x, const float* src, int part, bool ok) {
+// The warp's MT x 16 x 32 (rows x streamed rows) products X Y^T of two
+// tiles that both hold D columns: x (the warp's MT m-tiles of 16 rows from
+// row r0, read as A) and y (32 rows read as the column-major B); 3xTF32,
+// into acc. Each B fragment, split once, feeds the MT m-tiles.
+template <int D, int MT>
+__device__ __forceinline__ void mma_rows_tf32x3(float (&acc)[MT][kStreamNT][4], const float* x,
+                                                int r0, const float* y, int lane) {
 #pragma unroll
-  for (int i = 0; i < Lanes<D>::kChunks; ++i) {
-    const float4 y = ok ? *reinterpret_cast<const float4*>(src + 4 * (part + kParts * i))
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-    x.v[4 * i] = y.x;
-    x.v[4 * i + 1] = y.y;
-    x.v[4 * i + 2] = y.z;
-    x.v[4 * i + 3] = y.w;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_lanes(float* dst, const Lanes<D>& x, int part, float mul) {
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t raw[4], abig[MT][4], asmall[MT][4];
 #pragma unroll
-  for (int i = 0; i < Lanes<D>::kChunks; ++i) {
-    *reinterpret_cast<float4*>(dst + 4 * (part + kParts * i)) =
-        make_float4(x.v[4 * i] * mul, x.v[4 * i + 1] * mul, x.v[4 * i + 2] * mul,
-                    x.v[4 * i + 3] * mul);
-  }
-}
-
-// Rows [r0, r0 + kTile) of one head of x [., L, H, D] into shared memory
-// (zero past `rows`).
-template <int D>
-__device__ __forceinline__ void load_tile(float (*dst)[D], const float* base, int r0, int rows,
-                                          int64_t stride, int tid) {
-  constexpr int kRowVecs = D / 4;
-  for (int e = tid; e < kTile * kRowVecs; e += kThreads) {
-    const int j = e / kRowVecs, c = (e % kRowVecs) * 4;
-    *reinterpret_cast<float4*>(&dst[j][c]) =
-        r0 + j < rows
-            ? *reinterpret_cast<const float4*>(base + static_cast<int64_t>(r0 + j) * stride + c)
-            : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// Partial dots of this thread's lanes of a and b with a shared row, summed
-// over the row's four threads.
-template <int D>
-__device__ __forceinline__ void quad_dots(const Lanes<D>& a, const float* ra, float& sa,
-                                          const Lanes<D>& b, const float* rb, float& sb,
-                                          int part) {
-  sa = 0.f;
-  sb = 0.f;
+    for (int mi = 0; mi < MT; ++mi) {
+      ldmatrix_x4(raw, frag_a<D>(x, r0 + 16 * mi, kk * 8, lane));
 #pragma unroll
-  for (int i = 0; i < Lanes<D>::kChunks; ++i) {
-    const int off = 4 * (part + kParts * i);
-    const float4 x = *reinterpret_cast<const float4*>(ra + off);
-    const float4 y = *reinterpret_cast<const float4*>(rb + off);
-    sa = fmaf(a.v[4 * i], x.x, sa);
-    sa = fmaf(a.v[4 * i + 1], x.y, sa);
-    sa = fmaf(a.v[4 * i + 2], x.z, sa);
-    sa = fmaf(a.v[4 * i + 3], x.w, sa);
-    sb = fmaf(b.v[4 * i], y.x, sb);
-    sb = fmaf(b.v[4 * i + 1], y.y, sb);
-    sb = fmaf(b.v[4 * i + 2], y.z, sb);
-    sb = fmaf(b.v[4 * i + 3], y.w, sb);
-  }
-  sa += __shfl_xor_sync(0xffffffffu, sa, 1);
-  sb += __shfl_xor_sync(0xffffffffu, sb, 1);
-  sa += __shfl_xor_sync(0xffffffffu, sa, 2);
-  sb += __shfl_xor_sync(0xffffffffu, sb, 2);
-}
-
-// acc += w * (this thread's lanes of the shared row r)
-template <int D>
-__device__ __forceinline__ void axpy_lanes(Lanes<D>& acc, float w, const float* r, int part) {
+      for (int e = 0; e < 4; ++e) split_tf32(raw[e], abig[mi][e], asmall[mi][e]);
+    }
 #pragma unroll
-  for (int i = 0; i < Lanes<D>::kChunks; ++i) {
-    const float4 x = *reinterpret_cast<const float4*>(r + 4 * (part + kParts * i));
-    acc.v[4 * i] = fmaf(w, x.x, acc.v[4 * i]);
-    acc.v[4 * i + 1] = fmaf(w, x.y, acc.v[4 * i + 1]);
-    acc.v[4 * i + 2] = fmaf(w, x.z, acc.v[4 * i + 2]);
-    acc.v[4 * i + 3] = fmaf(w, x.w, acc.v[4 * i + 3]);
+    for (int np = 0; np < kStreamNT / 2; ++np) {
+      uint32_t big[4], small[4];
+      ldmatrix_x4(raw, frag_b<D>(y, np * 16, kk * 8, lane));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(raw[e], big[e], small[e]);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        mma_tf32x3(acc[mi][2 * np], abig[mi], asmall[mi], big[0], big[1], small[0], small[1]);
+        mma_tf32x3(acc[mi][2 * np + 1], abig[mi], asmall[mi], big[2], big[3], small[2],
+                   small[3]);
+      }
+    }
   }
 }
 
-// dq: one block per (query tile, head, row) loops over the live key tiles.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, const int* __restrict__ q_len,
-                        const int* __restrict__ kv_len, int N, int M, int H, int causal,
-                        float scale) {
-  __shared__ __align__(16) float ks[kTile][D];
-  __shared__ __align__(16) float vs[kTile][D];
+// acc (MT x 16 rows x D) += W Z, W the warp's MT x 16 x 32 weights in
+// accumulator fragments (W[row][8 j + 2 t + e] in w[mi][j][e], rows g and
+// g + 8 of m-tile mi), Z a streamed tile of 32 rows x D; 3xTF32. W's
+// accumulator gives thread (g, t) the columns 2t and 2t + 1 of each 8-column
+// chunk where the tf32 A fragment wants t and t + 4, so inside each chunk
+// column t stands for 2t and t + 4 for 2t + 1, and Z's B values are read
+// from those rows (the product sums over them, so the order changes
+// nothing): W needs no shuffle. Z's B values are scalar loads from the
+// padded tile (ldmatrix cannot transpose 32-bit elements), conflict-free at
+// D + 4 floats a row, each split once for the MT m-tiles. These sums run
+// over every streamed row (8192 keys for the point encoder's dq), and the
+// tensor cores add a product into its accumulator with truncation, so a
+// sum chained through thousands of mma.sync drifts by ~1e-4 of its value:
+// each tile's products sum in a fresh fragment, which joins acc by a
+// rounded f32 add.
+template <int D, int MT>
+__device__ __forceinline__ void mma_weights_tf32x3(float (&acc)[MT][D / 8][4],
+                                                   const float (&w)[MT][kStreamNT][4],
+                                                   const float* z, int lane) {
+  using T = Tile<D, float>;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t abig[MT][kStreamNT][4], asmall[MT][kStreamNT][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+    for (int j = 0; j < kStreamNT; ++j) {
+      const uint32_t wa[4] = {__float_as_uint(w[mi][j][0]), __float_as_uint(w[mi][j][2]),
+                              __float_as_uint(w[mi][j][1]), __float_as_uint(w[mi][j][3])};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(wa[e], abig[mi][j][e], asmall[mi][j][e]);
+    }
+  }
+  const float* z0 = z + 2 * t * T::kStride + g;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    float part[MT][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) part[mi][0] = part[mi][1] = part[mi][2] = part[mi][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kStreamNT; ++j) {
+      const float* zj = z0 + 8 * j * T::kStride + 8 * dn;
+      uint32_t b0big, b0small, b1big, b1small;
+      split_tf32(__float_as_uint(zj[0]), b0big, b0small);
+      split_tf32(__float_as_uint(zj[T::kStride]), b1big, b1small);
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        mma_tf32x3(part[mi], abig[mi][j], asmall[mi][j], b0big, b1big, b0small, b1small);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][dn][e] += part[mi][e];
+    }
+  }
+}
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, part = tid % kParts;
-  const int row = qt * kRows + tid / kParts;
-  const bool row_ok = row < N;
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_tf32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             float* __restrict__ dq, const int* __restrict__ q_len,
+                             const int* __restrict__ kv_len, int N, int M, int H, int causal,
+                             float scale) {
+  using T = Tile<D, float>;
+  using S = Bwd32Shape<D>;
+  constexpr int MT = S::kDqMT;
+  const float scale_log2 = scale * kLog2e;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [kDqRows][D + 4]
+  float* dos = qs + MT * T::kElems;            // [kDqRows][D + 4]
+  float* ks = dos + MT * T::kElems;            // [2 stages][32][D + 4]
+  float* vs = ks + 2 * S::kStreamElems;        // [2 stages][32][D + 4]
+
+  // causal: the last query tiles visit the most key tiles, launch them first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qt * S::kDqRows;
+  const int wrow = warp * 16 * MT;  // the warp's first row in the block
   const int64_t stride = static_cast<int64_t>(H) * D;
-  const int64_t roff = (static_cast<int64_t>(b) * N + (row_ok ? row : 0)) * stride + h * D;
-  const int64_t soff = (static_cast<int64_t>(b) * N + (row_ok ? row : 0)) * H + h;
-
-  Lanes<D> qr, dor, acc;
-  load_lanes<D>(qr, q + roff, part, row_ok);
-  load_lanes<D>(dor, dout + roff, part, row_ok);
-#pragma unroll
-  for (int i = 0; i < Lanes<D>::kChunks * 4; ++i) acc.v[i] = 0.f;
-  const float lse_r = row_ok ? lse[soff] : 0.f;
-  const float delta_r = row_ok ? delta[soff] : 0.f;
-
-  // keys past kv_len (and past M) take no gradient; a row without any valid
-  // key gets none at all, and neither does a tile of rows past q_len (dO 0)
-  const int klen = kv_len ? min(kv_len[b], M) : M;
-  const bool live = q_len == nullptr || qt * kRows < q_len[b];
-  const int kend = !live ? 0 : causal ? min(klen, (qt + 1) * kRows) : klen;
+  const int64_t qoff = static_cast<int64_t>(b) * N * stride + h * D;
   const float* kb = k + static_cast<int64_t>(b) * M * stride + h * D;
   const float* vb = v + static_cast<int64_t>(b) * M * stride + h * D;
 
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    __syncthreads();  // every thread is done with the previous tile
-    load_tile<D>(ks, kb, k0, kend, stride, tid);
-    load_tile<D>(vs, vb, k0, kend, stride, tid);
-    __syncthreads();
-    const int nk = min(kTile, kend - k0);
-    for (int j = 0; j < nk; ++j) {
-      float s, dp;
-      quad_dots<D>(qr, ks[j], s, dor, vs[j], dp, part);
-      const bool valid = !causal || k0 + j <= row;
-      const float p = valid ? expf(s * scale - lse_r) : 0.f;
-      axpy_lanes<D>(acc, p * (dp - delta_r), ks[j], part);
+  // no gradient to q from a row without any valid key (its logits do not
+  // depend on q), nor in a tile of rows wholly past q_len (dO 0)
+  const int klen = kv_len ? min(kv_len[b], M) : M;
+  const bool live = q_len == nullptr || q0 < q_len[b];
+  const int kend = klen == 0 || !live ? 0 : causal ? min(klen, q0 + S::kDqRows) : klen;
+  const int ntiles = (kend + kStream - 1) / kStream;
+
+  if (ntiles > 0) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      cp_tile<D, kMmaThreads>(qs + mt * T::kElems, q + qoff, q0 + mt * kTileRows, N, stride,
+                              tid);
+      cp_tile<D, kMmaThreads>(dos + mt * T::kElems, dout + qoff, q0 + mt * kTileRows, N,
+                              stride, tid);
     }
+    cp_tile<D, kMmaThreads, kStream>(ks, kb, 0, M, stride, tid);
+    cp_tile<D, kMmaThreads, kStream>(vs, vb, 0, M, stride, tid);
+    cp_async_commit();
   }
-  if (row_ok) store_lanes<D>(dq + roff, acc, part, scale);
+
+  // per m-tile mi, rows row[2 mi] = q0 + wrow + 16 mi + g and row[2 mi + 1] = that + 8;
+  // lse in base 2, as the kernel takes its exponentials
+  const int64_t soff = static_cast<int64_t>(b) * N * H + h;
+  int row[2 * MT];
+  float lse2[2 * MT], dl[2 * MT];
+#pragma unroll
+  for (int r = 0; r < 2 * MT; ++r) {
+    row[r] = q0 + wrow + 16 * (r >> 1) + g + 8 * (r & 1);
+    const bool ok = row[r] < N;
+    lse2[r] = ok ? lse[soff + static_cast<int64_t>(row[r]) * H] * kLog2e : 0.f;
+    dl[r] = ok ? delta[soff + static_cast<int64_t>(row[r]) * H] : 0.f;
+  }
+
+  float acc[MT][D / 8][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.f;
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * kStream, st = it & 1;
+    if (it + 1 < ntiles) {
+      cp_tile<D, kMmaThreads, kStream>(ks + (st ^ 1) * S::kStreamElems, kb, k0 + kStream, M,
+                                       stride, tid);
+      cp_tile<D, kMmaThreads, kStream>(vs + (st ^ 1) * S::kStreamElems, vb, k0 + kStream, M,
+                                       stride, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* kt = ks + st * S::kStreamElems;
+    const float* vt = vs + st * S::kStreamElems;
+
+    // S = Q K^T and dP = dO V^T: MT x 16 rows x 32 keys per warp
+    float s[MT][kStreamNT][4], dp[MT][kStreamNT][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+      for (int j = 0; j < kStreamNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mi][j][e] = dp[mi][j][e] = 0.f;
+      }
+    }
+    mma_rows_tf32x3<D, MT>(s, qs, wrow, kt, lane);
+    mma_rows_tf32x3<D, MT>(dp, dos, wrow, vt, lane);
+
+    // P = exp(S scale - lse), masked; then dS = P (dP - delta) in its place
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+      for (int j = 0; j < kStreamNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[mi][j][e] = ex2(fmaf(s[mi][j][e], scale_log2, -lse2[2 * mi + (e >> 1)]));
+        }
+      }
+    }
+    if (k0 + kStream > klen || (causal && k0 + kStream > q0)) {  // one branch per tile
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+        for (int j = 0; j < kStreamNT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            if (key >= klen || (causal && key > row[2 * mi + (e >> 1)])) s[mi][j][e] = 0.f;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+      for (int j = 0; j < kStreamNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mi][j][e] *= dp[mi][j][e] - dl[2 * mi + (e >> 1)];
+      }
+    }
+
+    // dQ += dS K
+    mma_weights_tf32x3<D, MT>(acc, s, kt, lane);
+    __syncthreads();  // every warp is done with this stage before it refills
+  }
+
+  // the warp's own Q rows (read only by this warp) stage dQ
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+    store_rows<D>(acc[mi], scale, scale, qs + (wrow + 16 * mi) * T::kStride,
+                  q0 + wrow + 16 * mi, N, dq + qoff, stride, lane);
+  }
 }
 
-// dk and dv: one block per (key tile, head, row) loops over the live query
-// tiles. dO is zero in rows past q_len, so those rows are skipped.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         const int* __restrict__ q_len, const int* __restrict__ kv_len, int N,
-                         int M, int H, int causal, float scale) {
-  __shared__ __align__(16) float qs[kTile][D];
-  __shared__ __align__(16) float dos[kTile][D];
-  __shared__ float ls[kTile];
-  __shared__ float ds_[kTile];
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_tf32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              const int* __restrict__ q_len, const int* __restrict__ kv_len,
+                              int N, int M, int H, int causal, float scale) {
+  using T = Tile<D, float>;
+  using S = Bwd32Shape<D>;
+  const float scale_log2 = scale * kLog2e;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + T::kElems;
+  float* qs = vs + T::kElems;             // [2 stages][32][D + 4]
+  float* dos = qs + 2 * S::kStreamElems;  // [2 stages][32][D + 4]
+  float* ls = dos + 2 * S::kStreamElems;  // [2 stages][32]
+  float* dls = ls + 2 * kStream;          // [2 stages][32]
 
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, part = tid % kParts;
-  const int k0 = kt * kRows;
-  const int key = k0 + tid / kParts;
-  const bool key_ok = key < M;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = kt * kBlock;
   const int64_t stride = static_cast<int64_t>(H) * D;
-  const int64_t koff = (static_cast<int64_t>(b) * M + (key_ok ? key : 0)) * stride + h * D;
-
-  Lanes<D> kr, vr, dka, dva;
-  load_lanes<D>(kr, k + koff, part, key_ok);
-  load_lanes<D>(vr, v + koff, part, key_ok);
-#pragma unroll
-  for (int i = 0; i < Lanes<D>::kChunks * 4; ++i) dka.v[i] = dva.v[i] = 0.f;
+  const int64_t koff = static_cast<int64_t>(b) * M * stride + h * D;
+  const float* qb = q + static_cast<int64_t>(b) * N * stride + h * D;
+  const float* db = dout + static_cast<int64_t>(b) * N * stride + h * D;
+  const int64_t soff = static_cast<int64_t>(b) * N * H + h;
 
   const int klen = kv_len ? min(kv_len[b], M) : M;
   const bool dead = klen == 0;  // no valid key: the weights 1/M from query 0
-  const int qend = q_len ? min(q_len[b], N) : N;
+  const int qend = q_len ? min(q_len[b], N) : N;  // dO is zero past q_len
   // under causal masking, rows before this tile see none of its keys
   const int qstart = causal && !dead ? k0 : 0;
-  const int qstop = (dead || k0 < klen) ? qend : qstart;  // keys all past kv_len: nothing
-  const float* qb = q + static_cast<int64_t>(b) * N * stride + h * D;
-  const float* db = dout + static_cast<int64_t>(b) * N * stride + h * D;
+  const int qstop = dead || k0 < klen ? qend : qstart;  // keys all past kv_len: nothing
+  const int ntiles = qstop > qstart ? (qstop - qstart + kStream - 1) / kStream : 0;
 
-  for (int q0 = qstart; q0 < qstop; q0 += kTile) {
-    __syncthreads();
-    load_tile<D>(qs, qb, q0, qstop, stride, tid);
-    load_tile<D>(dos, db, q0, qstop, stride, tid);
-    if (tid < kTile) {
-      const int r = q0 + tid;
-      const int64_t o = (static_cast<int64_t>(b) * N + (r < qstop ? r : 0)) * H + h;
-      ls[tid] = r < qstop ? lse[o] : 0.f;
-      ds_[tid] = r < qstop ? delta[o] : 0.f;
+  auto load_rows = [&](int st, int r0) {
+    cp_tile<D, kMmaThreads, kStream>(qs + st * S::kStreamElems, qb, r0, qend, stride, tid);
+    cp_tile<D, kMmaThreads, kStream>(dos + st * S::kStreamElems, db, r0, qend, stride, tid);
+    if (tid < kStream) {
+      const bool ok = r0 + tid < qend;
+      const int64_t o = soff + static_cast<int64_t>(ok ? r0 + tid : 0) * H;
+      cp_async4(smem_addr(ls + st * kStream + tid), lse + o, ok);
+      cp_async4(smem_addr(dls + st * kStream + tid), delta + o, ok);
     }
+  };
+  if (ntiles > 0) {
+    cp_tile<D, kMmaThreads>(ks, k + koff, k0, M, stride, tid);
+    cp_tile<D, kMmaThreads>(vs, v + koff, k0, M, stride, tid);
+    load_rows(0, qstart);
+    cp_async_commit();
+  }
+
+  const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
+  const float inv_m = 1.f / static_cast<float>(M);
+  float dka[1][D / 8][4], dva[1][D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[0][j][e] = dva[0][j][e] = 0.f;
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int q0 = qstart + it * kStream, st = it & 1;
+    if (it + 1 < ntiles) load_rows(st ^ 1, q0 + kStream);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    const int nq = min(kTile, qstop - q0);
+    const float* qt = qs + st * S::kStreamElems;
+    const float* dt = dos + st * S::kStreamElems;
+    const float* lt = ls + st * kStream;
+    const float* dlt = dls + st * kStream;
+
+    // P^T: 16 keys x 32 queries per warp, in f32 fragments
+    float p[1][kStreamNT][4];
     if (dead) {
-      const float w = 1.f / static_cast<float>(M);
-      for (int i = 0; i < nq; ++i) axpy_lanes<D>(dva, w, dos[i], part);
-      continue;
+#pragma unroll
+      for (int j = 0; j < kStreamNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[0][j][e] = q0 + 8 * j + 2 * t + (e & 1) < qend ? inv_m : 0.f;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kStreamNT; ++j) p[0][j][0] = p[0][j][1] = p[0][j][2] = p[0][j][3] = 0.f;
+      // S^T = K Q^T
+      mma_rows_tf32x3<D, 1>(p, ks, warp * 16, qt, lane);
+#pragma unroll
+      for (int j = 0; j < kStreamNT; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[0][j][e] = ex2(fmaf(p[0][j][e], scale_log2, -kLog2e * ((e & 1) ? l2.y : l2.x)));
+        }
+      }
+      if (q0 + kStream > qend || k0 + kBlock > klen || (causal && q0 < k0 + kBlock)) {
+#pragma unroll
+        for (int j = 0; j < kStreamNT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int query = q0 + 8 * j + 2 * t + (e & 1);
+            const int key = e < 2 ? key_lo : key_hi;
+            if (query >= qend || key >= klen || (causal && key > query)) p[0][j][e] = 0.f;
+          }
+        }
+      }
     }
-    for (int i = 0; i < nq; ++i) {
-      const int row = q0 + i;
-      float s, dp;
-      quad_dots<D>(kr, qs[i], s, vr, dos[i], dp, part);
-      const bool valid = key < klen && (!causal || key <= row);
-      const float p = valid ? expf(s * scale - ls[i]) : 0.f;
-      axpy_lanes<D>(dva, p, dos[i], part);
-      axpy_lanes<D>(dka, p * (dp - ds_[i]), qs[i], part);
+
+    // dV += P^T dO
+    mma_weights_tf32x3<D, 1>(dva, p, dt, lane);
+
+    if (!dead) {
+      // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) in its place
+      float dp[1][kStreamNT][4];
+#pragma unroll
+      for (int j = 0; j < kStreamNT; ++j) {
+        dp[0][j][0] = dp[0][j][1] = dp[0][j][2] = dp[0][j][3] = 0.f;
+      }
+      mma_rows_tf32x3<D, 1>(dp, vs, warp * 16, dt, lane);
+#pragma unroll
+      for (int j = 0; j < kStreamNT; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dlt + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dp[0][j][e] = p[0][j][e] * (dp[0][j][e] - ((e & 1) ? d2.y : d2.x));
+        }
+      }
+      // dK += dS^T Q
+      mma_weights_tf32x3<D, 1>(dka, dp, qt, lane);
     }
+    __syncthreads();  // every warp is done with this stage before it refills
   }
-  if (key_ok) {
-    store_lanes<D>(dk + koff, dka, part, scale);
-    store_lanes<D>(dv + koff, dva, part, 1.f);
-  }
+
+  cp_async_wait<0>();
+  __syncthreads();  // K/V copies landed before their rows stage the output
+  // each warp's own K and V rows (read only by this warp) stage dK and dV
+  store_rows<D>(dka[0], scale, scale, ks + warp * 16 * T::kStride, k0 + warp * 16, M,
+                dk + koff, stride, lane);
+  store_rows<D>(dva[0], 1.f, 1.f, vs + warp * 16 * T::kStride, k0 + warp * 16, M, dv + koff,
+                stride, lane);
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dq, void* dk, void* dv,
-               const int* q_len, const int* kv_len, int B, int N, int M, int H, int causal,
-               cudaStream_t stream) {
+int launch_tf32(const void* q, const void* k, const void* v, const void* dout,
+                const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                const int* q_len, const int* kv_len, int B, int N, int M, int H, int causal,
+                cudaStream_t stream) {
+  using S = Bwd32Shape<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tf32_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         S::kDqSmem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_tf32_mma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, S::kDkvSmem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   const float scale = 1.f / sqrtf(static_cast<float>(D));
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   const float* dt = static_cast<const float*>(dout);
-  flash_bwd_dq_f32_kernel<D><<<dim3((N + kRows - 1) / kRows, H, B), kThreads, 0, stream>>>(
+  flash_bwd_dq_tf32_mma_kernel<D><<<dim3((N + S::kDqRows - 1) / S::kDqRows, H, B),
+                                    kMmaThreads, S::kDqSmem, stream>>>(
       qt, kt, vt, dt, lse, delta, static_cast<float*>(dq), q_len, kv_len, N, M, H, causal,
       scale);
-  const cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_f32_kernel<D><<<dim3((M + kRows - 1) / kRows, H, B), kThreads, 0, stream>>>(
+  flash_bwd_dkv_tf32_mma_kernel<D><<<dim3((M + kBlock - 1) / kBlock, H, B), kMmaThreads,
+                                     S::kDkvSmem, stream>>>(
       qt, kt, vt, dt, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), q_len,
       kv_len, N, M, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
@@ -695,8 +915,8 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout,
 // q/dout/dq [B,N,H,D], k/v/dk/dv [B,M,H,D] (all contiguous, 16-byte
 // aligned, one dtype); lse and delta [B,N,H] f32; q_len/kv_len device int32
 // [B] or null; dout must already be zero in rows past q_len. Launches the dq
-// kernel, then the dk/dv kernel, on `stream`: the tensor-core kernels for
-// bf16, the scalar ones for f32. Returns the CUDA error of the launches
+// kernel, then the dk/dv kernel, on `stream`: the bf16 tensor-core kernels
+// for bf16, the 3xTF32 ones for f32. Returns the CUDA error of the launches
 // (0 = launched), or cudaErrorInvalidValue for a head dim or dtype the
 // kernels have no instance for.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -713,10 +933,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
     return launch_mma<96>(q, k, v, dout, lse, delta, dq, dk, dv, q_len, kv_len, B, N, M, H,
                           causal, s);
   } else if (dtype == kFloat32 && D == 64) {
-    return launch_f32<64>(q, k, v, dout, lse, delta, dq, dk, dv, q_len, kv_len, B, N, M, H,
+    return launch_tf32<64>(q, k, v, dout, lse, delta, dq, dk, dv, q_len, kv_len, B, N, M, H,
                           causal, s);
   } else if (dtype == kFloat32 && D == 96) {
-    return launch_f32<96>(q, k, v, dout, lse, delta, dq, dk, dv, q_len, kv_len, B, N, M, H,
+    return launch_tf32<96>(q, k, v, dout, lse, delta, dq, dk, dv, q_len, kv_len, B, N, M, H,
                           causal, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

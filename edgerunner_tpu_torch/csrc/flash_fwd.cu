@@ -51,7 +51,9 @@
 // cvt.rna.tf32.f32) and small = x - big rounded the same way, in four
 // integer and float instructions (split_tf32), and each product accumulates
 // small*big, big*small and then big*big; small*small, under 2^-22 of the
-// product, is dropped. The skeleton is the bf16 kernel's (the cp.async ring
+// product, is dropped. PV sums each key tile in a fresh fragment and adds
+// it to the output's accumulator in f32 (the tensor cores truncate what
+// they accumulate). The skeleton is the bf16 kernel's (the cp.async ring
 // into padded tiles, base-2 softmax, one mask branch per tile, heaviest
 // causal tiles first), with these differences. Seen as pairs of b16, f32
 // rows load with plain ldmatrix straight into tf32 fragments: Q as A, K
@@ -520,7 +522,19 @@ flash_fwd_tf32_mma_kernel(const float* __restrict__ q, const float* __restrict__
     // so the order changes nothing). V's B values are scalar loads from
     // the padded row-major tile (ldmatrix cannot transpose 32-bit
     // elements); with rows D + 4 floats apart the 32 lanes hit 32 banks.
-    // Each V value, split once, feeds the warp's kMT m-tiles.
+    // Each V value, split once, feeds the warp's kMT m-tiles. The tensor
+    // cores add a product into its accumulator with truncation, so a sum
+    // chained through thousands of mma.sync (8192 keys for the point
+    // encoder) drifts by ~1e-4 of its value: the tile's products sum in a
+    // fresh fragment, which joins acc by a rounded f32 add.
+    float part[kMT][kSteps][4];
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi) {
+#pragma unroll
+      for (int dn = 0; dn < kSteps; ++dn) {
+        part[mi][dn][0] = part[mi][dn][1] = part[mi][dn][2] = part[mi][dn][3] = 0.f;
+      }
+    }
 #pragma unroll
     for (int j = 0; j < kBlockK / 8; ++j) {
       uint32_t pbig[kMT][4], psmall[kMT][4];
@@ -539,8 +553,16 @@ flash_fwd_tf32_mma_kernel(const float* __restrict__ q, const float* __restrict__
         split_tf32(__float_as_uint(v0[T::kStride + 8 * dn]), b1big, b1small);
 #pragma unroll
         for (int mi = 0; mi < kMT; ++mi) {
-          mma_tf32x3(acc[mi][dn], pbig[mi], psmall[mi], b0big, b1big, b0small, b1small);
+          mma_tf32x3(part[mi][dn], pbig[mi], psmall[mi], b0big, b1big, b0small, b1small);
         }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi) {
+#pragma unroll
+      for (int dn = 0; dn < kSteps; ++dn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][dn][e] += part[mi][dn][e];
       }
     }
     __syncthreads();  // every warp is done with this stage before it refills

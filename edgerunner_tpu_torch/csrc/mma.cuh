@@ -62,14 +62,15 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// Rows [r0, r0 + 64) of one head, `stride` elements apart in global memory,
-// into a padded shared tile; rows at or past `rows` are zero-filled.
-template <int D, int kThreads, typename E>
+// Rows [r0, r0 + R) of one head (R = 64, or fewer for a shorter tile of
+// the same row stride), `stride` elements apart in global memory, into a
+// padded shared tile; rows at or past `rows` are zero-filled.
+template <int D, int kThreads, int R = kTileRows, typename E>
 __device__ __forceinline__ void cp_tile(E* dst, const E* src, int r0, int rows, int64_t stride,
                                         int tid) {
   using T = Tile<D, E>;
-  constexpr int kPer = kTileRows * T::kChunks / kThreads;
-  static_assert(kPer * kThreads == kTileRows * T::kChunks, "tile does not split evenly");
+  constexpr int kPer = R * T::kChunks / kThreads;
+  static_assert(kPer * kThreads == R * T::kChunks, "tile does not split evenly");
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int e = tid + i * kThreads;

@@ -10,8 +10,11 @@ data_root does not exist. In image mode (the default preset) each mesh is
 paired with a render view beside it, or with a point-splat render of its
 surface (data/dataset.py), and the CLIP tower stays frozen under
 `freeze_encoder`: it takes no optimizer state and is saved with the rest.
-Weights start from `--seed`, or from a `.safetensors` file the port wrote
-(`--resume`, loaded strictly); `--resume2` then merges a second, possibly
+Weights start from `--seed`; `--resume` merges a `.safetensors` file over
+them as the JAX package's main does (`merge_checkpoint`: entries whose name
+and shape match are taken, position embeddings of another length realigned
+by `--align_posemb`, every missing, mismatched and unexpected entry
+logged); `--resume2` then merges a second, possibly
 partial file over them (`overlay_checkpoint`: a pretrained CLIP tower, in
 the port's or HuggingFace's naming); with `--resume_train_state` the step,
 the optimizer state and the loader's position come back too, and training
@@ -59,7 +62,7 @@ from edgerunner_tpu_torch.train.checkpoint import (
 )
 from edgerunner_tpu_torch.train.trainer import Trainer
 from edgerunner_tpu_torch.utils import get_tokenizer, init_logger
-from edgerunner_tpu_torch.weights import load_state, overlay_checkpoint, read_safetensors
+from edgerunner_tpu_torch.weights import merge_checkpoint, overlay_checkpoint, read_safetensors
 
 
 def save_eval_meshes(trainer: Trainer, test_loader, opt, tokenizer, epoch: int):
@@ -149,7 +152,8 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None) -> T
 
     start_epoch, resume_step, opt_state_path = 0, 0, None
     if opt.resume is not None:
-        load_state(model, read_safetensors(opt.resume))
+        merge_checkpoint(model, read_safetensors(opt.resume), opt.align_posemb,
+                         log=logger.warning)
         logger.info(f"loaded weights from {opt.resume}")
         if opt.resume_train_state:
             start_epoch, resume_step, opt_state_path = restore_train_state(

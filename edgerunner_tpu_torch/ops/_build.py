@@ -43,8 +43,11 @@ _SIGNATURES = {
     "decode_attention_fwd": [_P] * 7 + [_I] * 6 + [_P],
     # D, dtype -> warps of kernel B's grid
     "decode_attention_warps": [_I, _I],
-    # q, k, v, index, out, part_o, part_m, part_l, B, L, H, D, T, dtype, scale, stream
-    "decode_attention_multi_fwd": [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P],
+    # q, k, v, index, out, scratch, ticket, scratch_warps, B, L, H, D, T, dtype, scale,
+    # stream
+    "decode_attention_multi_fwd": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
+    # D, T, dtype -> warps of kernel D's bf16/f32 grid
+    "decode_attention_multi_warps": [_I] * 3,
     # q, kv, plane, index, out, scratch, ticket, scratch_warps, B, L, H, D, T, bits,
     # group, v_lane, q_dtype, scale, stream
     "decode_attention_quant_fwd": [_P] * 7 + [_I] * 10 + [ctypes.c_float, _P],

@@ -18,10 +18,12 @@ hand-written CUDA kernels and their plain versions.
 
 Every kernel takes its positions from an int32 [B] tensor on the device (a
 host int is filled into one on the device); the wrappers never read a
-position on the host. Kernel B and the quantised kinds run on a persistent
-grid that splits the live work evenly and merge their partial sums inside
-the same launch, through a scratch and a ticket buffer that the wrapper
-allocates once per configuration and stream and keeps (`_scratch`).
+position on the host. Kernel B and every kind of kernel D run on a
+persistent grid that splits the live work evenly and merge their partial
+sums inside the same launch, through a scratch and a ticket buffer that the
+wrapper allocates once per configuration and stream and keeps (`_scratch`).
+Kernel D takes its queries in passes of up to three (`query_passes`), each
+pass reading the cache once.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version. The kernels are bound by bytes (see the sources'
@@ -51,20 +53,19 @@ __all__ = ["fused_decode_attention", "fused_decode_attention_multi",
            "fused_decode_attention_q4_reference", "fused_decode_attention_q8",
            "fused_decode_attention_q8_multi", "fused_decode_attention_q8_multi_reference",
            "fused_decode_attention_q8_reference", "fused_decode_attention_reference",
-           "int4_pairs", "query_passes", "quant_slot_floats"]
+           "int4_pairs", "multi_slot_floats", "multi_tickets", "query_passes",
+           "quant_slot_floats"]
 
-# cache positions per block of kernel D's bf16/f32 split
-CHUNK = 256
 # queries per row that the multi-query kernels take
 MAX_T = 8
-# queries the quantised kernel takes per pass over the cache (its registers)
+# queries kernel D takes per pass over the cache (its registers)
 QUERIES_PER_PASS = 3
 # the int4 kind also takes head dim 32 (a head straddling the nibble halves)
 INT4_HEAD_DIMS = (32,) + HEAD_DIMS
 
 
 def query_passes(T: int) -> tuple:
-    """(passes, queries per pass) of the quantised kernel for T queries:
+    """(passes, queries per pass) of kernel D (every kind) for T queries:
     one pass up to QUERIES_PER_PASS, else ceil(T / 3) passes of equal size
     (the last may carry queries past T, which are computed and not written).
     Each pass reads the cache once."""
@@ -84,6 +85,17 @@ def _slot_floats(streams: int, head_dim: int) -> int:
     stream (head of an item, query of a pass) the f32 sums of p*v
     (head_dim), the max and the sum of p; padded to 16 bytes."""
     return -(-streams * (head_dim + 2) // 4) * 4
+
+
+def multi_slot_floats(head_dim: int, T: int) -> int:
+    """Floats of one partial in kernel D's bf16/f32 scratch: its streams
+    are the queries of a pass."""
+    return _slot_floats(query_passes(T)[1], head_dim)
+
+
+def multi_tickets(B: int, num_heads: int, T: int) -> int:
+    """Tickets of kernel D's bf16/f32 launch: one per (row, pass, head)."""
+    return B * query_passes(T)[0] * num_heads
 
 
 def quant_slot_floats(bits: int, num_heads: int, head_dim: int, T: int) -> int:
@@ -253,22 +265,24 @@ def _check_multi(name, q, caches: dict, num_heads: int, head_dims) -> tuple:
 
 
 def _launch_multi(q, k_cache, v_cache, index, num_heads: int) -> torch.Tensor:
-    """Kernel D over a bf16/f32 cache: its split pass and its merge pass,
-    with scratch for this call."""
+    """Kernel D over a bf16/f32 cache, one launch on its persistent grid,
+    with the scratch and tickets kept for its configuration."""
     name = "fused_decode_attention_multi"
     B, T, L, H, D = _check_multi(name, q, {"k_cache": k_cache, "v_cache": v_cache},
                                  num_heads, HEAD_DIMS)
     pos = _positions(index, B, L, T, q.device)
-    splits = -(-L // CHUNK)
-    part_o = torch.empty((splits, B, T, H, D), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((2, splits, B, T, H), dtype=torch.float32, device=q.device)
-    out = torch.empty_like(q)
+    code = DTYPE_CODES[q.dtype]
     lib = _build.load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scratch, ticket, warps = _scratch(
+        ("decode_attention_multi_fwd", D, code, query_passes(T)[1]), q.device, stream,
+        multi_slot_floats(D, T), multi_tickets(B, H, T),
+        lambda: lib.decode_attention_multi_warps(D, T, code))
+    out = torch.empty_like(q)
     err = lib.decode_attention_multi_fwd(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        part_o.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(), B, L, H, D, T,
-        DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        scratch.data_ptr(), ticket.data_ptr(), warps, B, L, H, D, T, code,
+        1.0 / math.sqrt(D), stream)
     _build.check(err, name)
     return out
 

@@ -18,9 +18,9 @@ own launch counts, so that a run tells ring attention's launches apart from
 the point encoder's. Both kernels are bound by operations at the main path's
 shapes (see the sources' notes), and the library chooses their instance by
 dtype, never one for the other: a bf16 tensor launches the bf16 mma.sync
-instances; an f32 tensor launches the forward's 3xTF32 mma.sync instance
+instances; an f32 tensor launches the 3xTF32 mma.sync instances of both
 (each product as three TF32 products of split operands, f32-exact like the
-TPU kernel's f32 dots) and the backward's scalar f32 kernels.
+TPU kernel's f32 dots).
 """
 
 from __future__ import annotations

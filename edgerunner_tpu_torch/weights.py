@@ -12,8 +12,10 @@ mapping. Flax kernels are [in, out], torch weights [out, in].
 `export_lmm` has no name for the multi-token-prediction draft heads
 (`--mtp_heads`): the port names head k `mesh_decoder.mtp_{k}.weight` and
 `.bias`, after the JAX module `mtp_{k}` beside `lm_head`, and carries them
-both ways; a model with draft heads loads only weights that hold them
-(strict=True).
+both ways; through `load_state` (strict=True) a model with draft heads
+loads only weights that hold them, through `--resume` (`merge_checkpoint`)
+it keeps the seed's heads where the file has none, as the JAX package's
+merge does.
 
 A `w_quant` model loads as the JAX package loads one (serve.py:497-505,
 infer.py:124-133): the exact weights cross over into the plain model and
@@ -28,18 +30,24 @@ LMM's tower (cond_mode 'image') crosses over under the same names, both
 ways. tools/export_reference_ckpt.py:export_lmm leaves the tower out, so a
 JAX image checkpoint crosses over through `state_dict_from_flax` (which
 keeps it), or gets its tower through `--resume2` (`overlay_checkpoint`).
-A point_latent LMM
-takes an ArAE checkpoint trained in 'point' mode without its `point_encoder.*`
-entries, which the JAX package's tolerant merge ignores; any other missing or
-extra entry fails the strict load.
 
-`tolerant_merge` is the non-strict load of `main_dit`'s `--resume` and
-`--resume2` (edgerunner_tpu/train/checkpoint.py:84-130): it copies the
-entries whose name and shape match and realigns position embeddings.
+`tolerant_merge` is the non-strict load (edgerunner_tpu/train/checkpoint.py:
+99-130): it copies the entries whose name and shape match, realigns
+position embeddings of another length by `--align_posemb`, keeps the
+model's own value of every other entry, and logs every missing, mismatched
+and unexpected entry. It takes `--resume` in `main`, `infer`, `infer_dit`
+and `serve` (`merge_checkpoint`, over the weights the seed drew, as the JAX
+package's main.py:117-126 and `load_params_for_inference`,
+edgerunner_tpu/train/checkpoint.py:319-333, take it), and `main_dit`'s
+`--resume` and `--resume2`. A point_latent LMM drops an ArAE checkpoint's
+`point_encoder.*` entries first (it has no point encoder). So a JAX-trained
+image checkpoint exported without its tower (export_lmm) loads, the tower
+kept from the seed or taken from `--resume2`.
 `overlay_checkpoint` is the ArAE's `--resume2` in `main` and `infer`
 (edgerunner_tpu/train/checkpoint.py:334-342, main.py:142-149): a partial
 file, such as a pretrained CLIP tower in HuggingFace naming, merged over
-the weights that `--resume` or the seed gave.
+the weights that `--resume` or the seed gave. `load_state` stays strict: it
+is the exact crossover of the parity tests and of `load_mdit`.
 """
 
 from __future__ import annotations
@@ -163,24 +171,33 @@ def load_state(model: torch.nn.Module, state: dict) -> torch.nn.Module:
     return model
 
 
+def merge_checkpoint(model: torch.nn.Module, state: dict, align_posemb: str = "right",
+                     log=print) -> torch.nn.Module:
+    """{name: array} merged over the model's own weights with
+    `tolerant_merge` (every missing, mismatched and unexpected entry logged,
+    position embeddings realigned), loaded in place."""
+    return load_state(model, tolerant_merge(reference_state_dict(model), state,
+                                            align_posemb=align_posemb, log=log))
+
+
 def load_for_inference(model: torch.nn.Module, opt, overlay: Optional[str] = None
                        ) -> torch.nn.Module:
-    """The exact weights into an LMM, from the `.safetensors` file
-    `opt.resume` (strict) or drawn from `opt.seed`; with `overlay` (infer's
-    `--resume2`), that file merged over them (`overlay_checkpoint`); then,
-    with `opt.w_quant`, its decoder projections quantised to int8 in place.
-    Returns it in eval mode. A point_latent LMM drops the file's
-    `point_encoder.*` entries."""
+    """Weights into an LMM as the JAX package's `load_params_for_inference`
+    gives them: drawn from `opt.seed`, then the `.safetensors` file
+    `opt.resume` merged over them (`merge_checkpoint`; a point_latent LMM
+    first drops the file's `point_encoder.*` entries); with `overlay`
+    (infer's `--resume2`), that file merged over them (`overlay_checkpoint`);
+    then, with `opt.w_quant`, its decoder projections quantised to int8 in
+    place. Returns it in eval mode."""
     from edgerunner_tpu_torch.models.lmm import init_weights
     from edgerunner_tpu_torch.ops.w_quant import quantize_lmm_params
 
+    init_weights(model, opt.seed)
     if opt.resume:
         state = read_safetensors(opt.resume)
         if opt.cond_mode == "point_latent":
             state = {k: v for k, v in state.items() if not k.startswith("point_encoder.")}
-        load_state(model, state)
-    else:
-        init_weights(model, opt.seed)
+        merge_checkpoint(model, state, opt.align_posemb)
     if overlay:
         overlay_checkpoint(model, overlay, opt.align_posemb)
         print(f"[INFO] Merged secondary checkpoint from {overlay}")
@@ -252,8 +269,7 @@ def overlay_checkpoint(model, path: str, align_posemb: str = "right", log=print)
     if hf:
         ckpt = {k: v for k, v in ckpt.items() if k not in hf}
         ckpt.update(clip_state_from_hf(hf, "image_encoder."))
-    load_state(model, tolerant_merge(reference_state_dict(model), ckpt,
-                                     align_posemb=align_posemb, log=log))
+    merge_checkpoint(model, ckpt, align_posemb, log=log)
 
 
 def _unlinear(tree, sd, prefix):

@@ -7,7 +7,12 @@ forward as three TF32 products of split operands (3xTF32), with the kernel's
 TF32 keeps 10 mantissa bits: the emulation rounds to nearest with ties away
 from zero (cvt.rna.tf32.f32, which the kernel computes with integer
 instructions), splits x into big = rna(x) and small = rna(x - big), and
-multiplies exactly in f32 (11-bit significands give 22-bit products). It is
+multiplies exactly in f32 (11-bit significands give 22-bit products). Each
+mma.sync adds its eight exact products into its accumulator and truncates
+the sum to f32, toward zero, as the tensor cores add; PV sums each key tile
+in a fresh fragment, which joins the output's accumulator by a rounded f32
+add (chained through one accumulator over the point encoder's 8192 keys,
+the truncations drift past the rule). It is
 held to the JAX package's `flash_attention` (its Pallas kernel in interpret
 mode, as tests/test_flash_attention.py runs it) and to the port's plain
 version under chip_smoke.py's f32 tolerance rule (1e-4 relative plus 1e-5
@@ -49,20 +54,45 @@ def split(x: torch.Tensor):
     return big, tf32_rna(x - big)
 
 
-def matmul_tf32(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
-    """a @ b as the tensor cores compute it from f32 operands: three TF32
-    products (small big + big small first, big big last), or one."""
+def rz(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def mma(c, a, b):
+    """One mma.sync.m16n8k8 as the tensor cores add: c + a b, the eight
+    products of tf32 values exact, the sum truncated to f32."""
+    return rz(c.double() + a.double() @ b.double())
+
+
+def mma_tf32x3(c, a, b, products):
+    """c + a b from f32 operands with k = 8: three TF32 mma.sync (small big,
+    big small, big big), or one, each truncating into c."""
     a_big, a_small = split(a)
     b_big, b_small = split(b)
     if products == 1:
-        return a_big @ b_big
-    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+        return mma(c, a_big, b_big)
+    return mma(mma(mma(c, a_small, b_big), a_big, b_small), a_big, b_big)
 
 
-def flash_tf32_emulated(q, k, v, *, kv_len=None, products=3, perm=PERM, v_perm=None):
+def matmul_tf32(a, b, products):
+    """a @ b over a head dim: one k-step per 8 columns, chained in one fresh
+    fragment."""
+    c = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for kk in range(0, a.shape[-1], 8):
+        c = mma_tf32x3(c, a[..., kk:kk + 8], b[..., kk:kk + 8, :], products)
+    return c
+
+
+def flash_tf32_emulated(q, k, v, *, kv_len=None, products=3, perm=PERM, v_perm=None,
+                        fresh=True):
     """The f32 kernel's forward on [B, N, H, D] / [B, M, H, D] numpy arrays:
     (out [B, N, H, D], lse [B, N, H]). `v_perm` reads V's rows of each chunk
-    in another order than P's columns (a wrong pairing, for the test)."""
+    in another order than P's columns (a wrong pairing, for the test). Each
+    mma.sync truncates into its accumulator; PV sums a key tile in a fresh
+    fragment that joins the output's accumulator by a rounded f32 add, or,
+    with `fresh` False, chains every tile through that accumulator."""
     q, k, v = (torch.from_numpy(x).permute(0, 2, 1, 3) for x in (q, k, v))  # [B, H, *, D]
     B, H, N, D = q.shape
     M = k.shape[2]
@@ -89,8 +119,10 @@ def flash_tf32_emulated(q, k, v, *, kv_len=None, products=3, perm=PERM, v_perm=N
         vt = torch.nn.functional.pad(vt, (0, 0, 0, pad))
         pc = p.reshape(B, H, N, -1, 8)[..., perm]
         vc = vt.reshape(B, H, -1, 8, D)[:, :, :, perm if v_perm is None else v_perm]
+        part = torch.zeros_like(acc) if fresh else acc
         for c in range(pc.shape[3]):  # one k-step per 8 keys, in the kernel's order
-            acc = acc + matmul_tf32(pc[:, :, :, c], vc[:, :, c], products)
+            part = mma_tf32x3(part, pc[:, :, :, c], vc[:, :, c], products)
+        acc = acc + part if fresh else part
         m = mn
     safe = torch.where(l > 0, l, torch.ones(()))
     out = acc / safe[..., None]
@@ -184,3 +216,15 @@ def test_the_key_permutation_pairs_p_and_v_rows_alike():
     crossed, _ = flash_tf32_emulated(q, k, v, v_perm=list(range(8)))
     assert _within_rule(same, ref)
     assert not _within_rule(crossed, ref)
+
+
+def test_pv_sums_each_key_tile_in_a_fresh_fragment():
+    """At the point encoder's 8192 keys, PV chained through one truncating
+    accumulator drifts past the f32 rule; a fresh fragment per 64-key tile,
+    added in f32, holds it."""
+    q, k, v = _inputs(1, 32, 8192, 1, 64, seed=11)
+    ref, _ = _plain(q, k, v)
+    tile, _ = flash_tf32_emulated(q, k, v)
+    chained, _ = flash_tf32_emulated(q, k, v, fresh=False)
+    assert _within_rule(tile, ref)
+    assert not _within_rule(chained, ref)
