@@ -76,11 +76,11 @@ Phases, one JSON line each:
 8. serve     the server as the README starts it (--test_batch_size 8), full
              width, bf16, random weights from seed 0: HTTP requests through
              `build_server` (JAX's JSON, a malformed body answered 400), then
-             the continuous-batching engine alone with the bf16 cache, with
-             --kv_quant true --w_quant true and with --kv_quant true
-             --kv_bits 4: tokens/s, ms per engine step, peak memory, a
-             profiled segment, and exactly one launch of the multi-query
-             kernel per layer and step.
+             the continuous-batching engine alone (8 requests of 512
+             tokens) with the bf16 cache, with --kv_quant true --w_quant
+             true and with --kv_quant true --kv_bits 4: tokens/s, ms per
+             engine step, peak memory, a profiled segment, and exactly one
+             launch of the multi-query kernel per layer and step.
 9. serve_parity  2 layers at full width in f32: every stream the engine
              delivers equals its request's solo `generate_tokens` stream up
              to near-ties, kernel and plain paths, exact and int8 caches.
@@ -111,8 +111,38 @@ Phases, one JSON line each:
              timed steps with row 5's launches held exactly per rank, s/it
              and peak memory per rank, the bytes the ring shifts, the
              parameters' checksum equal on every rank; and the f32 parity of
-             its loss and gradients against one process at 2 layers.
-14. dit      image to mesh at full width (CLIP ViT-H/14, 32 x 1280; the DiT,
+             its loss and gradients against one process at 2 layers. With 4
+             ranks also the f32 parity of a dp 2 x sp 2 step at 2 layers
+             (each dp group 2 rows of its own, each sp rank half of their
+             positions) against one process on the 4 rows.
+14. dp       data parallelism with 2 ranks that share the card (gloo, staged
+             through pinned host memory), spawned from this process: the
+             full-width ArAE training step as main builds its Trainer (bf16
+             autocast, checkpointing and dropout on, bench.py's 2 rows of
+             6147 positions per rank, other rows on each rank): the 4-row
+             batch's loss as the ranks' summed shares against rank 0's
+             single-process loss, then timed steps with launches held to A
+             50 and C 25 per step and rank, s/it per rank, the bytes
+             all-reduced per step, peak memory, the parameters' checksum
+             equal on both ranks; the f32 parity (TF32 off) of a dp 2 step at
+             2 layers against one process on the same 4 rows, the last cut
+             to TRAIN_RAGGED_LEN so that the ranks' label counts differ, and
+             the same for the MDiT (2 DiT and 2 CLIP layers); then `main
+             ArAE --dp_size 2` itself in the ranks (full width, 2 decoder
+             layers, a folder of 10 procedural meshes, one epoch, then
+             --resume_train_state for a second): each rank's items disjoint
+             and equal in count, each checkpoint written once, launches held
+             per step, equal parameters, the resumed run at the saved step.
+             Then the decode fleet: two replicas of the generate phase's
+             model on the card, two threads and two streams, 12 rows, 256
+             tokens, each replica's rows bit-identical to their one-device
+             decode, A and B launched exactly, tokens/s beside one device's;
+             infer's fleet path (`generate_meshes` over [dev, dev], 3
+             repeats in groups of 2, the last alone) bit-identical to one
+             device row by row; and the engine fleet: `build_server` with
+             --dp_size 2 on the card twice, 4 concurrent HTTP requests
+             answered by both engines.
+15. dit      image to mesh at full width (CLIP ViT-H/14, 32 x 1280; the DiT,
              24 x 1024, 16 heads; latents 2048 x 64; the ArAE LMM in
              point_latent mode), random weights from seed 0, one 512 x 512
              image rendered from a procedural mesh's points: infer_dit's
@@ -126,13 +156,13 @@ Phases, one JSON line each:
              bf16 LMM, f32 MDiT): /healthz, two /generate_image requests of
              [224][224][3] floats at 10 and 20 faces (each answered with
              ddim_s), one latent /generate, one malformed image answered 400.
-15. dit_parity  2 DiT and 2 CLIP layers at full width in f32 (TF32 off):
+16. dit_parity  2 DiT and 2 CLIP layers at full width in f32 (TF32 off):
              the kernel path's image condition and latents after a 10-step
              DDIM run against the plain path's from the same noise; then a
              2-layer full-width point_latent LMM decodes greedily from those
              latents, both paths choosing the same token at every step whose
              plain top-2 gap is at least NEAR_TIE.
-16. dit_train  DiT training as `python -m edgerunner_tpu_torch.main_dit DiT`
+17. dit_train  DiT training as `python -m edgerunner_tpu_torch.main_dit DiT`
              runs it, full width (CLIP ViT-H/14 and the point encoder over
              8192 points frozen; the DiT 24 x 1024, 16 heads), random weights
              from seed 0, batch 8 (the preset's), bf16 autocast,
@@ -146,10 +176,10 @@ Phases, one JSON line each:
              kind: A, C, GEMMs, the rest, and the optimizer's from CUDA
              events); then two timed steps at batch 32, bench.py's
              dit_train_probe batch.
-17. dit_train_parity  2 DiT and 2 CLIP layers at full width in f32 (TF32
+18. dit_train_parity  2 DiT and 2 CLIP layers at full width in f32 (TF32
              off): the training loss and every trainable gradient of the
              kernel path against the plain path, from the same draws.
-18. image    the image-conditioned ArAE (the default preset: CLIP ViT-H/14,
+19. image    the image-conditioned ArAE (the default preset: CLIP ViT-H/14,
              257 condition tokens, the decoder 24 x 1024 with 16 heads of
              64) as `infer default` runs it, bf16, random weights from seed
              0, 12 rows of a 512 x 512 render, 1000 faces, EOS forbidden, a
@@ -158,11 +188,11 @@ Phases, one JSON line each:
              (a profiled segment), peak memory; launches held exactly (A 24
              in the prefill, B 24 per decode step); then infer's own path
              after the image's read writes a .ply.
-19. image_parity  2 decoder and 2 CLIP layers at full width in f32 (TF32
+20. image_parity  2 decoder and 2 CLIP layers at full width in f32 (TF32
              off): the kernel path's greedy streams of two images against
              the plain path's up to near-ties (512 steps), and one training
              step's loss and gradients; no gradient reaches the frozen tower.
-20. image_train  `main default` as the CLI runs it, full width, batch 4,
+21. image_train  `main default` as the CLI runs it, full width, batch 4,
              bf16 autocast, checkpointing, synthetic meshes with point-splat
              renders for one epoch in a temporary workspace: launches per
              step held to A 48 and C 24, the tower bit-unchanged, every
@@ -207,8 +237,8 @@ TRAIN_F32_STEPS = 2      # train phase: steps at --mixed_precision no, launches 
 SP_TRAIN_STEPS = 2       # sp phase: timed steps after one warm-up step (three in all)
 GRAD_TOL = 2e-2          # train parity: gradient error over the tensor's largest value
 PHASES = ("build", "kernels", "generate", "generate_q8", "generate_q4", "parity", "parity_q4",
-          "serve", "serve_parity", "spec", "train", "train_parity", "sp", "dit", "dit_parity",
-          "dit_train", "dit_train_parity", "image", "image_parity", "image_train")
+          "serve", "serve_parity", "spec", "train", "train_parity", "sp", "dp", "dit",
+          "dit_parity", "dit_train", "dit_train_parity", "image", "image_parity", "image_train")
 CUT_BUCKET = 512         # the decode bucket of the paths whose budget is cut below the
                          # ArAE's 1024-token bucket, for the run's time on the card
 Q8_BUDGET = 512          # generate_q8: a shorter budget than the bf16 generate phase, for
@@ -221,20 +251,31 @@ SERVE_FACES = (100, 200)  # the HTTP requests' face counts (budgets 1024 and 204
 SERVE_HTTP_REQUESTS = 10  # 8 at once, 2 more while they decode
 SERVE_BENCH_REQUESTS = 8  # into SERVE_ROWS slots (one wave, cut from two for the sp
                           # phase's time), EOS forbidden ...
-SERVE_BENCH_FACES = 100    # ... 1024 tokens each
+SERVE_BENCH_FACES = 80     # ... 512 tokens each in the serve phase's CUT_BUCKET (cut
+                           # from 1024 for the run's time; the cache stays 7680 rows)
 SERVE_BENCH_Q8_REQUESTS = 8  # one wave: the int8 + w_quant engine is slower
 SERVE_BENCH_Q4_REQUESTS = 8  # one wave over the int4 cache (--kv_quant true --kv_bits 4)
 SPEC_HEADS = 2           # --mtp_heads 2 --spec_decode true: verify passes at T = 3
 MTP_STD = 0.02           # the random draft heads' weights (the init's std)
 SPEC_ROWS = ROWS         # spec generate: the headline batch ...
 SPEC_BUDGET = 1024       # ... and a budget cut for time (one decode bucket)
-PROFILE_STEPS = 8        # engine steps in a profiled segment (cut from 16 for the sp
+PROFILE_STEPS = 8        # decode steps in a profiled segment (engine: cut from 16 for the sp
                          # phase's time: the profiler's processing grows with them)
 SERVE_PARITY_FACES = (10, 20, 10, 20, 10, 20)  # 6 staggered requests into 4 slots
 SERVE_PARITY_BUCKET = 128
 NEAR_TIE = 1e-3          # plain top-2 logit gap under which a flip is allowed
 SP_RING_RANKS = (2, 4)   # sp phase: groups of ranks sharing the card, the ring at full width
 SP_TRAIN_RANKS = 2       # ... and the one that also takes the full-width training step
+SP_DP_SP = (2, 2)        # ... and with 4 ranks the dp x sp f32 parity (dp 2 of sp 2)
+DP_RANKS = 2             # dp phase: dp ranks sharing the card, TRAIN_ROWS rows each ...
+DP_TRAIN_STEPS = 2       # ... timed steps after one warm-up step (three in all)
+DP_MAIN_MESHES = 10      # ... then main under dp on procedural meshes, 2 held out, shards of 4 ...
+DP_MAIN_LAYERS = 2       # ... at full width, the decoder cut to 2 layers for time
+FLEET_BUDGET = 256       # dp phase: the fleets' budget and decode bucket (the generate
+                         # phase's rows), cut from 512 for the phase's time
+FLEET_REQUESTS = 4       # dp phase: concurrent HTTP requests to the engine fleet ...
+FLEET_FACES = 10         # ... of 10 faces (a 256-token budget), EOS allowed
+FLEET_INFER_REPEATS = 3  # dp phase: infer's fleet, 3 repeats in groups of 2 (the last alone)
 DIT_REPEATS = 1          # dit: one DDIM run of infer_dit's, test_batch_size 1 (the
                          # device-bound DDIM loop takes ~10 s a repeat) ...
 DIT_BUDGET = 512         # ... and its decode at 1000 faces, the budget cut for time
@@ -1102,7 +1143,7 @@ def phase_generate(dev):
     return res
 
 
-def profile_decode(model, opt, dev, points, max_len, index, steps=32):
+def profile_decode(model, opt, dev, points, max_len, index, steps=PROFILE_STEPS):
     """Device busy share and device time by kernel over `steps` decode steps
     of a generate path (one row per point cloud) from position `index` on
     (torch.profiler's CUDA activity)."""
@@ -1279,7 +1320,7 @@ def phase_generate_q8(dev):
     """The generate path over the int8 KV cache (--kv_quant true): full
     width, bf16, 12 rows, Q8_BUDGET tokens with EOS forbidden. Each decode
     step launches the int8 kernel once per layer: exactly 24 x (steps - 1).
-    Then the device time by kernel over 32 steps at the budget's mean
+    Then the device time by kernel over PROFILE_STEPS steps at the budget's mean
     position."""
     from edgerunner_tpu_torch.ops import decode_attention as DA
 
@@ -1312,7 +1353,7 @@ def phase_generate_q4(dev):
     faces, greedy with EOS forbidden, a Q4_BUDGET-token budget (cut from its
     4096 for time). Each decode step launches row 7's kernel once per layer
     and no other decode kernel: exactly 24 x (steps - 1). Then the device
-    time by kernel over 32 steps at the budget's mean position."""
+    time by kernel over PROFILE_STEPS steps at the budget's mean position."""
     from edgerunner_tpu_torch.infer import load_model
     from edgerunner_tpu_torch.ops import decode_attention as DA
 
@@ -1529,20 +1570,22 @@ def phase_serve(dev):
     from edgerunner_tpu_torch.serve_engine import engine_shape
 
     opt = dataclasses.replace(config_defaults["ArAE"], test_batch_size=SERVE_ROWS)
+    bench_opt = dataclasses.replace(opt, decode_bucket=CUT_BUCKET)
     res = {"layers": opt.num_layers, "hidden": opt.hidden_dim, "dtype": "bfloat16",
            "generate_mode": opt.generate_mode, "cache_len": engine_shape(opt)[2],
            "card": card_line()}
     res["http"], model = serve_http(opt, dev)
     gc.collect()  # the HTTP engine's state
     torch.cuda.empty_cache()
-    res["bench_bf16"], engine = serve_bench(model, opt, dev, DA.fused_decode_attention_multi,
+    res["bench_bf16"], engine = serve_bench(model, bench_opt, dev,
+                                            DA.fused_decode_attention_multi,
                                             SERVE_BENCH_REQUESTS)
     res["bench_bf16"].update(profile_segment(engine, dev, res["bench_bf16"]["ms_per_step"],
                                              "DecodeM<"))
     del engine, model
     gc.collect()
     torch.cuda.empty_cache()
-    q_opt = dataclasses.replace(opt, kv_quant=True, w_quant=True)
+    q_opt = dataclasses.replace(bench_opt, kv_quant=True, w_quant=True)
     model = load_model(q_opt, dev)
     res["bench_int8_wquant"], engine = serve_bench(
         model, q_opt, dev, DA.fused_decode_attention_q8_multi, SERVE_BENCH_Q8_REQUESTS)
@@ -1551,7 +1594,7 @@ def phase_serve(dev):
     del engine, model
     gc.collect()
     torch.cuda.empty_cache()
-    q4_opt = dataclasses.replace(opt, kv_quant=True, kv_bits=4)
+    q4_opt = dataclasses.replace(bench_opt, kv_quant=True, kv_bits=4)
     model = load_model(q4_opt, dev)
     res["bench_int4"], engine = serve_bench(
         model, q4_opt, dev, DA.fused_decode_attention_q4_multi, SERVE_BENCH_Q4_REQUESTS)
@@ -2228,11 +2271,16 @@ def sp_parity(dev, sp) -> dict:
 def sp_rank(rank, R, path):
     """One rank of the sp phase: joins the group through a file under
     `path`, runs the ring at full width and, with SP_TRAIN_RANKS ranks, the
-    training step and its f32 parity; writes its results to
-    path/rank{rank}.json."""
+    training step and its f32 parity, with 4 ranks the dp x sp f32 parity
+    (SP_DP_SP); writes its results to path/rank{rank}.json."""
     import torch.distributed as dist
 
-    from edgerunner_tpu_torch.parallel import SequenceParallel, init_distributed, rank_device
+    from edgerunner_tpu_torch.parallel import (
+        SequenceParallel,
+        init_distributed,
+        make_layout,
+        rank_device,
+    )
 
     os.environ["LOCAL_RANK"] = str(rank)
     dev = rank_device("cuda")
@@ -2248,6 +2296,9 @@ def sp_rank(rank, R, path):
             out["train"] = sp_train(dev, sp)
             torch.cuda.empty_cache()
             out["parity"] = sp_parity(dev, sp)
+        if R == SP_DP_SP[0] * SP_DP_SP[1]:
+            torch.cuda.empty_cache()
+            out["dp_sp_parity"] = lmm_dp_parity(dev, *make_layout(dev, *SP_DP_SP))
     finally:
         dist.destroy_process_group()
     with open(os.path.join(path, f"rank{rank}.json"), "w") as f:
@@ -2259,7 +2310,8 @@ def phase_sp(dev):
     share the card (gloo, pinned host staging), spawned from this process
     with `torch.multiprocessing.spawn`; a rank that fails fails the phase.
     R = 2: the ring at full width, the ArAE training step at full width,
-    its f32 parity at 2 layers. R = 4: the ring at full width."""
+    its f32 parity at 2 layers. R = 4: the ring at full width, then the f32
+    parity of a dp 2 x sp 2 step at 2 layers (`lmm_dp_parity`)."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -2290,7 +2342,535 @@ def phase_sp(dev):
             sums = {rk["train"]["param_checksum"] for rk in ranks}
             res["train_param_checksums_equal"] = len(sums) == 1
             ok = ok and len(sums) == 1
+        if R == SP_DP_SP[0] * SP_DP_SP[1]:
+            ok = ok and ranks[0]["dp_sp_parity"]["ok"]
     res["ok"] = bool(ok)
+    return res
+
+
+# ---------------------------------------------------------------------- dp --
+
+def rows_of(batch: dict, d: int, groups: int) -> dict:
+    """Dp group d's contiguous share of a global batch's rows."""
+    per = len(batch["lengths" if "lengths" in batch else "points"]) // groups
+    return {k: v[d * per:(d + 1) * per] for k, v in batch.items()}
+
+
+def dp_train(dev, dp) -> dict:
+    """(a) The ArAE training step at full width with dp ranks sharing the
+    card: `Trainer` as main builds it, bf16 autocast, checkpointing and
+    dropout on, each rank TRAIN_ROWS rows of its own of bench.py's train
+    batch (a global batch of TRAIN_ROWS x dp rows, 6147 positions each).
+    First the held-out loss of the global batch taken as dp shares
+    (train=False) and summed, against rank 0's single-process loss of the
+    same rows (within 2^-8: one bf16 step); then one warm-up and
+    DP_TRAIN_STEPS timed steps, each step's launches counted from 0 and held
+    to A 2 and C 1 per attention call (the decoder's layers and the point
+    encoder), the bytes the all-reduce sums per step, the parameters'
+    checksum."""
+    from edgerunner_tpu_torch.config import config_defaults
+    from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+    from edgerunner_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from edgerunner_tpu_torch.parallel import all_reduce_, data_parallel
+    from edgerunner_tpu_torch.train.trainer import Trainer
+
+    opt = dataclasses.replace(config_defaults["ArAE"], batch_size=TRAIN_ROWS, dp_size=dp.size)
+    t0 = time.perf_counter()
+    trainer = Trainer(init_weights(LMM(opt, device=dev), SEED), opt, total_steps=1000, dp=dp)
+    trainer.init_state()
+    whole = train_batch(opt, TRAIN_ROWS * dp.size)
+    batch = rows_of(whole, dp.rank, dp.size)
+    setup_s = time.perf_counter() - t0
+    with torch.no_grad(), data_parallel(dp):
+        share = trainer.forward(batch, train=False)["loss"].float().reshape(1)
+    all_reduce_([share], dp.world)
+    res = {"rows_per_rank": TRAIN_ROWS, "global_rows": TRAIN_ROWS * dp.size,
+           "positions": train_positions(opt), "layers": opt.num_layers,
+           "autocast": "bfloat16", "checkpointing": opt.checkpointing, "setup_s": setup_s,
+           "eval_loss_dp": share.item()}
+    if dp.world.rank == 0:
+        with torch.no_grad():
+            res["eval_loss_solo"] = float(trainer.eval_step(whole)["loss"])
+        res["eval_loss_rel_err"] = abs(res["eval_loss_dp"] - res["eval_loss_solo"]) / abs(
+            res["eval_loss_solo"])
+        res["eval_loss_tolerance"] = 2.0 ** -8
+    calls = opt.num_layers + 1
+    want = {"flash_attention_fwd": 2 * calls, "flash_attention_bwd": calls}
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for _ in range(1 + DP_TRAIN_STEPS):
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        summed = all_reduce_.bytes
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t1, **m,
+                      "allreduce_bytes": all_reduce_.bytes - summed, "launches": {
+                          "flash_attention_fwd": flash_attention.launches,
+                          "flash_attention_bwd": flash_attention_bwd.launches}})
+    losses = [st["loss"] for st in steps]
+    res.update(
+        warmup_s=steps[0]["s"], timed_steps=DP_TRAIN_STEPS,
+        s_per_it=sum(st["s"] for st in steps[1:]) / DP_TRAIN_STEPS,
+        s_per_it_label=f"{dp.size} ranks sharing one card",
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        allreduce_bytes_per_step=steps[-1]["allreduce_bytes"],
+        gradient_bytes=sum(p.numel() * p.element_size() for p in trainer.params.values()),
+        losses=losses, grad_norms=[st["grad_norm"] for st in steps],
+        launches_per_step=[st["launches"] for st in steps], launches_expected_per_step=want,
+        param_checksum=param_checksum(trainer.params.values()))
+    ok = (all(st["launches"] == want for st in steps) and all(np.isfinite(losses))
+          and losses[-1] < losses[0])
+    if dp.world.rank == 0:
+        ok = ok and res["eval_loss_rel_err"] <= res["eval_loss_tolerance"]
+    res["ok"] = bool(ok)
+    return res
+
+
+def lmm_dp_parity(dev, dp, sp=None) -> dict:
+    """(b), and (c) with `sp`: 2 layers at full width in f32 (TF32 off),
+    dropout off (train=False): the loss of a global batch of TRAIN_ROWS x dp
+    rows, its last row cut to TRAIN_RAGGED_LEN so that the dp groups' label
+    counts differ (where a mean of the groups' mean losses would miss), taken
+    as this rank's share under the dp (and sp) context and summed over the
+    world, and every parameter's gradient summed over the world, against
+    rank 0's single-process step on the whole batch, under train parity's
+    tolerance."""
+    from edgerunner_tpu_torch.config import config_defaults
+    from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+    from edgerunner_tpu_torch.parallel import all_reduce_, data_parallel, sequence_parallel
+    from edgerunner_tpu_torch.train.trainer import pad_for_sp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sp_size = 1 if sp is None else sp.size
+    opt = dataclasses.replace(config_defaults["ArAE"], num_layers=2, mixed_precision="no",
+                              dp_size=dp.size, sp_size=sp_size)
+    model = init_weights(LMM(opt, device=dev), SEED + 2)
+    params = dict(model.named_parameters())
+    rows = TRAIN_ROWS * dp.size
+    whole = train_batch(opt, rows, lengths=[train_positions(opt)] * (rows - 1)
+                        + [TRAIN_RAGGED_LEN])
+
+    def loss_and_grads(b):
+        b = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        o = model(b["conds"], b["tokens"], b["labels"], b["num_faces"], b["lengths"],
+                  train=False)
+        return o["loss"], list(torch.autograd.grad(o["loss"], list(params.values())))
+
+    mine = rows_of(whole, dp.rank, dp.size)
+    with sequence_parallel(sp), data_parallel(dp):
+        loss, grads = loss_and_grads(pad_for_sp(mine, sp_size, opt.pad_token_id))
+    total = torch.stack([loss.detach()])
+    all_reduce_([total] + grads, dp.world)
+    res = {"layers": 2, "dtype": "float32", "tf32": False, "dp": dp.size, "sp": sp_size,
+           "lengths": whole["lengths"].tolist(), "loss_dp": total.item()}
+    if dp.world.rank != 0:
+        return res
+    loss1, grads1 = loss_and_grads(whole)
+    worst, worst_name, _ = grad_err_over_tol(dict(zip(params, grads)), dict(zip(params, grads1)))
+    loss_err = abs(total.item() - loss1.item()) / abs(loss1.item())
+    res.update(loss_solo=loss1.item(), loss_rel_err=loss_err, grad_tensors=len(grads1),
+               grad_worst_err_over_tol=worst, grad_worst_tensor=worst_name,
+               tolerance=f"loss rel <= 1e-5; per tensor max|dg| <= {GRAD_TOL} * "
+                         "max|g_solo| + 1e-6 * max over tensors of max|g_solo|",
+               ok=loss_err <= 1e-5 and worst <= 1.0)
+    return res
+
+
+def mdit_dp_parity(dev, dp) -> dict:
+    """(b) for the MDiT: 2 DiT and 2 CLIP layers at full width in f32 (TF32
+    off), the point encoder at full width, DIT_PARITY_ROWS synthetic
+    samples per rank and one set of draws (condition dropout, noise,
+    timesteps) for the global batch, each rank taking its rows: the loss as
+    the ranks' summed shares and every trainable gradient summed over the
+    world, against rank 0's single-process loss of the whole batch, under
+    train parity's tolerance."""
+    from edgerunner_tpu_torch.config import config_defaults
+    from edgerunner_tpu_torch.data.dataset_dit import DiTMeshDataset, collate_dit
+    from edgerunner_tpu_torch.models.mdit import MDiT
+    from edgerunner_tpu_torch.parallel import all_reduce_, data_parallel
+    from edgerunner_tpu_torch.train.state import frozen_param_keys, trainable_parameters
+    from edgerunner_tpu_torch.weights import init_mdit_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    R = DIT_PARITY_ROWS * dp.size
+    opt = dataclasses.replace(config_defaults["DiT"], dit_num_layers=2, clip_num_layers=2,
+                              mixed_precision="no", synthetic_size=R, dp_size=dp.size)
+    model = init_mdit_weights(MDiT(opt, device=dev), SEED + 3)
+    params = trainable_parameters(model, frozen_param_keys(opt, "dit"))
+    ds = DiTMeshDataset(opt, training=True)
+    batch = collate_dit([ds[i] for i in range(R)], opt)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    whole = {"images": torch.as_tensor(batch["images"], device=dev),
+             "points": torch.as_tensor(batch["points"], device=dev),
+             "keep": torch.rand((R, 1, 1), generator=g, device=dev) >= 0.1,
+             "noise": torch.randn((R, opt.point_latent_size, opt.point_latent_dim),
+                                  generator=g, device=dev),
+             "t": torch.randint(0, 1000, (R,), generator=g, device=dev)}
+
+    def loss_and_grads(b):
+        out = model(b["images"], b["points"], train=True, keep=b["keep"], noise=b["noise"],
+                    t=b["t"])
+        return out["loss"], list(torch.autograd.grad(out["loss"], list(params.values())))
+
+    with data_parallel(dp):
+        loss, grads = loss_and_grads(rows_of(whole, dp.rank, dp.size))
+    total = torch.stack([loss.detach()])
+    all_reduce_([total] + grads, dp.world)
+    res = {"dit_layers": 2, "clip_layers": 2, "rows": R, "dtype": "float32", "tf32": False,
+           "loss_dp": total.item()}
+    if dp.world.rank != 0:
+        return res
+    loss1, grads1 = loss_and_grads(whole)
+    worst, worst_name, _ = grad_err_over_tol(dict(zip(params, grads)), dict(zip(params, grads1)))
+    loss_err = abs(total.item() - loss1.item()) / abs(loss1.item())
+    res.update(loss_solo=loss1.item(), loss_rel_err=loss_err, grad_tensors=len(grads1),
+               grad_worst_err_over_tol=worst, grad_worst_tensor=worst_name,
+               ok=loss_err <= 1e-5 and worst <= 1.0)
+    return res
+
+
+def dp_rank(rank, R, path):
+    """One rank of the dp phase: joins the group of R ranks through a file
+    under `path`, lays it out as dp R, runs (a), (b) and `main` under dp
+    (`dp_main`); writes its results to path/rank{rank}.json."""
+    import torch.distributed as dist
+
+    from edgerunner_tpu_torch.parallel import init_distributed, make_layout, rank_device
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    dev = rank_device("cuda")
+    backend = init_distributed(dev, rank=rank, world_size=R,
+                               init_method=f"file://{os.path.join(path, 'init')}")
+    dp, _ = make_layout(dev, R, 1)
+    out = {"rank": rank, "device": str(dev), "backend": backend, "describe": dp.describe()}
+    try:
+        out["train"] = dp_train(dev, dp)
+        torch.cuda.empty_cache()
+        out["parity"] = lmm_dp_parity(dev, dp)
+        torch.cuda.empty_cache()
+        out["mdit_parity"] = mdit_dp_parity(dev, dp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["main"] = dp_main(path)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(path, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def fleet_generate(dev) -> tuple:
+    """(d) The decode fleet on the card: `generate_tokens(..., devices=[dev,
+    dev])`, two replicas of the generate phase's model (full width, bf16,
+    random weights from seed 0) on the one card, decoded by two threads on
+    two streams: ROWS rows, 1000 faces, EOS forbidden, FLEET_BUDGET tokens.
+    Each replica's rows must come out bit-identical to the one-device decode
+    of the same rows at the same budget (kernel B divides its work by the
+    batch, so a decode of all ROWS rows at once may round otherwise: its
+    agreement is reported). Kernel A's and B's launches are counted from 0
+    for the fleet's call and held exactly: A once per layer and the encoder,
+    B once per layer and decode step, on each replica. Returns (report, the
+    model)."""
+    from edgerunner_tpu_torch.generate import generate_tokens, replicate_model
+    from edgerunner_tpu_torch.ops.decode_attention import fused_decode_attention
+    from edgerunner_tpu_torch.ops.flash_attention import flash_attention
+
+    opt, *_ = main_path_shapes()
+    opt = dataclasses.replace(opt, generate_mode="greedy", decode_bucket=FLEET_BUDGET)
+    num_new = decode_shape_of(opt, FLEET_BUDGET)[0]
+    model = build_model(opt, dev, torch.bfloat16, SEED)
+    points = np.random.default_rng(SEED).normal(size=(ROWS, opt.point_num, 3)).astype(
+        np.float32)
+
+    def decode(m, pts, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate_tokens(m, pts, num_faces=FACES, max_new_tokens=FLEET_BUDGET,
+                              bench_no_eos=True, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    half = ROWS // 2
+    solo = [decode(model, points[i * half:(i + 1) * half])[0] for i in range(2)]
+    batch, one_s = decode(model, points)
+    devices = [dev, dev]
+    t0 = time.perf_counter()
+    reps = replicate_model(model, devices)
+    replicate_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_attention.launches = fused_decode_attention.launches = 0
+    fleet, fleet_s = decode(reps, points, devices=devices)
+    launches = {"flash_attention_fwd": flash_attention.launches,
+                "fused_decode_attention": fused_decode_attention.launches}
+    want = {"flash_attention_fwd": 2 * (opt.num_layers + 1),
+            "fused_decode_attention": 2 * opt.num_layers * (num_new - 1)}
+    equal = [bool(np.array_equal(fleet[i * half:(i + 1) * half], solo[i])) for i in range(2)]
+    ok = fleet.shape == (ROWS, num_new) and all(equal) and launches == want
+    del reps
+    return {"ok": bool(ok), "rows": ROWS, "replicas": len(devices), "num_new": num_new,
+            "num_faces": FACES, "dtype": "bfloat16", "replicate_s": replicate_s,
+            "fleet_s": fleet_s, "fleet_tokens_per_s": fleet.size / fleet_s,
+            "one_device_s": one_s, "one_device_tokens_per_s": batch.size / one_s,
+            "equal_to_one_device_per_replica": equal,
+            "equal_to_one_batch_of_all_rows": bool(np.array_equal(fleet, batch)),
+            "fleet_peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "launches": launches, "launches_expected": want}, model
+
+
+def fleet_infer(dev, model) -> dict:
+    """(d') infer's fleet path: `infer.generate_meshes` with devices [dev,
+    dev] and the replicas `infer.main` makes (`replicate_model`) of
+    `fleet_generate`'s model, greedy, infer's seeded generator,
+    FLEET_INFER_REPEATS repeats of one point cloud in groups of 2 (the
+    last group, of 1, decodes on the first replica, infer.py:79-82),
+    FLEET_BUDGET tokens, EOS allowed; against `generate_meshes` on the
+    model alone, one row at a time: the same files, every tokens file
+    bit-identical."""
+    import tempfile
+
+    from edgerunner_tpu_torch.generate import replicate_model
+    from edgerunner_tpu_torch.infer import generate_meshes
+    from edgerunner_tpu_torch.utils import get_tokenizer
+
+    cond = np.random.default_rng(SEED + 3).normal(size=(1, model.opt.point_num, 3)).astype(
+        np.float32)
+    tokenizer, _ = get_tokenizer(model.opt)
+    devices = [dev, dev]
+    tokens, seconds = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for batch, m, devs in ((1, model, None), (2, replicate_model(model, devices), devices)):
+            opt = dataclasses.replace(
+                model.opt, workspace=os.path.join(tmp, f"b{batch}"), test_batch_size=batch,
+                test_repeat=FLEET_INFER_REPEATS, test_num_face=(FACES,),
+                test_max_seq_length=FLEET_BUDGET)
+            gen = torch.Generator(device=dev).manual_seed(opt.seed)
+            t0 = time.perf_counter()
+            paths = generate_meshes(opt, m, tokenizer, "fleet", cond, gen, devices=devs)
+            seconds.append(time.perf_counter() - t0)
+            tokens.append({os.path.basename(p): np.load(p.replace(".ply", "_tokens.npy"))
+                           for p in paths})
+            del m
+    same = (tokens[0].keys() == tokens[1].keys()
+            and all(np.array_equal(tokens[0][k], tokens[1][k]) for k in tokens[0]))
+    return {"ok": bool(same and len(tokens[0]) == FLEET_INFER_REPEATS),
+            "repeats": FLEET_INFER_REPEATS, "groups_of": 2, "budget": FLEET_BUDGET,
+            "files": sorted(tokens[1]), "tokens_per_file": [len(t) for t in tokens[1].values()],
+            "equal_to_one_device_row_by_row": bool(same), "one_device_s": seconds[0],
+            "fleet_s": seconds[1]}
+
+
+def fleet_serve(dev, model) -> dict:
+    """(e) The engine fleet: `build_server` with --dp_size 2 on [dev, dev]
+    (two engines, the model and one replica), FLEET_REQUESTS concurrent
+    HTTP requests of FLEET_FACES faces: every request answered, both
+    engines taking at least one, /statz listing 2 engines whose counts add
+    up; kernel D launched exactly once per layer and engine step."""
+    import threading
+
+    from edgerunner_tpu_torch.ops.decode_attention import fused_decode_attention_multi
+    from edgerunner_tpu_torch.serve import build_server
+
+    opt = dataclasses.replace(model.opt, dp_size=2, test_batch_size=FLEET_REQUESTS // 2,
+                              test_num_face=(FLEET_FACES,))
+    server, fleet = build_server(opt, port=0, device=str(dev), model=model, devices=[dev, dev])
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    rng = np.random.default_rng(SEED + 7)
+    bodies = [{"points": rng.normal(size=(3000, 3)).tolist(), "num_faces": FLEET_FACES,
+               "seed": i} for i in range(FLEET_REQUESTS)]
+    answers = [None] * len(bodies)
+    for fn in decode_wrappers():
+        fn.launches = 0
+    steps0 = [fe.engine.steps for fe in fleet.frontends]
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lambda i=i: answers.__setitem__(
+            i, http(port, "/generate", bodies[i]))) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        statz = http(port, "/statz")
+    finally:
+        server.shutdown()
+        server.server_close()
+        fleet.shutdown()
+        for fe in fleet.frontends:
+            fe.engine.thread.join()
+    steps = [fe.engine.steps - s for fe, s in zip(fleet.frontends, steps0)]
+    launches = {fn.__name__: fn.launches for fn in decode_wrappers()}
+    want = {name: (opt.num_layers * sum(steps)
+                   if name == fused_decode_attention_multi.__name__ else 0)
+            for name in launches}
+    engines = statz[1].get("engines", [])
+    good = [a is not None and a[0] == 200 and len(a[1]["tokens"]) > 0 for a in answers]
+    ok = (all(good) and statz[0] == 200 and len(engines) == 2
+          and all(e["requests_done"] >= 1 for e in engines)
+          and statz[1]["requests_done"] == len(bodies) and launches == want)
+    return {"ok": bool(ok), "engines": 2, "slots_per_engine": opt.test_batch_size,
+            "requests": len(bodies), "num_faces": FLEET_FACES, "wall_s": wall,
+            "answers_ok": sum(good), "engine_steps": steps,
+            "requests_per_engine": [e["requests_done"] for e in engines],
+            "tokens": [len(a[1]["tokens"]) for a in answers if a and a[0] == 200],
+            "launches": launches, "launches_expected": want}
+
+
+def dp_main_argv(data_root: str, workspace: str, *more) -> list:
+    """main's command line in the dp phase: the ArAE preset at full width,
+    the decoder cut to DP_MAIN_LAYERS, TRAIN_ROWS rows per rank, one epoch."""
+    return ["ArAE", "--dp_size", str(DP_RANKS), "--data_root", data_root, "--workspace",
+            workspace, "--num_layers", str(DP_MAIN_LAYERS), "--batch_size", str(TRAIN_ROWS),
+            "--testset_size", "2", "--num_epochs", "1", "--num_workers", "2",
+            "--seed", str(SEED), *more]
+
+
+def dp_main(path: str) -> dict:
+    """(a') `main ArAE --dp_size 2` as torchrun runs it, called in this
+    rank's process of the dp phase's world (`run_ranks` takes the world
+    that is there): full width, the decoder cut to DP_MAIN_LAYERS, bf16
+    autocast, checkpointing and dropout, TRAIN_ROWS rows per rank, the
+    folder of DP_MAIN_MESHES procedural meshes under `path` for one epoch;
+    then `--resume_train_state` from that epoch's checkpoint for a second,
+    in a workspace of its own. This rank's train items (`shard_train_items`),
+    the checkpoints it wrote (`CheckpointManager` over the world), each
+    step's launches held to A 2 and C 1 per attention call, its losses,
+    the parameters' checksum, and the step the resumed run started at."""
+    from edgerunner_tpu_torch import main as main_cli
+    from edgerunner_tpu_torch.train import checkpoint, ranks
+
+    writes, shards, steps = [], [], []
+    write, shard = checkpoint.CheckpointManager._write, ranks.shard_items_for_host
+
+    def counted(self, tag, *a, **kw):
+        writes.append(tag)
+        return write(self, tag, *a, **kw)
+
+    def recorded(items, r, world):
+        shards.append(shard(items, r, world))
+        return shards[-1]
+
+    data_root, ws = os.path.join(path, "meshes"), os.path.join(path, "main_ws")
+    checkpoint.CheckpointManager._write, ranks.shard_items_for_host = counted, recorded
+    t0 = time.perf_counter()
+    try:
+        with counted_train_steps(steps, {}):
+            trainer = main_cli.main(dp_main_argv(data_root, ws))
+            n_first, first_step, first_writes = len(steps), trainer.step, len(writes)
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            trainer = main_cli.main(dp_main_argv(
+                data_root, os.path.join(path, "main_ws_resumed"), "--num_epochs", "2",
+                "--resume", os.path.join(ws, "ep0000", "model.safetensors"),
+                "--resume_train_state"))
+    finally:
+        checkpoint.CheckpointManager._write, ranks.shard_items_for_host = write, shard
+    L = trainer.opt.num_layers
+    want = {"flash_attention_fwd": 2 * (L + 1), "flash_attention_bwd": L + 1}
+    losses = [st["loss"] for st in steps]
+    res = {"layers": L, "hidden": trainer.opt.hidden_dim, "dp_size": trainer.dp.size,
+           "rows_per_rank": trainer.opt.batch_size, "seconds": time.perf_counter() - t0,
+           "items": shards[0] if shards else [], "steps_first_run": n_first,
+           "first_run_end_step": first_step,
+           "resumed_start_step": trainer.step - (len(steps) - n_first),
+           "resumed_end_step": trainer.step, "writes_first_run": first_writes,
+           "writes": len(writes), "losses": losses,
+           "launches_per_step": [st["launches"] for st in steps],
+           "launches_expected_per_step": want,
+           "param_checksum": param_checksum(trainer.params.values())}
+    res["ok"] = bool(all(st["launches"] == want for st in steps) and all(np.isfinite(losses))
+                     and n_first > 0 and len(steps) == 2 * n_first
+                     and res["resumed_start_step"] == first_step)
+    del trainer
+    return res
+
+
+def dp_main_meshes(root: str) -> None:
+    """DP_MAIN_MESHES jittered icospheres of 320 faces, each its own .obj."""
+    from edgerunner_tpu_torch.data import save_mesh_file
+    from edgerunner_tpu_torch.data._procgen import icosphere
+
+    os.makedirs(root)
+    v, f = icosphere(2)
+    rng = np.random.default_rng(SEED)
+    for i in range(DP_MAIN_MESHES):
+        save_mesh_file(os.path.join(root, f"m{i:02d}.obj"),
+                       v * rng.uniform(0.5, 1.0, 3) + rng.normal(0, 0.02, v.shape), f)
+
+
+def dp_ranks(dev, R) -> dict:
+    """`dp_rank` on R spawned ranks (rank r on cuda:r % device_count): their
+    results, the backend against `choose_backend`'s, and whether the
+    training step's launches held and its parameters ended equal on every
+    rank, and whether `main` under dp sharded the items disjoint and equal,
+    wrote each checkpoint once (rank 0) and left equal parameters."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from edgerunner_tpu_torch.parallel import choose_backend
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_main_meshes(os.path.join(tmp, "meshes"))
+        t0 = time.perf_counter()
+        mp.spawn(dp_rank, args=(R, tmp), nprocs=R, join=True)
+        ranks = []
+        for r in range(R):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        saved = [os.path.exists(os.path.join(tmp, ws, ep, "model.safetensors"))
+                 for ws, ep in (("main_ws", "ep0000"), ("main_ws_resumed", "ep0001"))]
+    sums = {rk["train"]["param_checksum"] for rk in ranks}
+    mains = [rk["main"] for rk in ranks]
+    items = [set(m["items"]) for m in mains]
+    shard = (DP_MAIN_MESHES - 2) // R
+    main_res = {
+        "items_per_rank": [len(i) for i in items],
+        "items_disjoint": len(set().union(*items)) == sum(len(i) for i in items),
+        "writes_per_rank": [m["writes"] for m in mains], "checkpoints_saved": saved,
+        "param_checksums_equal": len({m["param_checksum"] for m in mains}) == 1,
+        "losses_equal": all(m["losses"] == mains[0]["losses"] for m in mains)}
+    main_res["ok"] = bool(
+        all(m["ok"] for m in mains) and main_res["items_per_rank"] == [shard] * R
+        and main_res["items_disjoint"] and all(saved)
+        and main_res["writes_per_rank"] == [2] + [0] * (R - 1)
+        and mains[0]["writes_first_run"] == 1
+        and main_res["param_checksums_equal"] and main_res["losses_equal"])
+    res = {"ranks_s": time.perf_counter() - t0, "backend": ranks[0]["backend"],
+           "expected_backend": choose_backend(dev, R),
+           "train_param_checksums_equal": len(sums) == 1, "main": main_res, "ranks": ranks}
+    res["ok"] = (res["backend"] == res["expected_backend"] and len(sums) == 1
+                 and all(rk["train"]["ok"] for rk in ranks) and main_res["ok"])
+    return res
+
+
+def phase_dp(dev):
+    """Data parallelism on the card: DP_RANKS ranks that share the card
+    (gloo, pinned host staging), spawned from this process; a rank that
+    fails fails the phase. (a) the full-width ArAE training step
+    (`dp_train`), (b) the f32 parities of the LMM and the MDiT at 2 layers
+    (`lmm_dp_parity`, `mdit_dp_parity`); the parameters' checksum must be
+    equal on every rank; then `main` under dp (`dp_main`). Then, in this
+    process, (d) the decode fleet (`fleet_generate`, then infer's path,
+    `fleet_infer`) and (e) the engine fleet (`fleet_serve`). The dp x sp
+    parity (c) runs in the sp phase's 4-rank spawn."""
+    res = {"card": card_line(), **dp_ranks(dev, DP_RANKS)}
+    ok = res["ok"] and res["ranks"][0]["parity"]["ok"] and res["ranks"][0]["mdit_parity"]["ok"]
+    t1 = time.perf_counter()
+    res["fleet"], model = fleet_generate(dev)
+    res["fleet"]["seconds"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    res["infer_fleet"] = fleet_infer(dev, model)
+    res["infer_fleet"]["seconds"] = time.perf_counter() - t2
+    t3 = time.perf_counter()
+    res["engine_fleet"] = fleet_serve(dev, model)
+    res["engine_fleet"]["seconds"] = time.perf_counter() - t3
+    res["ok"] = bool(ok and res["fleet"]["ok"] and res["infer_fleet"]["ok"]
+                     and res["engine_fleet"]["ok"])
     return res
 
 
@@ -2833,7 +3413,7 @@ def phase_image(dev):
     launches held exactly, counted from 0 over the generate call: kernel A
     once per decoder layer in the prefill (the CLIP tower attends plainly,
     at head dim 80), kernel B once per layer and decode step, no other
-    decode kernel. A profiled segment of 32 steps gives device ms per step.
+    decode kernel. A profiled segment of PROFILE_STEPS steps gives device ms per step.
     Then infer's own path after the image's read (`infer.generate_meshes`)
     on one image, as `infer default --test_max_seq_length 256
     --decode_bucket 256` runs it, writes a .ply and its tokens."""
@@ -3058,9 +3638,13 @@ def kernels_line(results):
     (kernel A in one DDIM run and in the f32 prefill, kernel B's f32
     decode), DiT training (kernels A and C, per step) and the
     image-conditioned ArAE (kernels A and B in its generate call, A and C
-    per training step)."""
-    kern, gen, train, serve, spec, sp = (results[k] for k in (
-        "kernels", "generate", "train", "serve", "spec", "sp"))
+    per training step), and data parallelism (A and C per step and rank of
+    the dp training step, A and B in the decode fleet's call, D in the
+    engine fleet's requests)."""
+    kern, gen, train, serve, spec, sp, dp = (results[k] for k in (
+        "kernels", "generate", "train", "serve", "spec", "sp", "dp"))
+    dp_train_step = dp["ranks"][0]["train"]["launches_per_step"][-1]
+    fleet, engine_fleet = dp["fleet"]["launches"], dp["engine_fleet"]["launches"]
     dit_train = results["dit_train"]["launches_per_step"][-1]
     dit = results["dit"]["cli"]
     image, image_train = results["image"], results["image_train"]["launches_per_step"][-1]
@@ -3118,7 +3702,10 @@ def kernels_line(results):
                                 "dit_decode": dit["launches"]["flash_attention_fwd"],
                                 "dit_train_per_step": dit_train["flash_attention_fwd"],
                                 "image": image["launches"]["flash_attention_fwd"],
-                                "image_train_per_step": image_train["flash_attention_fwd"]},
+                                "image_train_per_step": image_train["flash_attention_fwd"],
+                                "dp_train_per_step_and_rank":
+                                    dp_train_step["flash_attention_fwd"],
+                                "dp_fleet": fleet["flash_attention_fwd"]},
               encoder_shape=sub(case(kern["flash"], "encoder (main")),
               train_decoder_shape=sub(case(kern["flash"], "decoder train")),
               train_encoder_shape=sub(case(kern["flash"], "encoder train")),
@@ -3135,7 +3722,8 @@ def kernels_line(results):
               gen["launches"]["fused_decode_attention"], dec, index=dec["index"],
               launches_by_path={"generate": gen["launches"]["fused_decode_attention"],
                                 "dit_decode_f32": dit["launches"]["fused_decode_attention"],
-                                "image": image["launches"]["fused_decode_attention"]},
+                                "image": image["launches"]["fused_decode_attention"],
+                                "dp_fleet": fleet["fused_decode_attention"]},
               image_d64_shape=sub(case(kern["decode"], "image index"))),
         entry("flash_attention_bwd", "flash_bwd.cu", "edgerunner_tpu/ops/flash_attention.py:520",
               train["launches"]["flash_attention_bwd"], bwd, lengths=bwd["kv_len"],
@@ -3143,7 +3731,9 @@ def kernels_line(results):
                                 "train_f32_per_step":
                                     train["f32"]["launches_per_step"][-1]["flash_attention_bwd"],
                                 "dit_train_per_step": dit_train["flash_attention_bwd"],
-                                "image_train_per_step": image_train["flash_attention_bwd"]},
+                                "image_train_per_step": image_train["flash_attention_bwd"],
+                                "dp_train_per_step_and_rank":
+                                    dp_train_step["flash_attention_bwd"]},
               encoder_shape=sub(case(kern["flash_bwd"], "encoder train")),
               **{f"dit_train_{kind}_shape": sub(case(kern["flash_bwd"], f"dit train {kind}"))
                  for kind in ("self", "cross")},
@@ -3155,9 +3745,10 @@ def kernels_line(results):
               "edgerunner_tpu/ops/decode_attention_pallas.py:585",
               bench_bf16["launches"]["fused_decode_attention_multi"],
               case(multi, "engine bf16 T=1"), index=case(multi, "engine bf16 T=1")["index"],
-              launches_by_path=by_path("fused_decode_attention_multi", serve=bench_bf16,
-                                       spec_generate=spec["generate_bf16"],
-                                       spec_engine=spec["engine_bf16"]),
+              launches_by_path={**by_path("fused_decode_attention_multi", serve=bench_bf16,
+                                          spec_generate=spec["generate_bf16"],
+                                          spec_engine=spec["engine_bf16"]),
+                                "dp_engine_fleet": engine_fleet["fused_decode_attention_multi"]},
               t3_shape=sub(case(multi, "engine bf16 T=3")),
               f32_shape=sub(case(multi, "engine f32 T=1"))),
         entry("fused_decode_attention_q8_multi", "decode_attention_quant.cu",
@@ -3221,7 +3812,8 @@ def main(argv=None) -> int:
             "parity_q4": lambda: phase_parity_q4(dev), "serve": lambda: phase_serve(dev),
             "serve_parity": lambda: phase_serve_parity(dev), "spec": lambda: phase_spec(dev),
             "train": lambda: phase_train(dev), "train_parity": lambda: phase_train_parity(dev),
-            "sp": lambda: phase_sp(dev), "dit": lambda: phase_dit(dev),
+            "sp": lambda: phase_sp(dev), "dp": lambda: phase_dp(dev),
+            "dit": lambda: phase_dit(dev),
             "dit_parity": lambda: phase_dit_parity(dev),
             "dit_train": lambda: phase_dit_train(dev),
             "dit_train_parity": lambda: phase_dit_train_parity(dev),

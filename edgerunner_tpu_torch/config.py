@@ -154,8 +154,10 @@ class Options:
     # like the reference's --resume)
     resume_train_state: bool = False
 
-    ### parallelism (the JAX package's mesh axes; the port runs sp only)
-    # data-parallel axis size; -1 = all remaining devices
+    ### parallelism (the JAX package's mesh axes; the port runs dp and sp)
+    # data-parallel axis size; -1 = all remaining devices (the port's main
+    # and main_dit: the torchrun world / sp_size; infer and serve decode on
+    # one device unless dp_size > 1, which makes a fleet of that many)
     dp_size: int = -1
     # tensor-parallel axis size (sharded attention heads / MLP)
     tp_size: int = 1
@@ -463,9 +465,8 @@ def validate(opt: Options) -> Options:
         raise ValueError(f"--mtp_heads must be >= 0, got {opt.mtp_heads}")
     if opt.sp_size < 1:
         raise ValueError(f"--sp_size must be >= 1, got {opt.sp_size}")
-    if opt.dp_size > 1:
-        raise ValueError("the port splits a batch over ranks by sequence only: "
-                         "--sp_size is supported, --dp_size > 1 is not yet")
+    if opt.dp_size == 0 or opt.dp_size < -1:
+        raise ValueError(f"--dp_size is -1 (the world / sp) or >= 1, got {opt.dp_size}")
     if opt.eval_mode == "generate":
         raise ValueError("the port does not implement --eval_mode generate yet")
     if len(urllib.parse.urlparse(opt.data_root).scheme) > 1 or ":" in opt.data_root:

@@ -40,6 +40,8 @@
 // 0 for the next launch. One launch, no second kernel.
 #pragma once
 
+#include <atomic>
+
 #include "mma.cuh"
 
 namespace edgerunner {
@@ -377,19 +379,28 @@ decode_kernel(const __grid_constant__ typename K::Params p, float* __restrict__ 
   run_warp(k, mine, scratch, ticket);
 }
 
-// Blocks of the persistent grid: as many as fit on every SM at once.
+// Blocks of the persistent grid on the current device: as many as fit on
+// every SM at once. A kernel's shared-memory attribute belongs to one
+// device's context, so it is set, and the count taken, once per device: a
+// process that decodes on several cards (a decode fleet) launches on each.
+constexpr int kMaxDevices = 64;
+
 template <class K>
 int grid_blocks() {
-  static const int blocks = [] {
+  static std::atomic<int> blocks[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
+  int n = blocks[dev].load(std::memory_order_acquire);
+  if (n == 0) {
     const int smem = kWarps * K::kWarpBytes;
+    int sms = 0, per_sm = 0;
     cudaFuncSetAttribute(decode_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_kernel<K>, kThreads, smem);
-    return sms * per_sm;
-  }();
-  return blocks;
+    n = sms * per_sm;
+    blocks[dev].store(n, std::memory_order_release);
+  }
+  return n;
 }
 
 // Launches K over a scratch of `scratch_warps` warps' slots; returns the CUDA

@@ -191,6 +191,16 @@ class MeshFolderDataset:
         raise RuntimeError("dataset: too many consecutive bad samples")
 
 
+def shard_items_for_host(items: list, rank: int, world: int) -> list:
+    """Dp group `rank`'s disjoint share of `items` out of `world` groups
+    (edgerunner_tpu/data/dataset.py:310-317): every `world`-th item from
+    `rank`, trimmed so that every group holds the same count. One extra
+    item could cross a batch boundary and give a group an extra step, which
+    would wait forever for the others at the gradients' all-reduce."""
+    n = len(items) // world
+    return items[rank::world][:n]
+
+
 class SyntheticMeshDataset:
     """Procedural meshes (jittered icospheres, boxes, fans) for tests and
     benchmarks without downloaded data. Training samples derive from

@@ -25,11 +25,19 @@ DECODE_CHUNK passes as above. The JAX loop also stops accepting at its
 segment boundaries (every 2048 tokens), which moves no token. Without
 mtp_heads, or outside greedy mode, spec_decode warns and decodes vanilla,
 as the JAX package does.
+
+With `devices` the decode runs as the JAX package's fleet
+(generate.py:300-350): the batch rows split evenly over the devices, one
+replica of the model on each (`replicate_model`), one worker thread per
+device with a CUDA stream of its own, and the rows come back in order.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import copy
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -79,7 +87,8 @@ def generate_tokens(model: LMM, conds, *, num_faces: int = 1000,
                     max_new_tokens: Optional[int] = None,
                     generator=None,
                     use_grammar: bool = True,
-                    bench_no_eos: bool = False) -> np.ndarray:
+                    bench_no_eos: bool = False,
+                    devices: Optional[Sequence] = None) -> np.ndarray:
     """Generate mesh token streams (reference: LMM.generate, models.py:204-303).
 
     conds: [B, N, 3] points for point conditioning, or [B, L, D] latents
@@ -94,7 +103,18 @@ def generate_tokens(model: LMM, conds, *, num_faces: int = 1000,
     lives inside the model; `opt.spec_decode` decodes speculatively (module
     docstring).
     `bench_no_eos` forbids EOS so that every row decodes the full budget.
+    `devices` decodes as a fleet (`generate_fleet`); `model` may be one
+    model or the list of its replicas that `replicate_model` made for
+    those devices, and without `devices` a list decodes on its first
+    replica, as the JAX package's replica list does.
     """
+    if devices is not None:
+        return generate_fleet(model, conds, devices, num_faces=num_faces,
+                              resume_ids=resume_ids, max_new_tokens=max_new_tokens,
+                              generator=generator, use_grammar=use_grammar,
+                              bench_no_eos=bench_no_eos)
+    if isinstance(model, (list, tuple)):
+        model = model[0]
     opt = model.opt
     device = next(model.parameters()).device
     conds = torch.as_tensor(conds, device=device)
@@ -125,6 +145,78 @@ def generate_tokens(model: LMM, conds, *, num_faces: int = 1000,
     if resume_ids is not None:
         out = np.concatenate([np.asarray(resume_ids, np.int64), out], axis=1)
     return out
+
+
+def replicate_model(model: LMM, devices: Sequence) -> list:
+    """One replica of `model` per entry of `devices`, made once (the JAX
+    package's `replicate_params`, generate.py:300-306): the model itself for
+    the first entry when it lives there, a copy for every other entry, so a
+    device named twice holds two replicas."""
+    own = next(model.parameters()).device
+    reps = []
+    for i, dev in enumerate(torch.device(d) for d in devices):
+        reps.append(model if i == 0 and dev == own else copy.deepcopy(model).to(dev))
+    return reps
+
+
+def row_generators(generator, rows: int, devices: Sequence, seed: int) -> list:
+    """One generator per row on the row's fleet device, seeded with the
+    row's own draw from `generator` (or from a CPU generator seeded with
+    `seed`), so that a row's sampled stream depends on its seed alone, not
+    on where it is decoded (the JAX fleet's per-row keys, generate.py:330-335)."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(seed)
+    seeds = torch.randint(0, 2 ** 62, (rows,), generator=generator,
+                          device=generator.device).tolist()
+    per = rows // len(devices)
+    return [torch.Generator(device=torch.device(devices[r // per])).manual_seed(s)
+            for r, s in enumerate(seeds)]
+
+
+def generate_fleet(model, conds, devices: Sequence, *, generator=None,
+                   resume_ids: Optional[np.ndarray] = None, **kw) -> np.ndarray:
+    """`generate_tokens` over a fleet of devices (generate.py:309-350): rows
+    split evenly (a batch that does not divide raises), one replica each
+    (`model` a list of replicas, or one model replicated for this call),
+    one worker thread per device, which sets its card, decodes on a CUDA
+    stream of its own and enters `torch.inference_mode()` itself (grad mode
+    is thread-local); the results come back in row order. Greedy tokens of
+    each replica's rows are those of one device decoding those rows alone
+    (in bf16 a decode of all rows at once may round otherwise: the decode
+    kernel divides its work by the batch). Sampling takes `generator` as a list of one
+    generator per row, each on its row's device, or else draws one per row
+    from it (`row_generators`)."""
+    devices = [torch.device(d) for d in devices]
+    reps = model if isinstance(model, (list, tuple)) else replicate_model(model, devices)
+    if len(reps) != len(devices):
+        raise ValueError(f"{len(reps)} replicas for {len(devices)} devices")
+    conds = np.asarray(conds.cpu() if isinstance(conds, torch.Tensor) else conds)
+    B, n = conds.shape[0], len(devices)
+    if B % n:
+        raise ValueError(f"fleet decode: the batch ({B} rows) must divide over the "
+                         f"{n} devices")
+    per = B // n
+    if not isinstance(generator, (list, tuple)):
+        generator = row_generators(generator, B, devices, reps[0].opt.seed)
+
+    def run(i: int) -> np.ndarray:
+        dev, rows = devices[i], slice(i * per, (i + 1) * per)
+        stream = contextlib.nullcontext()
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            # the weights were written on the default stream
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.default_stream(dev))
+            stream = torch.cuda.stream(side)
+        with torch.inference_mode(), stream:
+            return generate_tokens(
+                reps[i], conds[rows], generator=list(generator[rows]),
+                resume_ids=None if resume_ids is None else np.asarray(resume_ids)[rows],
+                **kw)
+
+    with ThreadPoolExecutor(n) as pool:
+        outs = list(pool.map(run, range(n)))
+    return np.concatenate(outs, axis=0)
 
 
 def _decode(model, opt, G, vocab, logits, caches, plen, state, num_new, generator,

@@ -20,6 +20,13 @@ decoder's projections after the weights load; `--mtp_heads N --spec_decode
 true --generate_mode greedy` decodes speculatively with the draft heads of
 the weights. The model runs on the card unless `--device cpu` is given;
 without a card and without `--device cpu` it raises.
+
+`--dp_size N` (N > 1) decodes as a fleet (generate.py `generate_fleet`):
+one replica of the model on each of cuda:0 .. N-1 (N replicas on the CPU
+with `--device cpu`), `--test_batch_size` rows split over them; it raises
+when fewer cards are present or when the batch does not divide by N. A
+trailing repeat group that does not divide decodes on the first device
+(infer.py:79-82).
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import torch
 
 from edgerunner_tpu_torch.config import parse_cli, validate
 from edgerunner_tpu_torch.data import clean_mesh, load_mesh, normalize_mesh, save_mesh, save_mesh_file
-from edgerunner_tpu_torch.generate import generate_tokens, trim_eos
+from edgerunner_tpu_torch.generate import generate_tokens, replicate_model, trim_eos
 from edgerunner_tpu_torch.models.lmm import LMM
 from edgerunner_tpu_torch.ops.pointops import sample_surface_points
 from edgerunner_tpu_torch.utils import get_tokenizer
@@ -78,22 +85,38 @@ def prepare_cond(opt, path: str, rng: np.random.Generator) -> np.ndarray:
                      "(point_latent: python -m edgerunner_tpu_torch.infer_dit)")
 
 
-def process(opt, model: LMM, tokenizer, path: str, generator: torch.Generator):
+def fleet_devices(n: int, device: torch.device) -> List[torch.device]:
+    """The devices of a fleet of `n` (`--dp_size`): cuda:0 .. n-1, raising
+    when fewer cards are present, or n times the CPU."""
+    if device.type != "cuda":
+        return [device] * n
+    if torch.cuda.device_count() < n:
+        raise RuntimeError(f"--dp_size {n} needs as many cards, and "
+                           f"{torch.cuda.device_count()} are present")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def process(opt, model, tokenizer, path: str, generator: torch.Generator,
+            devices: Optional[List[torch.device]] = None):
     name = os.path.splitext(os.path.basename(path))[0]
     os.makedirs(opt.workspace, exist_ok=True)
     cond = prepare_cond(opt, path, np.random.default_rng(opt.seed))
     if opt.cond_mode == "point":
         save_mesh_file(os.path.join(opt.workspace, f"{name}_pc.obj"), cond[0],
                        np.zeros((0, 3), np.int64))
-    generate_meshes(opt, model, tokenizer, name, cond, generator, source=path)
+    generate_meshes(opt, model, tokenizer, name, cond, generator, source=path,
+                    devices=devices)
 
 
-def generate_meshes(opt, model: LMM, tokenizer, name: str, cond: np.ndarray,
-                    generator: torch.Generator, source: Optional[str] = None) -> List[str]:
+def generate_meshes(opt, model, tokenizer, name: str, cond: np.ndarray,
+                    generator: torch.Generator, source: Optional[str] = None,
+                    devices: Optional[List[torch.device]] = None) -> List[str]:
     """What follows the read of an input: `test_repeat` meshes of the
     condition `cond` [1, ...] per face count, `test_batch_size` rows at a
     time, each written as {name}_{i}[_{nf}f].ply with its tokens. Returns
-    the .ply paths."""
+    the .ply paths. With `devices` (a fleet), `model` is the list of its
+    replicas; a repeat group that does not divide over them decodes on the
+    first."""
     source = source or name
     os.makedirs(opt.workspace, exist_ok=True)
     written = []
@@ -106,11 +129,12 @@ def generate_meshes(opt, model: LMM, tokenizer, name: str, cond: np.ndarray,
         nrep = min(B, opt.test_repeat - i0)
         for num_faces in opt.test_num_face:
             t0 = time.time()
+            fleet = devices if devices is not None and nrep % len(devices) == 0 else None
             all_tokens = generate_tokens(
                 model, np.repeat(cond, nrep, axis=0), num_faces=num_faces,
                 max_new_tokens=opt.test_max_seq_length,
                 resume_ids=None if resume_ids is None else np.repeat(resume_ids, nrep, 0),
-                generator=generator, use_grammar=opt.use_meto)
+                generator=generator, use_grammar=opt.use_meto, devices=fleet)
             t1 = time.time()
             for j in range(nrep):
                 filename = f"{name}_{i0 + j}"
@@ -139,12 +163,20 @@ def main(argv: Optional[List[str]] = None):
     if opt.test_path is None:
         raise ValueError("--test_path is required")
     tokenizer, _ = get_tokenizer(opt)
-    model = load_model(opt, device, overlay=opt.resume2)
+    devices = None
+    if opt.dp_size > 1:
+        if opt.test_batch_size % opt.dp_size:
+            raise ValueError(f"--test_batch_size {opt.test_batch_size} must divide by "
+                             f"--dp_size {opt.dp_size} for the fleet decode")
+        devices = fleet_devices(opt.dp_size, device)
+    model = load_model(opt, device if devices is None else devices[0], overlay=opt.resume2)
+    if devices is not None:
+        model = replicate_model(model, devices)
     generator = torch.Generator(device=device).manual_seed(opt.seed)
     paths = (sorted(glob.glob(os.path.join(opt.test_path, "*")))
              if os.path.isdir(opt.test_path) else [opt.test_path])
     for path in paths:
-        process(opt, model, tokenizer, path, generator)
+        process(opt, model, tokenizer, path, generator, devices=devices)
 
 
 if __name__ == "__main__":

@@ -26,42 +26,51 @@ checkpoint, restored on resume and evaluated too. The
 model trains on the card unless `--device cpu` is given; without a card and
 without `--device cpu` it raises.
 
-Sequence parallelism (the sequence of every batch split over N ranks, the
-decoder's attention as a ring; train/trainer.py) runs one process per rank:
+Data and sequence parallelism (train/trainer.py) run one process per rank,
+dp × sp ranks in all:
 
-    torchrun --nproc_per_node N -m edgerunner_tpu_torch.main ArAE --sp_size N ...
+    torchrun --nproc_per_node N -m edgerunner_tpu_torch.main ArAE --dp_size N
+    torchrun --nproc_per_node N*M -m edgerunner_tpu_torch.main ArAE --dp_size N --sp_size M
 
-Rank r runs on `cuda:{LOCAL_RANK % device_count}` (or the CPU with
-`--device cpu`), over NCCL when every rank has a card of its own and gloo
-otherwise (parallel/mesh.py). `--sp_size` must equal the world's size: a
-mismatch raises, it never trains unsharded. Rank 0 logs and writes the
-checkpoints; the process group is destroyed on exit.
+Each of the dp groups trains on its own shard of the data's items
+(`shard_items_for_host`; the synthetic set is not sharded), `--batch_size`
+rows per rank, so the global batch is batch_size × dp; the M ranks of a dp
+group split each sequence, the decoder's attention as a ring. `--dp_size
+-1`, the default, takes world / sp. Rank r runs on
+`cuda:{LOCAL_RANK % device_count}` (or the CPU with `--device cpu`), over
+NCCL when every rank has a card of its own and gloo otherwise
+(parallel/mesh.py). A dp × sp other than the world's size raises: it never
+trains unsharded. Rank 0 logs and writes the checkpoints; every dp group
+evaluates the whole test set; the process group is destroyed on exit.
 """
 
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 from typing import List, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from edgerunner_tpu_torch.config import parse_cli, validate
 from edgerunner_tpu_torch.data import save_mesh
-from edgerunner_tpu_torch.data.dataset import DataLoader, MeshFolderDataset, SyntheticMeshDataset
+from edgerunner_tpu_torch.data.dataset import (
+    DataLoader,
+    MeshFolderDataset,
+    SyntheticMeshDataset,
+)
 from edgerunner_tpu_torch.infer import resolve_device
 from edgerunner_tpu_torch.models.lmm import LMM, init_weights
-from edgerunner_tpu_torch.parallel import SequenceParallel, init_distributed, rank_device
+from edgerunner_tpu_torch.parallel import DataParallel, SequenceParallel
 from edgerunner_tpu_torch.train.checkpoint import (
     CheckpointManager,
     restore_train_state,
     sibling_ema_path,
 )
+from edgerunner_tpu_torch.train.ranks import rank_logger, run_ranks, shard_train_items
 from edgerunner_tpu_torch.train.trainer import Trainer
-from edgerunner_tpu_torch.utils import get_tokenizer, init_logger
+from edgerunner_tpu_torch.utils import get_tokenizer
 from edgerunner_tpu_torch.weights import merge_checkpoint, overlay_checkpoint, read_safetensors
 
 
@@ -91,37 +100,13 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
                          "(edgerunner_tpu_torch.infer_dit, serve --resume2); main trains "
                          "the ArAE on point clouds, and the DiT that makes the latents "
                          "trains with python -m edgerunner_tpu_torch.main_dit DiT")
-    world = (dist.get_world_size() if dist.is_initialized()
-             else int(os.environ.get("WORLD_SIZE", "1")))
-    if opt.sp_size != world:
-        raise RuntimeError(
-            f"--sp_size {opt.sp_size} needs as many ranks, and this world has {world}: "
-            f"launch with torchrun --nproc_per_node {opt.sp_size} -m "
-            f"edgerunner_tpu_torch.main ... --sp_size {opt.sp_size}")
-    if world == 1:
-        return train(opt, device)
-    device = rank_device(device.type)
-    owned = not dist.is_initialized()
-    if owned:
-        init_distributed(device)
-    try:
-        return train(opt, device, SequenceParallel.world(device))
-    finally:
-        if owned:
-            dist.destroy_process_group()
+    return run_ranks(opt, device, "edgerunner_tpu_torch.main", train)
 
 
-def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None) -> Trainer:
+def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
+          dp: Optional[DataParallel] = None) -> Trainer:
     """The training run of `main` on this rank."""
-    os.makedirs(opt.workspace, exist_ok=True)
-    if sp is None or sp.rank == 0:
-        logger = init_logger(os.path.join(opt.workspace, "log.txt"))
-    else:
-        logger = logging.getLogger(f"edgerunner_tpu_torch.rank{sp.rank}")
-        logger.disabled = True
-    logger.info(str(opt))
-    if sp is not None:
-        logger.info(sp.describe())
+    logger = rank_logger(opt, dp, sp)
     if opt.resume is None and opt.warmup_ratio == 0 and opt.lr > 1.5e-4:
         logger.warning(
             "training from scratch with warmup_ratio=0 and lr "
@@ -139,6 +124,7 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None) -> T
                                              tokenizer=tokenizer)
         test_dataset = SyntheticMeshDataset(opt, size=max(opt.synthetic_size // 16, 4),
                                             training=False, tokenizer=tokenizer)
+    shard_train_items(train_dataset, dp, logger)
     logger.info(f"train dataset size: {len(train_dataset)}")
     logger.info(f"test dataset size: {len(test_dataset)}")
     train_loader = DataLoader(train_dataset, opt, opt.batch_size, shuffle=True, seed=opt.seed)
@@ -147,8 +133,8 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None) -> T
 
     total_steps = opt.num_epochs * len(train_loader) // opt.gradient_accumulation_steps
     model = init_weights(LMM(opt, device=device), opt.seed)
-    trainer = Trainer(model, opt, total_steps, logger=logger, sp=sp)
-    manager = CheckpointManager(opt.workspace, keep=2, sp=sp)
+    trainer = Trainer(model, opt, total_steps, logger=logger, sp=sp, dp=dp)
+    manager = CheckpointManager(opt.workspace, keep=2, group=trainer.world)
 
     start_epoch, resume_step, opt_state_path = 0, 0, None
     if opt.resume is not None:

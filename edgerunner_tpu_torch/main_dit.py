@@ -22,12 +22,20 @@ strictly; with `--eval_mode loss` the held-out loss (and the EMA's) is
 logged. The model trains on the card, under bf16 autocast with
 `mixed_precision` bf16, unless `--device cpu` is given (f32); without a card
 and without `--device cpu` it raises.
+
+Data parallelism, one process per rank (train/trainer.py):
+
+    torchrun --nproc_per_node N -m edgerunner_tpu_torch.main_dit DiT --dp_size N ...
+
+Each rank trains on its own equal shard of the data's items (the synthetic
+set is not sharded), `--batch_size` rows per rank; the gradients are summed
+over the ranks. Rank 0 logs and writes the checkpoints. `--sp_size` stays
+`main`'s: the JAX package's DiT step has no sequence parallelism either.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 from typing import List, Optional
 
 import torch
@@ -37,13 +45,14 @@ from edgerunner_tpu_torch.data.dataset import DataLoader
 from edgerunner_tpu_torch.data.dataset_dit import DiTMeshDataset, collate_dit
 from edgerunner_tpu_torch.infer import resolve_device
 from edgerunner_tpu_torch.models.mdit import MDiT
+from edgerunner_tpu_torch.parallel import DataParallel
 from edgerunner_tpu_torch.train.checkpoint import (
     CheckpointManager,
     restore_train_state,
     sibling_ema_path,
 )
+from edgerunner_tpu_torch.train.ranks import rank_logger, run_ranks, shard_train_items
 from edgerunner_tpu_torch.train.trainer import Trainer
-from edgerunner_tpu_torch.utils import init_logger
 from edgerunner_tpu_torch.weights import (
     init_mdit_weights,
     load_state,
@@ -60,20 +69,20 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     device = resolve_device(args.device)
     opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.main_dit"))
     if opt.sp_size != 1:
-        raise ValueError("main_dit trains on one device; --sp_size is main's")
-    return train(opt, device)
+        raise ValueError("main_dit splits batches over ranks by rows only (--dp_size); "
+                         "--sp_size is main's")
+    return run_ranks(opt, device, "edgerunner_tpu_torch.main_dit", train)
 
 
-def train(opt, device: torch.device) -> Trainer:
-    """The training run of `main`."""
-    os.makedirs(opt.workspace, exist_ok=True)
-    logger = init_logger(os.path.join(opt.workspace, "log.txt"))
-    logger.info(str(opt))
+def train(opt, device: torch.device, sp=None, dp: Optional[DataParallel] = None) -> Trainer:
+    """The training run of `main` on this rank (`sp` is always None)."""
+    logger = rank_logger(opt, dp, sp)
 
     train_dataset = DiTMeshDataset(opt, training=True)
     test_dataset = DiTMeshDataset(opt, training=False)
     if train_dataset.synthetic is not None:
         logger.warning(f"data_root {opt.data_root} not found; using synthetic data")
+    shard_train_items(train_dataset, dp, logger)
     logger.info(f"train dataset size: {len(train_dataset)}")
     train_loader = DataLoader(train_dataset, opt, opt.batch_size, shuffle=True, seed=opt.seed,
                               collate_fn=collate_dit)
@@ -91,8 +100,8 @@ def train(opt, device: torch.device) -> Trainer:
                                              align_posemb=opt.align_posemb,
                                              log=logger.warning))
             logger.info(f"merged weights from {path}")
-    trainer = Trainer(model, opt, total_steps, logger=logger, kind="dit")
-    manager = CheckpointManager(opt.workspace, keep=2)
+    trainer = Trainer(model, opt, total_steps, logger=logger, kind="dit", dp=dp)
+    manager = CheckpointManager(opt.workspace, keep=2, group=trainer.world)
 
     start_epoch, resume_step, opt_state_path = 0, 0, None
     if opt.resume_train_state and opt.resume2 is not None:

@@ -124,7 +124,13 @@ class LMM(nn.Module):
         rank's share, and the shares add up over the ranks to the unsharded
         loss: the cross-entropies are sharded sums over the global count of
         labels, and loss_kl, computed whole on every rank, enters as kl / R,
-        so that the gradients summed over the ranks count it once.
+        so that the gradients summed over the ranks count it once. Under a
+        dp context each dp group's rows are its own: the cross-entropies
+        are divided by the count of every group's labels (shape_opt.py
+        `shifted_cross_entropy`), and loss_kl, a sum over rows, is the
+        group's, so that the shares of the whole world add up to the loss
+        of the dp groups' whole batch (edgerunner_tpu/models/lmm.py:134-170,
+        point_encoder.py:110-113).
         """
         opt = self.opt
         if train and opt.use_num_face_cond and opt.nof_dropout_ratio > 0:

@@ -30,6 +30,7 @@ from edgerunner_tpu_torch.models.clip_vit import (
 from edgerunner_tpu_torch.models.dit import DiT
 from edgerunner_tpu_torch.models.layers import LN_EPS
 from edgerunner_tpu_torch.models.point_encoder import PointEncoderEmbed
+from edgerunner_tpu_torch.parallel import active_data_parallel, dp_total
 
 
 class MDiT(nn.Module):
@@ -74,7 +75,11 @@ class MDiT(nn.Module):
         scalar}. Three draws, in this order from `generator` unless given:
         `keep` [B, 1, 1] bool (uniform >= 0.1, drawn and applied with `train`
         only: the condition is dropped for the rest), `noise` f32 normals of
-        the latents' shape, `t` [B] ints in [0, 1000)."""
+        the latents' shape, `t` [B] ints in [0, 1000). Under a dp context
+        (parallel/mesh.py) the loss is this rank's share of the mean over
+        every dp group's rows: its own mean × B / (the groups' rows), so
+        that the shares add up to the JAX package's mean over the whole
+        batch (edgerunner_tpu/models/mdit.py:101-104)."""
         opt = self.opt
         B = points.shape[0]
         dev = points.device
@@ -97,9 +102,15 @@ class MDiT(nn.Module):
             target = self.schedule.get_velocity(latents, noise, t)
         err = (pred.float() - target).square()
         if opt.snr_gamma is None:
-            return {"loss": err.mean()}
-        w = self.schedule.min_snr_weight(t, opt.snr_gamma)
-        return {"loss": (err.mean(dim=tuple(range(1, err.dim()))) * w).mean()}
+            loss = err.mean()
+        else:
+            w = self.schedule.min_snr_weight(t, opt.snr_gamma)
+            loss = (err.mean(dim=tuple(range(1, err.dim()))) * w).mean()
+        dp = active_data_parallel()
+        if dp is not None:
+            rows = torch.tensor(B, device=dev)
+            loss = loss * (rows / dp_total(rows, dp))
+        return {"loss": loss}
 
     def prepare_cond_cfg(self, images):
         """[uncond; cond] stacked on the batch: zeros, then get_cond."""

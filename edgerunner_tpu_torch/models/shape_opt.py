@@ -46,7 +46,8 @@ from torch import nn
 from edgerunner_tpu_torch.models.layers import LN_EPS, attention_fn, maybe_checkpoint
 from edgerunner_tpu_torch.ops import decode_attention as DA
 from edgerunner_tpu_torch.ops import kv_quant as KQ
-from edgerunner_tpu_torch.parallel.mesh import active_sequence_parallel
+from edgerunner_tpu_torch.parallel.collectives import dp_total
+from edgerunner_tpu_torch.parallel.mesh import active_data_parallel, active_sequence_parallel
 
 Caches = Tuple[List[torch.Tensor], List[torch.Tensor]]
 
@@ -389,6 +390,10 @@ def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     Position p is scored against labels[p + shift] where that lies inside T,
     and the sum is divided by the count of valid labels[:, shift:] over the
     whole sequence, so that the ranks' losses add up to the unsharded loss.
+    Under a dp context (parallel/mesh.py) the count is that of every dp
+    group's rows (one scalar all-reduce), so that the dp groups' losses add
+    up to the loss of their whole batch, as the JAX step takes it; a mean of
+    each group's mean would weigh rows by their group's label count.
     """
     T = labels.shape[1]
     shift_labels = labels[:, offset + shift:min(offset + logits.shape[1] + shift, T)].long()
@@ -397,5 +402,8 @@ def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     valid = shift_labels != -100
     logp = torch.log_softmax(shift_logits, dim=-1)
     nll = -logp.gather(-1, torch.where(valid, shift_labels, 0)[..., None])[..., 0]
-    count = (labels[:, shift:] != -100).sum().clamp(min=1)
-    return torch.where(valid, nll, 0.0).sum() / count
+    count = (labels[:, shift:] != -100).sum()
+    dp = active_data_parallel()
+    if dp is not None:
+        count = dp_total(count, dp)
+    return torch.where(valid, nll, 0.0).sum() / count.clamp(min=1)

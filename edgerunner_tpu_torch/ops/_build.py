@@ -158,6 +158,16 @@ def load_library():
         return lib
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`, under a lock: the wrappers also run
+    from the worker threads of a decode fleet."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def check(err: int, name: str):
     """Raise if a launch returned a CUDA error."""
     if err != 0:

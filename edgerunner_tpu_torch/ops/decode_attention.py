@@ -34,6 +34,7 @@ plus 4 bytes of the plane with per-row scales, or 4·G with G group scales.
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -105,8 +106,10 @@ def quant_slot_floats(bits: int, num_heads: int, head_dim: int, T: int) -> int:
     return _slot_floats(heads * query_passes(T)[1], head_dim)
 
 
-# (kernel, configuration, device, stream) -> [scratch, ticket, warps]
+# (kernel, configuration, device, stream) -> [scratch, ticket, warps]; the
+# worker threads of a decode fleet fill it together, under the lock
 _SCRATCH: dict = {}
+_SCRATCH_LOCK = threading.Lock()
 
 
 def _scratch(key, device, stream: int, slot_floats: int, tickets: int, warps_of):
@@ -116,17 +119,18 @@ def _scratch(key, device, stream: int, slot_floats: int, tickets: int, warps_of)
     launch leaves at 0. Allocated once per configuration, device and stream
     and kept; the tickets grow with the batch."""
     k = (key, slot_floats, device, stream)
-    entry = _SCRATCH.get(k)
-    if entry is None:
-        warps = warps_of()
-        if warps <= 0:
-            raise RuntimeError(f"{key}: no kernel instance ({warps})")
-        entry = [torch.empty(warps * 2 * slot_floats, dtype=torch.float32, device=device),
-                 torch.zeros(0, dtype=torch.int32, device=device), warps]
-        _SCRATCH[k] = entry
-    if entry[1].numel() < tickets:
-        entry[1] = torch.zeros(tickets, dtype=torch.int32, device=device)
-    return entry
+    with _SCRATCH_LOCK:
+        entry = _SCRATCH.get(k)
+        if entry is None:
+            warps = warps_of()
+            if warps <= 0:
+                raise RuntimeError(f"{key}: no kernel instance ({warps})")
+            entry = [torch.empty(warps * 2 * slot_floats, dtype=torch.float32, device=device),
+                     torch.zeros(0, dtype=torch.int32, device=device), warps]
+            _SCRATCH[k] = entry
+        if entry[1].numel() < tickets:
+            entry[1] = torch.zeros(tickets, dtype=torch.int32, device=device)
+        return list(entry)
 
 
 def fused_decode_attention_reference(q, k_cache, v_cache, index, *,
@@ -192,7 +196,7 @@ def fused_decode_attention(q, k_cache, v_cache, index, *,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), ticket.data_ptr(), warps, B, L, H, D, code, stream)
     _build.check(err, "decode_attention_fwd")
-    fused_decode_attention.launches += 1
+    _build.count_launch(fused_decode_attention)
     return out
 
 
@@ -339,7 +343,7 @@ def fused_decode_attention_multi(q, k_cache, v_cache, index, *,
         raise ValueError(f"fused_decode_attention_multi takes caches of q's dtype "
                          f"{q.dtype}, got {k_cache.dtype}, {v_cache.dtype}")
     out = _launch_multi(q, k_cache, v_cache, index, num_heads)
-    fused_decode_attention_multi.launches += 1
+    _build.count_launch(fused_decode_attention_multi)
     return out
 
 
@@ -367,7 +371,7 @@ def fused_decode_attention_q8_multi(q, kv_vals, scales, index, *,
                                                          num_heads=num_heads)
     out = _launch_quant("fused_decode_attention_q8_multi", q, kv_vals, scales, index,
                         num_heads, 8)
-    fused_decode_attention_q8_multi.launches += 1
+    _build.count_launch(fused_decode_attention_q8_multi)
     return out
 
 
@@ -383,7 +387,7 @@ def fused_decode_attention_q8(q, kv_vals, scales, index, *,
                                                    num_heads=num_heads)
     out = _launch_quant("fused_decode_attention_q8", q[:, None], kv_vals, scales, index,
                         num_heads, 8)[:, 0]
-    fused_decode_attention_q8.launches += 1
+    _build.count_launch(fused_decode_attention_q8)
     return out
 
 
@@ -436,7 +440,7 @@ def fused_decode_attention_q4_multi(q, kv_vals, scales, index, *, num_heads: int
                                                          num_heads=num_heads, group=group)
     out = _launch_quant("fused_decode_attention_q4_multi", q, kv_vals, scales, index,
                         num_heads, 4, group)
-    fused_decode_attention_q4_multi.launches += 1
+    _build.count_launch(fused_decode_attention_q4_multi)
     return out
 
 
@@ -452,7 +456,7 @@ def fused_decode_attention_q4(q, kv_vals, scales, index, *, num_heads: int,
                                                    num_heads=num_heads, group=group)
     out = _launch_quant("fused_decode_attention_q4", q[:, None], kv_vals, scales, index,
                         num_heads, 4, group)[:, 0]
-    fused_decode_attention_q4.launches += 1
+    _build.count_launch(fused_decode_attention_q4)
     return out
 
 

@@ -106,7 +106,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
         return flash_attention_reference(q, k, v, causal=causal, q_len=q_len,
                                          kv_len=kv_len)
     out = _forward_kernel(q, k, v, causal, q_len, kv_len)
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return out
 
 
@@ -207,7 +207,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal,
                                              q_len=q_len, kv_len=kv_len, dlse=dlse)
     grads = _backward_kernel(q, k, v, o, lse, do, causal, q_len, kv_len, dlse)
-    flash_attention_bwd.launches += 1
+    _build.count_launch(flash_attention_bwd)
     return grads
 
 
@@ -246,7 +246,7 @@ def flash_attention_lse(q, k, v, *, causal: bool = False,
     if q.device.type == "cpu":
         return attention_reference_lse(q, k, v, causal=causal, kv_len=kv_len)
     out = _forward_kernel(q, k, v, causal, None, kv_len)
-    flash_attention_lse.launches += 1
+    _build.count_launch(flash_attention_lse)
     return out
 
 
@@ -263,7 +263,7 @@ def flash_attention_lse_bwd(q, k, v, o, lse, do, dlse=None, *, causal: bool = Fa
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal,
                                              kv_len=kv_len, dlse=dlse)
     grads = _backward_kernel(q, k, v, o, lse, do, causal, None, kv_len, dlse)
-    flash_attention_lse_bwd.launches += 1
+    _build.count_launch(flash_attention_lse_bwd)
     return grads
 
 

@@ -1,15 +1,17 @@
-"""The collectives of sequence parallelism, written out (the JAX package
-gets them from GSPMD and `jax.lax.ppermute`).
+"""The collectives of data and sequence parallelism, written out (the JAX
+package gets them from GSPMD and `jax.lax.ppermute`).
 
 * `ring_shift`   sends tensors to rank + 1 and receives the same shapes from
-                 rank - 1, through `dist.batch_isend_irecv`;
+                 rank - 1 of the group, through `dist.batch_isend_irecv`;
 * `all_reduce_`  sums tensors over the group in place, in buckets;
-* `broadcast_`   copies rank 0's tensors to every rank in place.
+* `broadcast_`   copies the group's rank 0's tensors to every rank in place;
+* `dp_total`     the sum of a per-dp-group value over the dp groups.
 
 Under a staged group (gloo over CUDA tensors: ranks that share a card) each
 collective copies its tensors into pinned host buffers, runs there and
 copies the result back: gloo moves host memory. `ring_shift.bytes` counts
-the bytes each call sends, so a run can report what its ring moved.
+the bytes each call sends and `all_reduce_.bytes` those each call sums, so
+a run can report what its collectives moved.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import List, Sequence
 import torch
 import torch.distributed as dist
 
-from edgerunner_tpu_torch.parallel.mesh import SequenceParallel
+from edgerunner_tpu_torch.parallel.mesh import DataParallel, SequenceParallel
 
 BUCKET_BYTES = 64 * 2 ** 20  # all-reduce bucket
 
@@ -79,12 +81,26 @@ def all_reduce_(xs: Sequence[torch.Tensor], sp: SequenceParallel) -> None:
         flat = torch.cat([x.reshape(-1) for x in run])
         buf = _to_host([flat])[0] if sp.staged else flat
         dist.all_reduce(buf, group=sp.group)
+        all_reduce_.bytes += flat.numel() * flat.element_size()
         if sp.staged:
             flat.copy_(buf)
         offset = 0
         for x in run:
             x.copy_(flat[offset:offset + x.numel()].view_as(x))
             offset += x.numel()
+
+
+all_reduce_.bytes = 0
+
+
+def dp_total(x: torch.Tensor, dp: DataParallel) -> torch.Tensor:
+    """The sum over the dp groups of a scalar `x` that every sp rank of a
+    group holds alike (a label count, a row count): its sum over the world
+    divided by sp, exact for integers. A new tensor; `x` is left as it is."""
+    total = x.detach().reshape(1).clone()
+    all_reduce_([total], dp.world)
+    total = total // dp.sp_size if not total.is_floating_point() else total / dp.sp_size
+    return total[0]
 
 
 @torch.no_grad()

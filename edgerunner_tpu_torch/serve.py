@@ -4,13 +4,15 @@
     python -m edgerunner_tpu_torch.serve ArAE [--resume w.safetensors] \\
         --port 8217 --test_batch_size 8 [--kv_quant true [--kv_bits 4] --w_quant true] \\
         [--mtp_heads 2 --spec_decode true --generate_mode greedy] \\
-        [--resume2 dit.safetensors [--dit_steps 100 --guidance_scale 7.5]] [--device cuda|cpu]
+        [--resume2 dit.safetensors [--dit_steps 100 --guidance_scale 7.5]] [--device cuda|cpu] \\
+        [--dp_size N]
 
 API, with the JAX server's JSON:
     GET  /healthz         -> {"ok": true, "cond_mode", "batch", "pipeline"}
     GET  /statz           -> {"requests_done", "queue_depth", "slots_busy",
                               "slots_total", "mean_wall_s", "tokens_out", "uptime_s"}
-                              (+ "ddim_runs" in pipeline mode)
+                              (+ "ddim_runs" in pipeline mode, + "engines", each
+                              engine's own, under --dp_size)
     POST /generate        body {"points": [[x,y,z], ...], "num_faces": 1000,
                           "seed": 0} -> {"vertices", "faces", "tokens", "wall_s"};
                           a pipeline server takes {"latents": [L][D]} instead;
@@ -28,9 +30,13 @@ request first runs one DDIM pass of the MDiT, in f32, on a lock. A file
 image goes through `load_image_cond` and an array of another size than
 CLIP's through a PIL resize: PIL is needed for those only. The model runs on
 the card unless `--device cpu` is given; without a card and without
-`--device cpu` it raises. The multi-device fleet (`--dp_size`) is not ported
-yet. An image-conditioned ArAE (cond_mode 'image', the default preset) is
-refused, because the JAX server has no request body for it
+`--device cpu` it raises. With `--dp_size N` (N > 1) continuous batching
+runs as the JAX server's fleet (`FleetFrontend`, serve.py:369-410): one
+engine with `--test_batch_size` slots and a replica of the model on each of
+cuda:0 .. N-1 (N on the CPU with `--device cpu`), each request to the
+least-loaded engine; the micro-batcher stays on one device, as in the JAX
+server. An image-conditioned ArAE (cond_mode 'image', the default preset)
+is refused, because the JAX server has no request body for it
 (`IMAGE_MODE_REFUSED`).
 """
 
@@ -46,7 +52,7 @@ import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -206,7 +212,11 @@ class ContinuousFrontend:
         return self.engine.stats()
 
     def submit(self, points: np.ndarray, num_faces: int, seed) -> dict:
-        res = self.engine.submit(points, num_faces, seed)
+        return self.answer(self.engine.enqueue(points, num_faces, seed))
+
+    def answer(self, req) -> dict:
+        """Blocking: the /generate answer of a request queued on the engine."""
+        res = self.engine.result(req)
         return _mesh_result(self.opt, self.tokenizer, res["tokens"], res["wall_s"])
 
     def check_overloaded(self):
@@ -221,6 +231,57 @@ class ContinuousFrontend:
 
     def shutdown(self):
         self.engine.shutdown()
+
+
+class FleetFrontend:
+    """One `ContinuousFrontend` per device, each engine on a replica of its
+    own (JAX serve.py:369-410): a request goes to the engine with the least
+    load (`ContinuousEngine.load`: queued and admitted requests), chosen and
+    queued under one lock, so that concurrent requests spread; `stats` adds
+    the engines' up and lists each."""
+
+    def __init__(self, opt, replicas, tokenizer, batch: int, segment_steps: int = 128,
+                 max_queue: Optional[int] = None):
+        self.batch = batch
+        self.frontends = [ContinuousFrontend(opt, m, tokenizer, batch,
+                                             segment_steps=segment_steps,
+                                             max_queue=max_queue)
+                          for m in replicas]
+        self._lock = threading.Lock()
+
+    def _least_loaded(self) -> ContinuousFrontend:
+        return min(self.frontends, key=lambda f: f.engine.load())
+
+    def submit(self, points: np.ndarray, num_faces: int, seed) -> dict:
+        with self._lock:
+            fe = self._least_loaded()
+            req = fe.engine.enqueue(points, num_faces, seed)
+        return fe.answer(req)
+
+    def check_overloaded(self):
+        """Raise EngineOverloaded if the least-loaded engine would refuse a
+        request now (the pipeline's check before its DDIM pass)."""
+        self._least_loaded().check_overloaded()
+
+    def stats(self) -> dict:
+        per = [f.stats() for f in self.frontends]
+        done = sum(s["requests_done"] for s in per)
+        walls = [s["mean_wall_s"] * s["requests_done"] for s in per
+                 if s["mean_wall_s"] is not None]
+        return {
+            "requests_done": done,
+            "queue_depth": sum(s["queue_depth"] for s in per),
+            "slots_busy": sum(s["slots_busy"] for s in per),
+            "slots_total": sum(s["slots_total"] for s in per),
+            "mean_wall_s": round(sum(walls) / done, 3) if done else None,
+            "tokens_out": sum(s["tokens_out"] for s in per),
+            "uptime_s": max(s["uptime_s"] for s in per),
+            "engines": per,
+        }
+
+    def shutdown(self):
+        for fe in self.frontends:
+            fe.shutdown()
 
 
 class PipelineFrontend:
@@ -399,14 +460,18 @@ def build_server(opt, port: int = 0, max_wait_ms: float = 30.0, continuous: bool
                  segment_steps: int = 128, max_queue: Optional[int] = None,
                  device: str = "cuda", dtype=torch.bfloat16, model=None,
                  pipeline: Optional[bool] = None, dit_steps: int = 100,
-                 guidance_scale: float = 7.5):
+                 guidance_scale: float = 7.5, devices: Optional[Sequence] = None):
     """(server, batcher) for `opt`; separated from main() for tests. The
     model is built and loaded as infer.py loads it (the exact weights, then
     quantised under w_quant), unless one is given. `pipeline` (by default:
     whether `opt.resume2` names a DiT checkpoint) serves images: the LMM
     takes point latents, and an f32 MDiT with the weights of `resume2`, or
-    drawn from `opt.seed`, runs `dit_steps` DDIM steps at `guidance_scale`."""
-    from edgerunner_tpu_torch.infer import load_model, resolve_device
+    drawn from `opt.seed`, runs `dit_steps` DDIM steps at `guidance_scale`.
+    Continuous batching with `opt.dp_size` N > 1 serves from a
+    `FleetFrontend` of N engines on `devices` (by default cuda:0 .. N-1, or
+    N times the CPU for device 'cpu'), each on a replica of the model."""
+    from edgerunner_tpu_torch.generate import replicate_model
+    from edgerunner_tpu_torch.infer import fleet_devices, load_model, resolve_device
     from edgerunner_tpu_torch.utils import get_tokenizer
 
     if pipeline is None:
@@ -417,11 +482,21 @@ def build_server(opt, port: int = 0, max_wait_ms: float = 30.0, continuous: bool
         # the ArAE takes the DiT's latents (reference: infer_dit.py:55)
         opt = dataclasses.replace(opt, cond_mode="point_latent")
     dev = resolve_device(device)
+    if continuous and opt.dp_size > 1:
+        devices = (fleet_devices(opt.dp_size, dev) if devices is None
+                   else [torch.device(d) for d in devices])
+        if len(devices) != opt.dp_size:
+            raise ValueError(f"--dp_size {opt.dp_size} with {len(devices)} devices")
+        dev = devices[0]
     if model is None:
         model = load_model(opt, dev, dtype=dtype)
     tokenizer, _ = get_tokenizer(opt)
-    if continuous:
-        batcher = ContinuousFrontend(opt, model, tokenizer, batch=max(1, opt.test_batch_size),
+    batch = max(1, opt.test_batch_size)
+    if continuous and opt.dp_size > 1:
+        batcher = FleetFrontend(opt, replicate_model(model, devices), tokenizer, batch,
+                                segment_steps=segment_steps, max_queue=max_queue)
+    elif continuous:
+        batcher = ContinuousFrontend(opt, model, tokenizer, batch=batch,
                                      segment_steps=segment_steps, max_queue=max_queue)
     else:
         batcher = Batcher(opt, model, tokenizer,
@@ -473,6 +548,8 @@ def main(argv: Optional[List[str]] = None):
     if hasattr(batcher, "submit_image"):
         mode += f" + image pipeline ({args.dit_steps}-step DDIM)"
         cond = "point_latent"  # build_server sets it in pipeline mode
+    if hasattr(batcher, "frontends"):
+        mode += f", {len(batcher.frontends)} engines"
     print(f"[serve] listening on :{server.server_address[1]} (batch "
           f"{max(1, opt.test_batch_size)}, cond {cond}, {mode}, "
           f"device {args.device})", flush=True)

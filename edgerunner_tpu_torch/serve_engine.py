@@ -134,12 +134,21 @@ class ContinuousEngine:
     # ------------------------------------------------------------- public --
     def submit(self, points: np.ndarray, num_faces: int, seed: Optional[int]) -> dict:
         """Blocking: queue one request, return {"tokens", "wall_s"}."""
+        return self.result(self.enqueue(points, num_faces, seed))
+
+    def enqueue(self, points: np.ndarray, num_faces: int, seed: Optional[int]) -> Request:
+        """Queue one request without waiting; `result` waits for it."""
         req = Request(points, num_faces, seed)
         try:
             self.q.put_nowait(req)
         except queue.Full:
             raise EngineOverloaded(f"queue depth {self.q.qsize()} >= max_queue "
                                    f"{self.max_queue}") from None
+        return req
+
+    @staticmethod
+    def result(req: Request) -> dict:
+        """Blocking: the {"tokens", "wall_s"} of a queued request."""
         req.done_event.wait()
         if "error" in req.slot_result:
             raise RuntimeError(req.slot_result["error"])

@@ -10,9 +10,9 @@ continues exactly. With `--ema_decay` each save also holds the weights'
 moving average as `ema.safetensors`, a whole model file like the weights'
 (the workspace's `ema.safetensors` points at the latest), from which a
 resume restores it (`sibling_ema_path`). Saves are synchronous. Under
-sequence parallelism (`sp`) every rank holds the same weights, optimizer
-state and EMA: rank 0 writes, and every rank waits at a barrier until it
-has.
+data or sequence parallelism every rank of the world (`group`) holds the
+same weights, optimizer state and EMA: its rank 0 writes, and every rank
+waits at a barrier until it has.
 
 The non-strict loads (`--resume2`, `main_dit`'s `--resume`) are a question
 of the weights' format and live in weights.py (`tolerant_merge`,
@@ -58,24 +58,25 @@ def _link(workspace: str, target: str, name: str):
 
 
 class CheckpointManager:
-    def __init__(self, workspace: str, keep: int = 2, sp=None):
+    def __init__(self, workspace: str, keep: int = 2, group=None):
         self.workspace = workspace
         self.keep = keep
-        self.sp = sp if sp is not None and sp.size > 1 else None
+        # every rank of the run (parallel/mesh.py); None for one process
+        self.group = group if group is not None and group.size > 1 else None
         self.old_dirs: list[str] = []
         self.best_loss = float("inf")
         os.makedirs(workspace, exist_ok=True)
 
     def _save(self, tag: str, model, optimizer=None, loss: Optional[float] = None,
               train_state: Optional[dict] = None, log=print, ema: Optional[dict] = None):
-        if self.sp is None:
+        if self.group is None:
             self._write(tag, model, optimizer, loss, train_state, log, ema)
             return
         try:
-            if self.sp.rank == 0:
+            if self.group.rank == 0:
                 self._write(tag, model, optimizer, loss, train_state, log, ema)
         finally:
-            dist.barrier(self.sp.group)
+            dist.barrier(self.group.group)
 
     def _write(self, tag: str, model, optimizer, loss, train_state, log, ema):
         save_dir = os.path.join(self.workspace, tag)

@@ -20,15 +20,30 @@ moving average `ema <- ema * d + p * (1 - d)` follows each step, from the
 loaded weights or a saved EMA; `eval_epoch(use_ema=True)` evaluates it.
 
 Sequence parallelism (`sp`, a parallel/mesh.py `SequenceParallel` of R
-ranks, dp = 1): every rank takes the same batch, suffix-pads tokens and
-labels to a multiple of R (`pad_for_sp`; labels -100, tokens PAD), and
+ranks): every rank of the group takes the same batch, suffix-pads tokens
+and labels to a multiple of R (`pad_for_sp`; labels -100, tokens PAD), and
 runs the step under the sp context, which the trainer installs for its
 train and eval steps only: the decoder runs on the rank's shard, its
-attention as the ring. Each rank's loss is its share of the whole
-(models/lmm.py), so the gradients are summed over the ranks (bucketed)
-before the optimizer clips them by their global norm, and every rank takes
-the same update. Weights start equal on every rank: `init_state`
-broadcasts rank 0's. Metrics are summed over the ranks; only rank 0 logs.
+attention as the ring.
+
+Data parallelism (`dp`, a parallel/mesh.py `DataParallel` of G groups of
+R ranks each): each dp group takes rows of its own, `--batch_size` per
+rank (the JAX package's per-host batch, trainer.py:135-140), so the global
+batch is batch_size × G; the step runs under the dp context, in which the
+losses are the group's share of the global batch's loss (models/lmm.py,
+models/mdit.py), and each step's random draws fold in the dp rank, so that
+the groups drop out with masks of their own. No DDP wrapper: DDP would
+divide by the world's size, and the shares already add up to the loss.
+
+Each rank's loss is its share of the whole, so the gradients are summed
+over every rank of the world (bucketed) before the optimizer clips them by
+their global norm, and every rank takes the same update. Weights start
+equal on every rank: `init_state` broadcasts rank 0's. Training metrics
+are summed over the world; only its rank 0 logs. The first batch is
+checked equal over the sp group (dp groups hold other rows). Eval, as in
+the JAX package, is not sharded over dp: every dp group evaluates the
+whole batch, summed over its sp ranks, so the logged loss is the
+one-process loss.
 """
 
 from __future__ import annotations
@@ -42,10 +57,12 @@ from torch.func import functional_call
 
 from edgerunner_tpu_torch.data.dataset import batch_checksum
 from edgerunner_tpu_torch.parallel import (
+    DataParallel,
     SequenceParallel,
     all_reduce_,
     assert_same_on_every_rank,
     broadcast_,
+    data_parallel,
     sequence_parallel,
 )
 from edgerunner_tpu_torch.train.state import (
@@ -72,9 +89,11 @@ MODEL_KINDS = {"arae": (("conds", "tokens", "labels", "num_faces", "lengths"), _
                "dit": (("images", "points"), _dit_call)}
 
 
-def step_seeds(seed: int, step: int) -> tuple:
-    """(num-face dropout seed, dropout seed) of one training step."""
-    return tuple(int(x) for x in np.random.SeedSequence((seed, step)).generate_state(2))
+def step_seeds(seed: int, step: int, dp_rank: int = 0) -> tuple:
+    """(num-face dropout seed, dropout seed) of one training step of dp
+    group `dp_rank` (group 0 draws as one process does)."""
+    key = (seed, step) if dp_rank == 0 else (seed, step, dp_rank)
+    return tuple(int(x) for x in np.random.SeedSequence(key).generate_state(2))
 
 
 def device_mem_gb(device: torch.device) -> str:
@@ -103,14 +122,18 @@ def pad_for_sp(batch: dict, size: int, pad_token_id: int) -> dict:
 
 class Trainer:
     def __init__(self, model, opt, total_steps: int, logger=None,
-                 sp: Optional[SequenceParallel] = None, kind: str = "arae"):
+                 sp: Optional[SequenceParallel] = None, kind: str = "arae",
+                 dp: Optional[DataParallel] = None):
         self.model = model
         self.opt = opt
         self.logger = logger
         self.kind = kind
         self.batch_keys, self.call = MODEL_KINDS[kind]
         self.sp = sp if sp is not None and sp.size > 1 else None
-        self.is_main = self.sp is None or self.sp.rank == 0
+        self.dp = dp if dp is not None and dp.size > 1 else None
+        # every rank: gradients and training metrics are summed over it
+        self.world = self.dp.world if self.dp is not None else self.sp
+        self.is_main = self.world is None or self.world.rank == 0
         self.device = next(model.parameters()).device
         self.params = trainable_parameters(model, frozen_param_keys(opt, kind))
         self.optimizer, self.schedule = make_optimizer(opt, self.params, total_steps)
@@ -131,12 +154,12 @@ class Trainer:
     def init_state(self, step: int = 0, opt_state_path: Optional[str] = None,
                    ema_path: Optional[str] = None):
         """`step` restarts the schedule and the step seeds where a run left
-        off; `opt_state_path` restores a saved optimizer state. Under sp,
-        every rank takes rank 0's weights. With --ema_decay the EMA starts
-        from the weights, or from the EMA file `ema_path`."""
+        off; `opt_state_path` restores a saved optimizer state. Under sp or
+        dp, every rank takes rank 0's weights. With --ema_decay the EMA
+        starts from the weights, or from the EMA file `ema_path`."""
         self.step = step
-        if self.sp is not None:
-            broadcast_(list(self.params.values()), self.sp)
+        if self.world is not None:
+            broadcast_(list(self.params.values()), self.world)
         if self.ema_decay > 0:
             saved = read_safetensors(ema_path) if ema_path else None
             self.ema = {n: (p.detach().clone() if saved is None else
@@ -168,31 +191,34 @@ class Trainer:
             return batch
         return pad_for_sp(batch, self.sp.size, self.opt.pad_token_id)
 
-    def _summed(self, out: dict) -> dict:
-        """Host floats of the metrics in `out`, summed over the sp ranks."""
+    @staticmethod
+    def _summed(out: dict, group: Optional[SequenceParallel]) -> dict:
+        """Host floats of the metrics in `out`, summed over `group`."""
         keys = [k for k in METRICS if k in out]
         vals = torch.stack([out[k].detach().float() for k in keys])
-        if self.sp is not None:
-            all_reduce_([vals], self.sp)
+        if group is not None:
+            all_reduce_([vals], group)
         return dict(zip(keys, vals.tolist()))
 
     def train_step(self, batch: dict) -> dict:
-        """One forward, backward and optimizer (micro-)step; host floats."""
-        nof_seed, drop_seed = step_seeds(self.opt.seed, self.step)
+        """One forward, backward and optimizer (micro-)step on this rank's
+        rows `batch`; host floats of the world's metrics."""
+        dp_rank = 0 if self.dp is None else self.dp.rank
+        nof_seed, drop_seed = step_seeds(self.opt.seed, self.step, dp_rank)
         generator = torch.Generator(device=self.device).manual_seed(nof_seed)
         cuda = self.device.type == "cuda"
         with torch.random.fork_rng(devices=[self.device.index or 0] if cuda else []), \
-                sequence_parallel(self.sp):
+                sequence_parallel(self.sp), data_parallel(self.dp):
             torch.manual_seed(drop_seed)
             out = self.forward(self._sp_batch(batch), train=True, generator=generator)
             grads = torch.autograd.grad(out["loss"], list(self.params.values()))
-        if self.sp is not None:
-            all_reduce_(grads, self.sp)
+        if self.world is not None:
+            all_reduce_(grads, self.world)
         gnorm = self.optimizer.update(dict(zip(self.params, grads)))
         if self.ema is not None:
             self.update_ema()
         self.step += 1
-        metrics = self._summed(out)
+        metrics = self._summed(out, self.world)
         metrics["grad_norm"] = float(gnorm)
         self.losses.append(metrics["loss"])
         return metrics
@@ -212,7 +238,7 @@ class Trainer:
         num_batches = len(loader)
         for i, batch in enumerate(loader):
             if i == 0 and self.sp is not None:
-                # dp = 1: every sp rank must hold the same batch
+                # every rank of an sp group must hold the same batch
                 assert_same_on_every_rank(batch_checksum(batch).to(self.device),
                                           "the first batch", self.sp)
             m = self.train_step(batch)
@@ -241,13 +267,15 @@ class Trainer:
     @torch.no_grad()
     def eval_loss(self, batch: dict, use_ema: bool = False) -> float:
         """The held-out loss of `batch` (of the EMA's weights with `use_ema`),
-        under sp summed over the ranks."""
+        under sp summed over the ranks of the sp group; every dp group takes
+        the whole batch."""
         # the DiT's draws from opt.seed, the same for every batch
         generator = (torch.Generator(device=self.device).manual_seed(self.opt.seed)
                      if self.kind == "dit" else None)
         with sequence_parallel(self.sp):
             return self._summed(self.forward(self._sp_batch(batch), train=False,
-                                             generator=generator, use_ema=use_ema))["loss"]
+                                             generator=generator, use_ema=use_ema),
+                                self.sp)["loss"]
 
     def eval_epoch(self, loader, epoch: int, use_ema: bool = False) -> float:
         if use_ema and self.ema is None:

@@ -90,20 +90,23 @@ def test_validate_refuses_options_the_port_does_not_run():
         validate(dataclasses.replace(config_defaults["ArAE"], **ok))
 
 
-def test_validate_refuses_dp_size_and_the_training_options_not_ported_yet():
+def test_validate_accepts_dp_size_and_refuses_the_training_options_not_ported_yet():
     from edgerunner_tpu_torch.config import config_defaults, validate
 
     import dataclasses
 
-    for change in (dict(dp_size=2), dict(eval_mode="generate"),
+    for change in (dict(dp_size=0), dict(dp_size=-2), dict(eval_mode="generate"),
                    dict(async_checkpointing=True),
                    dict(use_wandb=True), dict(data_root="https://example.com/meshes"),
                    dict(data_root="s3://bucket/meshes"), dict(data_root="dir_a:dir_b")):
         with pytest.raises(ValueError):
             validate(dataclasses.replace(config_defaults["ArAE"], **change))
     # the weight EMA is ported: main and main_dit keep one; --resume2 is
-    # ported: main and infer overlay it on the ArAE (a pretrained CLIP tower)
-    for ok in (dict(dp_size=-1), dict(dp_size=1), dict(data_root="./data"),
+    # ported: main and infer overlay it on the ArAE (a pretrained CLIP tower);
+    # dp is ported: main and main_dit train under torchrun, infer and serve
+    # decode on a fleet
+    for ok in (dict(dp_size=-1), dict(dp_size=1), dict(dp_size=2),
+               dict(dp_size=2, sp_size=2), dict(data_root="./data"),
                dict(ema_decay=0.999), dict(resume2="clip.safetensors")):
         validate(dataclasses.replace(config_defaults["ArAE"], **ok))
 
@@ -141,24 +144,26 @@ def test_sp_modules_load_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-def test_validate_accepts_sp_size_and_refuses_tp_pp_and_dp():
+def test_validate_accepts_sp_size_and_dp_size_and_refuses_tp_pp_and_dp_0():
     from edgerunner_tpu_torch.config import config_defaults, validate
 
     import dataclasses
 
-    for sp in (1, 2, 4):
-        validate(dataclasses.replace(config_defaults["ArAE"], sp_size=sp))
-    for change in (dict(sp_size=0), dict(tp_size=2), dict(pp_size=2), dict(dp_size=2),
-                   dict(sp_size=2, tp_size=2), dict(sp_size=2, dp_size=2)):
+    for ok in (dict(sp_size=1), dict(sp_size=2), dict(sp_size=4), dict(dp_size=2),
+               dict(sp_size=2, dp_size=2)):
+        validate(dataclasses.replace(config_defaults["ArAE"], **ok))
+    for change in (dict(sp_size=0), dict(tp_size=2), dict(pp_size=2), dict(dp_size=0),
+                   dict(sp_size=2, tp_size=2), dict(sp_size=2, dp_size=0)):
         with pytest.raises(ValueError):
             validate(dataclasses.replace(config_defaults["ArAE"], **change))
-    with pytest.raises(ValueError, match="--sp_size is supported"):
-        validate(dataclasses.replace(config_defaults["ArAE"], dp_size=2))
+    with pytest.raises(ValueError, match="--dp_size is -1"):
+        validate(dataclasses.replace(config_defaults["ArAE"], dp_size=0))
 
 
 def test_main_sp_size_outside_a_matching_world_raises(monkeypatch):
-    """--sp_size N needs a torchrun world of N ranks: it never trains
-    unsharded, and a world of another size is refused too."""
+    """--sp_size N needs a torchrun world of dp × N ranks: it never trains
+    unsharded, and a world of another size is refused too (--dp_size -1,
+    the default, takes world / sp, so the refused worlds here fix dp 1)."""
     from edgerunner_tpu_torch import main
 
     argv = ["ArAE", "--device", "cpu", "--data_root", "/nonexistent", "--workspace",
@@ -168,9 +173,9 @@ def test_main_sp_size_outside_a_matching_world_raises(monkeypatch):
         main.main([*argv, "--sp_size", "2"])
     monkeypatch.setenv("WORLD_SIZE", "4")
     with pytest.raises(RuntimeError, match="this world has 4"):
-        main.main([*argv, "--sp_size", "2"])
+        main.main([*argv, "--sp_size", "2", "--dp_size", "1"])
     with pytest.raises(RuntimeError, match="this world has 4"):
-        main.main(argv)
+        main.main([*argv, "--dp_size", "1"])
 
 
 def test_image_pipeline_modules_load_no_jax():
