@@ -48,7 +48,8 @@ Phases, one JSON line each:
              [2, 2048, 2048, 16, 64], where the f32 parity phases run it, and
              at the f32 ArAE training step's decoder [2, 6147, 6147, 16, 96]
              (causal, rows [6147, 5000]) and encoder [2, 2048 x 8192, 16,
-             64]. Kernel D's bf16/f32 kind also at every T from 1 to 8, both
+             64]; row 5's f32 ring blocks at R = 2 beside SDPA's math
+             backend (its flash backend takes bf16 only). Kernel D's bf16/f32 kind also at every T from 1 to 8, both
              dtypes and D 64 and 96, at positions 0, 255, 256 and the
              cache's last. Last, a
              diagnostic at the DiT's self-attention shape with q and k scaled
@@ -101,6 +102,19 @@ Phases, one JSON line each:
              kernel).
 12. train_parity  2 layers at full width in f32: the training loss and every
              parameter's gradient of the kernel path against the plain path.
+12a. train_extras  the training extras at full width, bf16: the train
+             phase's step under --remat_policy attn against full (launches
+             per step A 26 / C 25 against A 50 / C 25; every step's loss and
+             the first step's gradients bit-equal; s/it, peak memory);
+             farthest-point sampling of the train batch's 2 x 8192 points
+             to 2048 (indices equal to the CPU's, ms per call) and the
+             --point_encoder_mode downsample step (A 50, C 25); then `main
+             ArAE` with every extra on 32 procedural meshes served over
+             loopback HTTP: 16 steps at A 26 / C 25, the trace of steps
+             10-14 (it names kernels A and C), --eval_mode generate of 2
+             conditions in bf16 (kernel B 24 launches per decode step),
+             --async_checkpointing (the save call's seconds against a
+             synchronous save's; the committed file equal to the weights).
 13. sp       sequence parallelism with ranks that share the card (gloo,
              staged through pinned host memory), spawned from this process:
              the causal ring at full width ([2, 6148, 16, 96], bf16 and f32)
@@ -237,8 +251,14 @@ TRAIN_F32_STEPS = 2      # train phase: steps at --mixed_precision no, launches 
 SP_TRAIN_STEPS = 2       # sp phase: timed steps after one warm-up step (three in all)
 GRAD_TOL = 2e-2          # train parity: gradient error over the tensor's largest value
 PHASES = ("build", "kernels", "generate", "generate_q8", "generate_q4", "parity", "parity_q4",
-          "serve", "serve_parity", "spec", "train", "train_parity", "sp", "dp", "dit",
-          "dit_parity", "dit_train", "dit_train_parity", "image", "image_parity", "image_train")
+          "serve", "serve_parity", "spec", "train", "train_parity", "train_extras", "sp", "dp",
+          "dit", "dit_parity", "dit_train", "dit_train_parity", "image", "image_parity",
+          "image_train")
+EXTRAS_REMAT_STEPS = 3   # train_extras: timed steps per remat policy after one warm-up
+EXTRAS_FPS_CALLS = 3     # ... farthest-point sampling calls timed after one warm-up
+EXTRAS_MESHES = 32       # ... main ArAE on a loopback HTTP root of 32 meshes: 16 steps ...
+EXTRAS_EVAL_SAMPLES = 2  # ... then its generate eval of 2 held-out conditions ...
+EXTRAS_EVAL_FACES = 80   # ... at 80 faces (a 464-token budget in a CUT_BUCKET bucket)
 CUT_BUCKET = 512         # the decode bucket of the paths whose budget is cut below the
                          # ArAE's 1024-token bucket, for the run's time on the card
 Q8_BUDGET = 512          # generate_q8: a shorter budget than the bf16 generate phase, for
@@ -258,7 +278,7 @@ SERVE_BENCH_Q4_REQUESTS = 8  # one wave over the int4 cache (--kv_quant true --k
 SPEC_HEADS = 2           # --mtp_heads 2 --spec_decode true: verify passes at T = 3
 MTP_STD = 0.02           # the random draft heads' weights (the init's std)
 SPEC_ROWS = ROWS         # spec generate: the headline batch ...
-SPEC_BUDGET = 1024       # ... and a budget cut for time (one decode bucket)
+SPEC_BUDGET = CUT_BUCKET  # ... and a budget cut for time (one CUT_BUCKET decode bucket)
 PROFILE_STEPS = 8        # decode steps in a profiled segment (engine: cut from 16 for the sp
                          # phase's time: the profiler's processing grows with them)
 SERVE_PARITY_FACES = (10, 20, 10, 20, 10, 20)  # 6 staggered requests into 4 slots
@@ -572,18 +592,25 @@ def flash_bwd_case(dev, B, N, M, H, D, causal, dtype, kv_len=None, q_len=None,
 
 
 def lse_library_call(q, k, v, causal):
-    """One PyTorch call that returns the output and its logsumexp, on
-    [B, H, N, D] views: the flash kernel of scaled_dot_product_attention for
-    bf16, the memory-efficient one for f32 (the flash kernel takes half
-    types only). A yardstick: the port never calls it."""
+    """One PyTorch call on [B, H, N, D] views, a yardstick the port never
+    calls: for bf16 the flash kernel of scaled_dot_product_attention, which
+    returns the output and its logsumexp; for f32, which that kernel does
+    not take, scaled_dot_product_attention's math backend (f32 GEMMs, TF32
+    off as PyTorch leaves it), which returns the output alone."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if q.dtype == torch.bfloat16:
         name = "aten._scaled_dot_product_flash_attention"
         return name, lambda: torch.ops.aten._scaled_dot_product_flash_attention(
             qt, kt, vt, 0.0, causal)
-    name = "aten._scaled_dot_product_efficient_attention"
-    return name, lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
-        qt, kt, vt, None, True, 0.0, causal)
+
+    def math_sdpa():
+        import torch.nn.functional as F
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        with sdpa_kernel(SDPBackend.MATH):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    return "scaled_dot_product_attention, math backend (f32)", math_sdpa
 
 
 def flash_lse_case(dev, B, S, H, D, causal, dtype, timed=False):
@@ -632,19 +659,22 @@ def flash_lse_case(dev, B, S, H, D, causal, dtype, timed=False):
             q, k, v, o, lse, do, dlse, causal=causal), 3)}
         bwd["plain_ms"] = time_ms(lambda: flash_attention_bwd_reference(
             q, k, v, o, lse, do, causal=causal, dlse=dlse), 1)
-        if dtype == torch.bfloat16:
-            import torch.nn.functional as F
+        import torch.nn.functional as F
+        from torch.nn.attention import SDPBackend, sdpa_kernel
 
-            # the yardstick of the backward: SDPA's, at the same shape (no lse cotangent)
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        # the yardstick of the backward: SDPA's, at the same shape (no lse
+        # cotangent); f32 through its math backend, as the forward's
+        backends = (contextlib.nullcontext() if dtype == torch.bfloat16
+                    else sdpa_kernel(SDPBackend.MATH))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        with backends:
             out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-            dot = do.transpose(1, 2)
-            bwd["library"] = "scaled_dot_product_attention backward"
-            bwd["library_ms"] = time_ms(
-                lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 3)
-            del out
-        else:
-            bwd["library_ms"] = None
+        dot = do.transpose(1, 2)
+        bwd["library"] = "scaled_dot_product_attention backward" + (
+            "" if dtype == torch.bfloat16 else ", math backend (f32)")
+        bwd["library_ms"] = time_ms(
+            lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 3)
+        del out
         bwd.update(flash_bound(10.0 * H * D * pairs, (4 * q.numel() + 4 * k.numel())
                                * q.element_size() + 2 * lse.numel() * 4, dtype))
         res["bwd"] = bwd
@@ -1066,7 +1096,7 @@ def phase_kernels(dev):
                      f"{str(dtype).split('.')[-1]}" + (" (main path)" if R == 2 and not causal
                                                        and dtype == bf else ""),
                 **flash_lse_case(dev, TRAIN_ROWS, S, H, hd // H, causal, dtype,
-                                 timed=dtype == bf)))
+                                 timed=dtype == bf or R == SP_TRAIN_RANKS)))
     flash_lse.append(dict(case="ragged 77 d64 causal f32",
                           **flash_lse_case(dev, 3, 77, 2, 64, True, f32)))
     # the 3xTF32 split at the DiT's self-attention shape, against TF32 alone
@@ -1734,7 +1764,7 @@ def phase_spec(dev):
 
     base = dataclasses.replace(config_defaults["ArAE"], generate_mode="greedy",
                                test_batch_size=SERVE_ROWS, mtp_heads=SPEC_HEADS,
-                               spec_decode=True)
+                               spec_decode=True, decode_bucket=CUT_BUCKET)
     res = {"mtp_heads": SPEC_HEADS, "draft_std": MTP_STD, "card": card_line()}
     for name, cache, kernel in (
             ("bf16", {}, DA.fused_decode_attention_multi),
@@ -2087,6 +2117,342 @@ def phase_train_parity(dev):
             "grad_worst_tensor": worst_name,
             "tolerance": f"loss rel <= 1e-5; per tensor max|dg| <= {GRAD_TOL} * max|g_plain| "
                          "+ 1e-6 * max over tensors of max|g_plain|"}
+
+
+# ----------------------------------------------------------- train_extras --
+
+def train_step_runs(dev, opt, batch, steps: int, grads_to_host: bool = False) -> dict:
+    """`Trainer.train_step` of a full-width LMM from seed SEED's weights:
+    one warm-up and `steps` timed steps, each step's launches of kernels A
+    and C counted from 0, peak memory; with `grads_to_host` the first
+    step's gradients copied to host memory (the optimizer's input)."""
+    from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+    from edgerunner_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from edgerunner_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(init_weights(LMM(opt, device=dev), SEED), opt, total_steps=1000)
+    grads, update = {}, trainer.optimizer.update
+
+    def captured(g):
+        if grads_to_host and not grads:
+            grads.update({n: t.detach().to("cpu", copy=True) for n, t in g.items()})
+        return update(g)
+
+    trainer.optimizer.update = captured
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(1 + steps):
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        runs.append({"s": time.perf_counter() - t1, **m, "launches": {
+            "flash_attention_fwd": flash_attention.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches}})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": runs, "s_per_it": sum(r["s"] for r in runs[1:]) / steps,
+            "peak_mem_gib": peak, "grads": grads}
+
+
+def remat_attn_vs_full(dev) -> dict:
+    """--remat_policy attn against full on the train phase's path (full
+    width, bf16 autocast, checkpointing and dropout, bench.py's train batch,
+    the same weights and step seeds): launches per step held to A 2 x 25
+    and C 25 under 'full', A 24 + 2 (each decoder layer's attention once,
+    the encoder's checkpointed block and its replay) and C 25 under 'attn';
+    every step's loss and the first step's every gradient bit-equal; s/it
+    and peak memory of each."""
+    from edgerunner_tpu_torch.config import config_defaults
+
+    base = dataclasses.replace(config_defaults["ArAE"], batch_size=TRAIN_ROWS)
+    batch = train_batch(base, TRAIN_ROWS)
+    L = base.num_layers
+    want = {"full": {"flash_attention_fwd": 2 * (L + 1), "flash_attention_bwd": L + 1},
+            "attn": {"flash_attention_fwd": L + 2, "flash_attention_bwd": L + 1}}
+    runs = {p: train_step_runs(dev, dataclasses.replace(base, remat_policy=p), batch,
+                               EXTRAS_REMAT_STEPS, grads_to_host=True) for p in want}
+    full, attn = runs["full"], runs["attn"]
+    losses = {p: [r["loss"] for r in runs[p]["steps"]] for p in want}
+    unequal = [n for n, g in full["grads"].items() if not torch.equal(g, attn["grads"][n])]
+    launches_ok = all(r["launches"] == want[p] for p in want for r in runs[p]["steps"])
+    res = {"ok": (launches_ok and losses["attn"] == losses["full"] and not unequal
+                  and len(full["grads"]) > 100 and all(np.isfinite(losses["full"]))),
+           "layers": L, "rows": TRAIN_ROWS, "positions": train_positions(base),
+           "timed_steps": EXTRAS_REMAT_STEPS, "losses": losses,
+           "grad_tensors": len(full["grads"]), "grad_tensors_unequal": unequal[:10],
+           "launches_expected_per_step": want}
+    for p in want:
+        res[p] = {"s_per_it": runs[p]["s_per_it"], "peak_mem_gib": runs[p]["peak_mem_gib"],
+                  "step_s": [r["s"] for r in runs[p]["steps"]],
+                  "launches_per_step": [r["launches"] for r in runs[p]["steps"]],
+                  "grad_norms": [r["grad_norm"] for r in runs[p]["steps"]]}
+    res["peak_mem_gib_attn_minus_full"] = attn["peak_mem_gib"] - full["peak_mem_gib"]
+    return res
+
+
+def fps_downsample(dev) -> dict:
+    """point_encoder_mode 'downsample': farthest-point sampling of the
+    train batch's 2 x 8192 points to the ArAE's 2048 queries on the card,
+    its indices against the CPU's on the same points, its ms per call
+    (EXTRAS_FPS_CALLS calls after one warm-up); then the downsample LMM's
+    training step at full width (bf16 autocast, checkpointing): launches
+    per step held to A 2 x 25 and C 25 (remat 'full'), s/it, peak memory."""
+    from edgerunner_tpu_torch.config import config_defaults
+    from edgerunner_tpu_torch.ops.pointops import farthest_point_sample
+
+    opt = dataclasses.replace(config_defaults["ArAE"], batch_size=TRAIN_ROWS,
+                              point_encoder_mode="downsample")
+    batch = train_batch(opt, TRAIN_ROWS)
+    k = opt.point_latent_size
+    pts = torch.tensor(batch["conds"])
+    t0 = time.perf_counter()
+    idx_cpu = farthest_point_sample(pts, k)
+    cpu_s = time.perf_counter() - t0
+    pts = pts.to(dev)
+    idx = farthest_point_sample(pts, k)
+    calls = []
+    for _ in range(EXTRAS_FPS_CALLS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        farthest_point_sample(pts, k)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t1) * 1e3)
+    same = torch.equal(idx.cpu(), idx_cpu)
+    L = opt.num_layers
+    want = {"flash_attention_fwd": 2 * (L + 1), "flash_attention_bwd": L + 1}
+    run = train_step_runs(dev, opt, batch, 1)
+    losses = [r["loss"] for r in run["steps"]]
+    ok = (same and all(r["launches"] == want for r in run["steps"])
+          and all(np.isfinite(losses)))
+    return {"ok": ok, "points": list(pts.shape), "queries": k, "indices_equal_cpu": same,
+            "distinct_per_row": [len(set(r.tolist())) for r in idx.cpu()],
+            "ms_per_call": calls, "ms_per_call_mean": sum(calls) / len(calls),
+            "cpu_s": cpu_s, "step_s": [r["s"] for r in run["steps"]],
+            "s_per_it": run["s_per_it"], "peak_mem_gib": run["peak_mem_gib"],
+            "losses": losses, "launches_per_step": [r["launches"] for r in run["steps"]],
+            "launches_expected_per_step": want}
+
+
+def extras_meshes(root: str) -> None:
+    """EXTRAS_MESHES jittered icospheres of 320 faces and the manifest.json
+    that lists them with their face counts (a remote root's index)."""
+    from edgerunner_tpu_torch.data import save_mesh_file
+    from edgerunner_tpu_torch.data._procgen import icosphere
+
+    os.makedirs(root)
+    v, f = icosphere(2)
+    rng = np.random.default_rng(SEED)
+    names = [f"m{i:02d}.obj" for i in range(EXTRAS_MESHES)]
+    for name in names:
+        save_mesh_file(os.path.join(root, name),
+                       v * rng.uniform(0.5, 1.0, 3) + rng.normal(0, 0.02, v.shape), f)
+    with open(os.path.join(root, "manifest.json"), "w") as fh:
+        json.dump({name: len(f) for name in names}, fh)
+
+
+def extras_argv(url: str, workspace: str) -> list:
+    """`main ArAE`'s command line with every training extra, on a
+    loopback HTTP root."""
+    return ["ArAE", "--data_root", url, "--workspace", workspace,
+            "--synthetic_size", str(EXTRAS_MESHES), "--batch_size", str(TRAIN_ROWS),
+            "--num_epochs", "1", "--eval_mode", "generate",
+            "--eval_gen_samples", str(EXTRAS_EVAL_SAMPLES),
+            "--test_batch_size", str(EXTRAS_EVAL_SAMPLES),
+            "--test_num_face", str(EXTRAS_EVAL_FACES), "--decode_bucket", str(CUT_BUCKET),
+            "--remat_policy", "attn", "--async_checkpointing", "true",
+            "--save_optimizer_state", "false", "--seed", str(SEED)]
+
+
+@contextlib.contextmanager
+def loopback_root(served: str):
+    """An HTTP server on 127.0.0.1 over the directory `served`, on a thread;
+    yields (its URL, the paths it was asked for)."""
+    import functools
+    import http.server
+    import threading
+
+    asked = []
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 (stdlib API)
+            asked.append(self.path)
+            super().do_GET()
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                          functools.partial(Handler, directory=served))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}", asked
+    finally:
+        srv.shutdown()
+        thread.join()
+        srv.server_close()
+
+
+def main_extras(dev) -> dict:
+    """`main ArAE` with the training extras at full width, bf16 autocast:
+    EXTRAS_MESHES meshes served over loopback HTTP (`--data_root
+    http://127.0.0.1:<port>/set`, a manifest.json, each mesh fetched into a
+    temporary cache), --remat_policy attn, one epoch of 16 steps (launches
+    per step held to A 26 and C 25), the trace of steps 10-14 in
+    <workspace>/profile (it must name kernels A and C), --eval_mode
+    generate of EXTRAS_EVAL_SAMPLES held-out conditions decoded in bf16
+    (kernel A's prefill, kernel B held to 24 launches per decode step; every
+    score finite, or the mesh degenerate or its failure logged), and
+    --async_checkpointing: the save_epoch call's seconds, then after main's
+    wait() the workspace's model.safetensors byte-equal to a synchronous
+    save of the trainer's weights, whose seconds are measured too. In a temporary directory, deleted afterwards."""
+    import filecmp
+    import shutil
+    import tempfile
+
+    from edgerunner_tpu_torch import eval as eval_mod
+    from edgerunner_tpu_torch import main as main_cli
+    from edgerunner_tpu_torch.models.lmm import LMM
+    from edgerunner_tpu_torch.ops.decode_attention import fused_decode_attention
+    from edgerunner_tpu_torch.ops.flash_attention import flash_attention
+    from edgerunner_tpu_torch.train.checkpoint import MODEL_FILE, CheckpointManager
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_extras_")
+    served = os.path.join(tmp, "served")
+    extras_meshes(os.path.join(served, "set"))
+    ws = os.path.join(tmp, "ws")
+    cache_env = os.environ.get("EDGERUNNER_FETCH_CACHE")
+    os.environ["EDGERUNNER_FETCH_CACHE"] = os.path.join(tmp, "fetch")
+    steps, saves, evals, decode_steps, decode_dtypes = [], [], [], [], []
+    save_epoch, log_eval = CheckpointManager.save_epoch, main_cli.log_generate_eval
+    lmm_step, decode_model = LMM.step, eval_mod.decode_model
+
+    def timed_save(self, *a, **kw):
+        t1 = time.perf_counter()
+        out = save_epoch(self, *a, **kw)
+        saves.append({"async": self.async_save, "s": time.perf_counter() - t1})
+        return out
+
+    def counted_eval(*a, **kw):
+        flash_attention.launches = fused_decode_attention.launches = 0
+        decode_steps.clear()
+        t1 = time.perf_counter()
+        stats = log_eval(*a, **kw)
+        torch.cuda.synchronize()
+        evals.append({"s": time.perf_counter() - t1, "stats": stats,
+                      "launches": {"flash_attention_fwd": flash_attention.launches,
+                                   "fused_decode_attention": fused_decode_attention.launches},
+                      "decode_steps": len(decode_steps)})
+        return stats
+
+    def counted_step(self, *a, **kw):
+        decode_steps.append(1)
+        return lmm_step(self, *a, **kw)
+
+    def recorded_model(model, opt):
+        out = decode_model(model, opt)
+        decode_dtypes.append(str(next(out.parameters()).dtype))
+        return out
+
+    CheckpointManager.save_epoch, main_cli.log_generate_eval = timed_save, counted_eval
+    LMM.step, eval_mod.decode_model = counted_step, recorded_model
+    try:
+        with loopback_root(served) as (url, asked), counted_train_steps(steps, {}):
+            t0 = time.perf_counter()
+            trainer = main_cli.main(extras_argv(url + "/set", ws))
+            run_s = time.perf_counter() - t0
+        main_saves = list(saves)
+        opt, L = trainer.opt, trainer.opt.num_layers
+        log = open(os.path.join(ws, "log.txt")).read()
+        trace = os.path.join(ws, "profile", "trace.json")
+        with open(trace) as fh:
+            text = fh.read()
+        trace_names = {n: n in text for n in ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                                              "flash_bwd_dkv_mma_kernel")}
+        trace_mb = len(text) / 2 ** 20
+        del text
+        latest = os.path.join(ws, MODEL_FILE)
+        committed = os.path.realpath(latest) == os.path.join(ws, "ep0000", MODEL_FILE)
+        # a synchronous save writes the trainer's weights as they are: the
+        # committed file equals them when it equals that save byte for byte
+        sync = CheckpointManager(os.path.join(tmp, "sync"))
+        t1 = time.perf_counter()
+        sync.save_epoch(0, trainer.model, loss=1.0, log=lambda m: None)
+        sync_s = time.perf_counter() - t1
+        sync_equal = filecmp.cmp(latest, os.path.join(tmp, "sync", "ep0000", MODEL_FILE),
+                                 shallow=False)
+        cached = sorted(os.listdir(os.path.join(tmp, "fetch")))
+        del trainer
+    finally:
+        CheckpointManager.save_epoch, main_cli.log_generate_eval = save_epoch, log_eval
+        LMM.step, eval_mod.decode_model = lmm_step, decode_model
+        if cache_env is None:
+            os.environ.pop("EDGERUNNER_FETCH_CACHE", None)
+        else:
+            os.environ["EDGERUNNER_FETCH_CACHE"] = cache_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = {"flash_attention_fwd": L + 2, "flash_attention_bwd": L + 1}
+    losses = [st["loss"] for st in steps]
+    ev = evals[0] if len(evals) == 1 else {}
+    stats = ev.get("stats", {"n": 0, "scores": []})
+    failed = log.count("mesh metrics failed on sample")
+    scores_ok = all(np.isfinite(s["chamfer_l2"]) or s["num_faces_pred"] == 0
+                    for s in stats["scores"])
+    meshes = sum(a.endswith(".obj") for a in asked)
+    ok = bool(len(steps) == EXTRAS_MESHES // TRAIN_ROWS
+              and all(st["launches"] == want for st in steps) and all(np.isfinite(losses))
+              and meshes == EXTRAS_MESHES and len([c for c in cached if c.endswith(".obj")])
+              == EXTRAS_MESHES and "[profiler] trace written to" in log
+              and all(trace_names.values())
+              and ev and stats["n"] + failed == EXTRAS_EVAL_SAMPLES and scores_ok
+              and ev["decode_steps"] > 0
+              and ev["launches"]["fused_decode_attention"] == L * ev["decode_steps"]
+              and ev["launches"]["flash_attention_fwd"] == L + 1
+              and decode_dtypes == ["torch.bfloat16"]
+              and [s["async"] for s in main_saves] == [True] and committed and sync_equal)
+    return {"ok": ok, "argv": extras_argv("http://127.0.0.1:<port>/set", "<tmp>/ws"),
+            "run_s": run_s, "steps": len(steps), "losses": losses,
+            "s_per_it": sum(st["s"] for st in steps[1:]) / max(len(steps) - 1, 1),
+            "launches_per_step": [st["launches"] for st in steps],
+            "launches_expected_per_step": want,
+            "http_requests": len(asked), "http_mesh_requests": meshes,
+            "fetch_cache_files": len(cached),
+            "trace_mib": trace_mb, "trace_names": trace_names,
+            "eval_s": ev.get("s"), "eval_n": stats["n"], "eval_failed_logged": failed,
+            "eval_stats": {k: stats.get(k) for k in ("chamfer_mean", "chamfer_std",
+                                                     "fscore_mean", "fscore_std")},
+            "eval_faces": [[s["num_faces_gt"], s["num_faces_pred"]] for s in stats["scores"]],
+            "eval_decode_dtype": decode_dtypes, "eval_decode_steps": ev.get("decode_steps"),
+            "eval_launches": ev.get("launches"),
+            "eval_log": [line[line.find("Eval"):] for line in log.splitlines()
+                         if "Eval epoch" in line],
+            "save_epoch_calls": main_saves,
+            "async_save_epoch_s": main_saves[0]["s"] if main_saves else None,
+            "sync_save_epoch_s": sync_s, "latest_committed": committed,
+            "async_file_equals_sync_file": sync_equal}
+
+
+def phase_train_extras(dev):
+    """The training extras (`validate` accepts them since this phase's
+    slice): --remat_policy attn against full, farthest-point sampling and
+    the downsample LMM's step, then `main ArAE` with all of them at full
+    width on a loopback HTTP root (each function's docstring)."""
+    res = {}
+    for name, fn in (("remat", remat_attn_vs_full), ("fps", fps_downsample),
+                     ("main", main_extras)):
+        t0 = time.perf_counter()
+        res[name] = {"seconds": None, **fn(dev)}
+        res[name]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["ok"] = all(res[k]["ok"] for k in ("remat", "fps", "main"))
+    res["card"] = card_line()
+    return res
 
 
 # ---------------------------------------------------------------------- sp --
@@ -3638,9 +4004,10 @@ def kernels_line(results):
     (kernel A in one DDIM run and in the f32 prefill, kernel B's f32
     decode), DiT training (kernels A and C, per step) and the
     image-conditioned ArAE (kernels A and B in its generate call, A and C
-    per training step), and data parallelism (A and C per step and rank of
+    per training step), data parallelism (A and C per step and rank of
     the dp training step, A and B in the decode fleet's call, D in the
-    engine fleet's requests)."""
+    engine fleet's requests), and the training extras (A and C per step of
+    `main` under --remat_policy attn, A and B in its generate eval)."""
     kern, gen, train, serve, spec, sp, dp = (results[k] for k in (
         "kernels", "generate", "train", "serve", "spec", "sp", "dp"))
     dp_train_step = dp["ranks"][0]["train"]["launches_per_step"][-1]
@@ -3648,6 +4015,8 @@ def kernels_line(results):
     dit_train = results["dit_train"]["launches_per_step"][-1]
     dit = results["dit"]["cli"]
     image, image_train = results["image"], results["image_train"]["launches_per_step"][-1]
+    extras = results["train_extras"]["main"]
+    attn_step = extras["launches_per_step"][-1]
     gen_q8, gen_q4 = results["generate_q8"], results["generate_q4"]
     def case(cases, prefix):
         return next(c for c in cases if c["case"].startswith(prefix))
@@ -3691,6 +4060,12 @@ def kernels_line(results):
     lse_main = case(lse, f"ring R={SP_TRAIN_RANKS} off-diagonal bfloat16")
     lse_diag = case(lse, f"ring R={SP_TRAIN_RANKS} diagonal bfloat16")
     lse_r4 = case(lse, "ring R=4 off-diagonal bfloat16")
+    lse_f32 = {kind: case(lse, f"ring R={SP_TRAIN_RANKS} {kind} float32")
+               for kind in ("off-diagonal", "diagonal")}
+
+    def lse_bwd_sub(c):
+        return {"shape": c["shape"], "max_abs_err": c["max_abs_err"],
+                **{k: c["bwd"][k] for k in keys}}
     return {"kernels": [
         entry("flash_attention_fwd", "flash_fwd.cu", "edgerunner_tpu/ops/flash_attention.py:258",
               gen["launches"]["flash_attention_fwd"], prefill,
@@ -3705,7 +4080,9 @@ def kernels_line(results):
                                 "image_train_per_step": image_train["flash_attention_fwd"],
                                 "dp_train_per_step_and_rank":
                                     dp_train_step["flash_attention_fwd"],
-                                "dp_fleet": fleet["flash_attention_fwd"]},
+                                "dp_fleet": fleet["flash_attention_fwd"],
+                                "train_attn_per_step": attn_step["flash_attention_fwd"],
+                                "generate_eval": extras["eval_launches"]["flash_attention_fwd"]},
               encoder_shape=sub(case(kern["flash"], "encoder (main")),
               train_decoder_shape=sub(case(kern["flash"], "decoder train")),
               train_encoder_shape=sub(case(kern["flash"], "encoder train")),
@@ -3723,7 +4100,8 @@ def kernels_line(results):
               launches_by_path={"generate": gen["launches"]["fused_decode_attention"],
                                 "dit_decode_f32": dit["launches"]["fused_decode_attention"],
                                 "image": image["launches"]["fused_decode_attention"],
-                                "dp_fleet": fleet["fused_decode_attention"]},
+                                "dp_fleet": fleet["fused_decode_attention"],
+                                "generate_eval": extras["eval_launches"]["fused_decode_attention"]},
               image_d64_shape=sub(case(kern["decode"], "image index"))),
         entry("flash_attention_bwd", "flash_bwd.cu", "edgerunner_tpu/ops/flash_attention.py:520",
               train["launches"]["flash_attention_bwd"], bwd, lengths=bwd["kv_len"],
@@ -3733,7 +4111,8 @@ def kernels_line(results):
                                 "dit_train_per_step": dit_train["flash_attention_bwd"],
                                 "image_train_per_step": image_train["flash_attention_bwd"],
                                 "dp_train_per_step_and_rank":
-                                    dp_train_step["flash_attention_bwd"]},
+                                    dp_train_step["flash_attention_bwd"],
+                                "train_attn_per_step": attn_step["flash_attention_bwd"]},
               encoder_shape=sub(case(kern["flash_bwd"], "encoder train")),
               **{f"dit_train_{kind}_shape": sub(case(kern["flash_bwd"], f"dit train {kind}"))
                  for kind in ("self", "cross")},
@@ -3778,17 +4157,18 @@ def kernels_line(results):
               sp_launches("flash_attention_lse"), lse_main,
               launches_by_rank=[rk["train"]["launches"]["flash_attention_lse"]
                                 for rk in sp_ranks],
-              diagonal_shape=sub(lse_diag), r4_shape=sub(lse_r4)),
+              diagonal_shape=sub(lse_diag), r4_shape=sub(lse_r4),
+              f32_shape=sub(lse_f32["off-diagonal"]),
+              f32_diagonal_shape=sub(lse_f32["diagonal"])),
         entry("flash_attention_lse_bwd", "flash_bwd.cu",
               "edgerunner_tpu/ops/flash_attention.py:1235", sp_launches("flash_attention_lse_bwd"),
               dict(lse_main["bwd"], max_abs_err=lse_main["max_abs_err"],
                    shape=lse_main["shape"]),
               launches_by_rank=[rk["train"]["launches"]["flash_attention_lse_bwd"]
                                 for rk in sp_ranks],
-              diagonal_shape={"shape": lse_diag["shape"], "max_abs_err": lse_diag["max_abs_err"],
-                              **{k: lse_diag["bwd"][k] for k in keys}},
-              r4_shape={"shape": lse_r4["shape"], "max_abs_err": lse_r4["max_abs_err"],
-                        **{k: lse_r4["bwd"][k] for k in keys}}),
+              diagonal_shape=lse_bwd_sub(lse_diag), r4_shape=lse_bwd_sub(lse_r4),
+              f32_shape=lse_bwd_sub(lse_f32["off-diagonal"]),
+              f32_diagonal_shape=lse_bwd_sub(lse_f32["diagonal"])),
     ]}
 
 
@@ -3812,6 +4192,7 @@ def main(argv=None) -> int:
             "parity_q4": lambda: phase_parity_q4(dev), "serve": lambda: phase_serve(dev),
             "serve_parity": lambda: phase_serve_parity(dev), "spec": lambda: phase_spec(dev),
             "train": lambda: phase_train(dev), "train_parity": lambda: phase_train_parity(dev),
+            "train_extras": lambda: phase_train_extras(dev),
             "sp": lambda: phase_sp(dev), "dp": lambda: phase_dp(dev),
             "dit": lambda: phase_dit(dev),
             "dit_parity": lambda: phase_dit_parity(dev),

@@ -13,7 +13,6 @@ import argparse
 import dataclasses
 import sys
 import typing
-import urllib.parse
 from dataclasses import dataclass
 from typing import Dict, List, Literal, Optional, Tuple
 
@@ -411,8 +410,10 @@ def parse_cli(argv: Optional[List[str]] = None, prog: str = "edgerunner-tpu") ->
 _NOT_PORTED = {
     "moe_experts": 0, "lora_rank": 0, "tp_size": 1,
     "pp_size": 1, "ep_size": 1, "scan_layers": False,
-    "async_checkpointing": False, "use_wandb": False,
 }
+# gradient-checkpointing policies: 'full' recomputes each decoder layer in
+# the backward pass, 'attn' keeps its attention output (models/shape_opt.py)
+REMAT_POLICIES = ("full", "attn")
 
 
 def validate(opt: Options) -> Options:
@@ -421,7 +422,12 @@ def validate(opt: Options) -> Options:
     every entry point: `main` and `infer` overlay it on the ArAE as the JAX
     package's tolerant merge does (e.g. a pretrained CLIP tower), the image
     pipeline's entry points (main_dit, infer_dit, serve) read an MDiT
-    checkpoint from it."""
+    checkpoint from it.
+
+    `remat_policy` is 'full' or 'attn'; any other value is refused, where
+    the JAX package silently trains it with full recompute (its ShapeOPT
+    sets a policy for 'attn' only). Remote (http, https, s3) and
+    colon-separated `data_root`s are read as the JAX main reads them."""
     if opt.cond_mode in ("point", "point_latent"):
         # 'point_latent' takes the latents that 'point' encodes: the same
         # condition tokens, and the DiT pipeline's frozen 'embed' encoder
@@ -431,8 +437,6 @@ def validate(opt: Options) -> Options:
                 f"num_cond_tokens ({opt.num_cond_tokens}) must equal "
                 f"point_latent_size + use_num_face_cond ({expected}) in "
                 f"{opt.cond_mode} cond mode")
-        if opt.point_encoder_mode != "embed":
-            raise ValueError("the port implements point_encoder_mode 'embed' only")
     elif opt.cond_mode == "image":
         # CLIP's patch tokens and its class token (edgerunner_tpu/config.py:421-427)
         patches = (opt.clip_image_size // opt.clip_patch_size) ** 2 + 1
@@ -446,11 +450,9 @@ def validate(opt: Options) -> Options:
     for name, off in _NOT_PORTED.items():
         if getattr(opt, name) != off:
             raise ValueError(f"the port does not implement --{name} yet")
-    # 'attn' saves each layer's attention output through the remat in the
-    # JAX trainer; the port's checkpointing always recomputes everything
-    # ('full'). remat_prevent_cse is XLA-only and changes nothing here.
-    if opt.remat_policy != "full":
-        raise ValueError(f"the port implements --remat_policy full only, got "
+    # remat_prevent_cse is XLA-only and changes nothing here
+    if opt.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"--remat_policy is one of {REMAT_POLICIES}, got "
                          f"{opt.remat_policy!r}")
     if opt.kv_quant and opt.kv_bits not in (4, 8):
         raise ValueError(f"--kv_bits is 4 or 8, got {opt.kv_bits}")
@@ -467,11 +469,6 @@ def validate(opt: Options) -> Options:
         raise ValueError(f"--sp_size must be >= 1, got {opt.sp_size}")
     if opt.dp_size == 0 or opt.dp_size < -1:
         raise ValueError(f"--dp_size is -1 (the world / sp) or >= 1, got {opt.dp_size}")
-    if opt.eval_mode == "generate":
-        raise ValueError("the port does not implement --eval_mode generate yet")
-    if len(urllib.parse.urlparse(opt.data_root).scheme) > 1 or ":" in opt.data_root:
-        raise ValueError("the port reads one local --data_root; remote and "
-                         "multi-root data are not implemented yet")
     return opt
 
 

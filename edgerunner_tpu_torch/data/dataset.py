@@ -2,13 +2,14 @@
 (edgerunner_tpu/data/dataset.py:39-549).
 
 Host numpy code, copied with the same random draws in the same order: one
-seed gives both packages bit-equal batches. Ported: the local mesh folder
-(with or without `manifest.json`; point or image conditions, the image
-from a render view beside the mesh or a point-splat render of it), the
-synthetic procedural dataset,
-`collate` with its bucketed lengths, and a thread-pool loader whose order
-and position (`state()` / `restore_state()`) follow the JAX package's. Remote
-roots and `MixedDataset` are not ported yet (config.validate refuses them).
+seed gives both packages bit-equal batches. Ported: the mesh folder, local
+(with or without `manifest.json`) or remote (an http(s) or s3 root with a
+`manifest.json`, each mesh fetched when it is read; data/fetch.py); point
+or image conditions, the image from a render view beside the mesh or a
+point-splat render of it; `MixedDataset`, the concatenation of several
+roots; the synthetic procedural dataset; `collate` with its bucketed
+lengths, and a thread-pool loader whose order and position (`state()` /
+`restore_state()`) follow the JAX package's.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from edgerunner_tpu_torch.config import Options
 from edgerunner_tpu_torch.data._procgen import icosphere
+from edgerunner_tpu_torch.data.fetch import fetch_bytes, is_remote
 from edgerunner_tpu_torch.data.image_io import (
     find_render_views,
     load_image_cond,
@@ -94,7 +96,8 @@ def decimate_vertex_cluster(vertices: np.ndarray, faces: np.ndarray,
 
 class MeshFolderDataset:
     """Meshes (.obj/.ply) from a local directory tree, or those a
-    `manifest.json` at its root lists with their face counts, with the
+    `manifest.json` at its root lists with their face counts (a remote
+    root's items stay URLs, fetched when read), with the
     reference's augmentations and its retry-with-resample loop
     (reference: provider.py:150-315). In image mode the mesh turns to the
     azimuth of the render view it is paired with (`find_render_views`;
@@ -111,7 +114,13 @@ class MeshFolderDataset:
         self.epoch = 0
         root = root or opt.data_root
         self.items: list[str] = []
-        if os.path.exists(os.path.join(root, "manifest.json")):
+        if is_remote(root):
+            # a streamed source (reference: S3 buckets, provider.py:162)
+            meta = json.loads(fetch_bytes(root.rstrip("/") + "/manifest.json"))
+            for rel, nf in (meta.items() if isinstance(meta, dict) else meta):
+                if nf < opt.max_face_length:
+                    self.items.append(root.rstrip("/") + "/" + rel)
+        elif os.path.exists(os.path.join(root, "manifest.json")):
             with open(os.path.join(root, "manifest.json")) as f:
                 meta = json.load(f)
             for rel, nf in (meta.items() if isinstance(meta, dict) else meta):
@@ -199,6 +208,30 @@ def shard_items_for_host(items: list, rank: int, world: int) -> list:
     would wait forever for the others at the gradients' all-reduce."""
     n = len(items) // world
     return items[rank::world][:n]
+
+
+class MixedDataset:
+    """The concatenation of the mesh folders of a colon-separated
+    `data_root`, e.g. `--data_root dir_a:dir_b` with `--dataset objxl`
+    (edgerunner_tpu/data/dataset.py:320-343; reference: provider.py:435-466).
+    Like the JAX class it has no `epoch` for the loader to set, so its
+    folders draw each sample as in epoch 0 every epoch."""
+
+    def __init__(self, opt: Options, training: bool = True, tokenizer=None):
+        roots = [r for r in opt.data_root.split(":") if r]
+        self.datasets = [MeshFolderDataset(opt, training=training, tokenizer=tokenizer, root=r)
+                         for r in roots]
+        self.lens = [len(d) for d in self.datasets]
+
+    def __len__(self) -> int:
+        return sum(self.lens)
+
+    def __getitem__(self, idx: int) -> dict:
+        for d in self.datasets:
+            if idx < len(d):
+                return d[idx]
+            idx -= len(d)
+        raise IndexError(idx)
 
 
 class SyntheticMeshDataset:

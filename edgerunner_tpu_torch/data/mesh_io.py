@@ -1,6 +1,7 @@
 """Triangle-mesh IO and cleanup in plain numpy (no trimesh dependency).
 
-The port's copy of the JAX package's mesh IO, for local files only.
+The port's copy of the JAX package's mesh IO; `load_mesh` also reads a
+remote path (http, https, s3) through data/fetch.py's cache.
 
 Covers what the reference uses trimesh/kiui for: OBJ/PLY load/save
 (reference: core/utils.py:39-66), normalization (utils.py:69-75), vertex
@@ -15,6 +16,8 @@ import struct
 from typing import Tuple
 
 import numpy as np
+
+from edgerunner_tpu_torch.data.fetch import fetch_to_local
 
 
 # ----------------------------------------------------------------- loading --
@@ -114,6 +117,9 @@ def load_ply(path: str) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def load_mesh(path: str, bound: float | None = None) -> Tuple[np.ndarray, np.ndarray]:
+    """(vertices, faces) of an .obj or .ply file; a remote path (http,
+    https, s3) is fetched into the local cache first (data/fetch.py)."""
+    path = fetch_to_local(path)
     ext = os.path.splitext(path)[1].lower()
     if ext == ".obj":
         v, f = load_obj(path)

@@ -4,12 +4,16 @@
         --workspace ./workspace [--device cuda|cpu] [--flags]
     python -m edgerunner_tpu_torch.main default ...   (image-conditioned)
 
-Data: a local directory of .obj/.ply meshes (optionally listed with their
-face counts in a manifest.json); the synthetic procedural dataset when
-data_root does not exist. In image mode (the default preset) each mesh is
-paired with a render view beside it, or with a point-splat render of its
-surface (data/dataset.py), and the CLIP tower stays frozen under
-`freeze_encoder`: it takes no optimizer state and is saved with the rest.
+Data: a directory of .obj/.ply meshes (optionally listed with their face
+counts in a manifest.json), local or remote: an http(s) or s3 root whose
+manifest.json lists them, each fetched when read (data/fetch.py, data/s3.py);
+with `--dataset objxl`, a colon-separated list of local roots, mixed
+(`MixedDataset`; the first root also gives the test split); the synthetic
+procedural dataset when data_root does not exist. In image mode (the
+default preset) each mesh is paired with a render view beside it, or with
+a point-splat render of its surface (data/dataset.py), and the CLIP tower
+stays frozen under `freeze_encoder`: it takes no optimizer state and is
+saved with the rest.
 Weights start from `--seed`; `--resume` merges a `.safetensors` file over
 them as the JAX package's main does (`merge_checkpoint`: entries whose name
 and shape match are taken, position embeddings of another length realigned
@@ -19,8 +23,16 @@ partial file over them (`overlay_checkpoint`: a pretrained CLIP tower, in
 the port's or HuggingFace's naming); with `--resume_train_state` the step,
 the optimizer state and the loader's position come back too, and training
 continues exactly. Each epoch saves a
-checkpoint (train/checkpoint.py); with `--eval_mode loss` the held-out loss
-is logged and one batch's ground-truth and argmax meshes are written. With
+checkpoint (train/checkpoint.py; with `--async_checkpointing true` written
+by a background thread, the last one committed at the end); steps 10-14 of
+epoch 0 are traced into `<workspace>/profile` (torch.profiler, a Chrome
+trace). With `--eval_mode loss` the held-out loss is logged and one batch's
+ground-truth and argmax meshes are written; with `--eval_mode generate`,
+`eval_gen_samples` held-out conditions are decoded in the run's compute
+dtype and scored (chamfer, F-score; eval.py), the first four written as
+testgen_ep{epoch}_{i}.obj. `--use_wandb true` logs the metrics every 10
+steps, each epoch's loss and the eval's scores to Weights & Biases (the
+`wandb` package, imported only then). With
 `--ema_decay` the weights' moving average is kept, saved beside each
 checkpoint, restored on resume and evaluated too. The
 model trains on the card unless `--device cpu` is given; without a card and
@@ -41,7 +53,9 @@ group split each sequence, the decoder's attention as a ring. `--dp_size
 NCCL when every rank has a card of its own and gloo otherwise
 (parallel/mesh.py). A dp × sp other than the world's size raises: it never
 trains unsharded. Rank 0 logs and writes the checkpoints; every dp group
-evaluates the whole test set; the process group is destroyed on exit.
+evaluates the whole test set's loss, rank 0 alone the generate eval (and
+wandb), while the other ranks wait; every rank writes its own trace; the
+process group is destroyed on exit.
 """
 
 from __future__ import annotations
@@ -52,14 +66,18 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from edgerunner_tpu_torch.config import parse_cli, validate
 from edgerunner_tpu_torch.data import save_mesh
 from edgerunner_tpu_torch.data.dataset import (
     DataLoader,
     MeshFolderDataset,
+    MixedDataset,
     SyntheticMeshDataset,
 )
+from edgerunner_tpu_torch.data.fetch import is_remote
+from edgerunner_tpu_torch.eval import generate_eval
 from edgerunner_tpu_torch.infer import resolve_device
 from edgerunner_tpu_torch.models.lmm import LMM, init_weights
 from edgerunner_tpu_torch.parallel import DataParallel, SequenceParallel
@@ -115,9 +133,18 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
             "Recommended: --warmup_ratio 0.01 or more, or lr <= 1e-4.")
 
     tokenizer, _ = get_tokenizer(opt)
-    if os.path.isdir(opt.data_root):
-        train_dataset = MeshFolderDataset(opt, training=True, tokenizer=tokenizer)
-        test_dataset = MeshFolderDataset(opt, training=False, tokenizer=tokenizer)
+    # a remote root streams its items; several local roots mix under objxl
+    # (the JAX main, main.py:72-91)
+    remote = is_remote(opt.data_root)
+    first_root = opt.data_root if remote else opt.data_root.split(":")[0]
+    if remote or os.path.isdir(first_root):
+        if opt.dataset == "objxl" and ":" in opt.data_root and not remote:
+            train_dataset = MixedDataset(opt, training=True, tokenizer=tokenizer)
+        else:
+            train_dataset = MeshFolderDataset(opt, training=True, tokenizer=tokenizer,
+                                              root=first_root)
+        test_dataset = MeshFolderDataset(opt, training=False, tokenizer=tokenizer,
+                                         root=first_root)
     else:
         logger.warning(f"data_root {opt.data_root} not found; using synthetic data")
         train_dataset = SyntheticMeshDataset(opt, size=opt.synthetic_size, training=True,
@@ -134,7 +161,8 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
     total_steps = opt.num_epochs * len(train_loader) // opt.gradient_accumulation_steps
     model = init_weights(LMM(opt, device=device), opt.seed)
     trainer = Trainer(model, opt, total_steps, logger=logger, sp=sp, dp=dp)
-    manager = CheckpointManager(opt.workspace, keep=2, group=trainer.world)
+    manager = CheckpointManager(opt.workspace, keep=2, group=trainer.world,
+                                async_save=opt.async_checkpointing)
 
     start_epoch, resume_step, opt_state_path = 0, 0, None
     if opt.resume is not None:
@@ -152,8 +180,15 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
                 f"{sum(p.numel() for p in trainer.params.values()) / 1e6:.3f} M")
     ema_path = sibling_ema_path(opt.resume) if opt.ema_decay > 0 and opt.resume else None
     trainer.init_state(step=resume_step, opt_state_path=opt_state_path, ema_path=ema_path)
+    wandb = None
+    if opt.use_wandb and trainer.is_main:
+        import wandb
+
+        wandb.init(project="lmm", name=os.path.basename(opt.workspace), config=vars(opt))
 
     def on_step(step, metrics):
+        if wandb is not None and step % 10 == 0:
+            wandb.log({k: float(v) for k, v in metrics.items()}, step=step)
         if opt.save_every_steps and step % opt.save_every_steps == 0:
             manager.save_step(step, model,
                               trainer.optimizer if opt.save_optimizer_state else None,
@@ -162,7 +197,8 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
 
     for epoch in range(start_epoch, opt.num_epochs):
         if not opt.debug_eval:
-            avg_loss = trainer.train_epoch(train_loader, epoch, on_step=on_step)
+            avg_loss = trainer.train_epoch(train_loader, epoch, on_step=on_step,
+                                           profile_dir=os.path.join(opt.workspace, "profile"))
             if (opt.save_every_epochs <= 1 or (epoch + 1) % opt.save_every_epochs == 0
                     or epoch == opt.num_epochs - 1):
                 manager.save_epoch(
@@ -170,6 +206,8 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
                     loss=avg_loss,
                     train_state={"step": trainer.step, "loader": train_loader.state()},
                     log=logger.info, ema=trainer.ema)
+            if wandb is not None:
+                wandb.log({"train_loss": avg_loss})
         else:
             logger.info(f"epoch: {epoch} skip training for debug !!!")
         if opt.eval_mode == "loss":
@@ -184,7 +222,33 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
                 save_eval_meshes(trainer, test_loader, opt, tokenizer, epoch)
             except Exception as e:  # noqa: BLE001
                 logger.warning(f"failed to save validation mesh: {e}")
+        elif opt.eval_mode == "generate":
+            if trainer.is_main:
+                log_generate_eval(model, test_loader, opt, tokenizer, epoch, logger, wandb)
+            if trainer.world is not None:
+                dist.barrier(trainer.world.group)
+    # the last asynchronous save on disk, and its bookkeeping
+    manager.wait(log=logger.info)
     return trainer
+
+
+def log_generate_eval(model, test_loader, opt, tokenizer, epoch: int, logger, wandb=None):
+    """--eval_mode generate (reference: main.py:240-265): decode and score
+    held-out samples, log the scores (and send them to wandb)."""
+    stats = generate_eval(model, test_loader, opt, tokenizer=tokenizer, epoch=epoch,
+                          workspace=opt.workspace, log=logger.warning)
+    msg = f"Eval epoch: {epoch} generated meshes saved."
+    if stats["n"]:
+        msg += (f" chamfer={stats['chamfer_mean']:.5f}±{stats['chamfer_std']:.5f}"
+                f" fscore={stats['fscore_mean']:.3f}±{stats['fscore_std']:.3f}"
+                f" (n={stats['n']})")
+        if wandb is not None:
+            wandb.log({"eval_chamfer": stats["chamfer_mean"],
+                       "eval_chamfer_std": stats["chamfer_std"],
+                       "eval_fscore": stats["fscore_mean"],
+                       "eval_fscore_std": stats["fscore_std"]}, commit=False)
+    logger.info(msg)
+    return stats
 
 
 if __name__ == "__main__":

@@ -19,7 +19,9 @@ optimizer state, the loader's position and the EMA come back from
 every `save_every_epochs`, and every `save_every_steps` steps) saves an MDiT
 `.safetensors` that `infer_dit --resume2` and `serve --resume2` load
 strictly; with `--eval_mode loss` the held-out loss (and the EMA's) is
-logged. The model trains on the card, under bf16 autocast with
+logged (`--eval_mode generate` evaluates nothing here, as in the JAX
+package); `--async_checkpointing true` writes each save on a background
+thread (train/checkpoint.py). The model trains on the card, under bf16 autocast with
 `mixed_precision` bf16, unless `--device cpu` is given (f32); without a card
 and without `--device cpu` it raises.
 
@@ -101,7 +103,8 @@ def train(opt, device: torch.device, sp=None, dp: Optional[DataParallel] = None)
                                              log=logger.warning))
             logger.info(f"merged weights from {path}")
     trainer = Trainer(model, opt, total_steps, logger=logger, kind="dit", dp=dp)
-    manager = CheckpointManager(opt.workspace, keep=2, group=trainer.world)
+    manager = CheckpointManager(opt.workspace, keep=2, group=trainer.world,
+                                async_save=opt.async_checkpointing)
 
     start_epoch, resume_step, opt_state_path = 0, 0, None
     if opt.resume_train_state and opt.resume2 is not None:
@@ -136,6 +139,8 @@ def train(opt, device: torch.device, sp=None, dp: Optional[DataParallel] = None)
             if trainer.ema is not None:
                 # the EMA is what gets deployed; its loss is tracked too
                 trainer.eval_epoch(test_loader, epoch, use_ema=True)
+    # the last asynchronous save on disk, and its bookkeeping
+    manager.wait(log=logger.info)
     return trainer
 
 

@@ -31,7 +31,11 @@ from edgerunner_tpu_torch.models.clip_vit import (
     preprocess_images,
 )
 from edgerunner_tpu_torch.models.layers import LN_EPS
-from edgerunner_tpu_torch.models.point_encoder import PointEncoderEmbed, latent_kl
+from edgerunner_tpu_torch.models.point_encoder import (
+    PointEncoderEmbed,
+    PointEncoderFPS,
+    latent_kl,
+)
 from edgerunner_tpu_torch.models.shape_opt import Caches, ShapeOPT, ShapeOPTConfig
 from edgerunner_tpu_torch.parallel.mesh import active_sequence_parallel
 from edgerunner_tpu_torch.utils import quantize_num_faces
@@ -56,7 +60,9 @@ class LMM(nn.Module):
             self.proj_cond = nn.Linear(opt.clip_hidden_dim, opt.hidden_dim, **kw)
             self.norm_cond = nn.LayerNorm(opt.hidden_dim, eps=LN_EPS, **kw)
         if opt.cond_mode == "point":
-            self.point_encoder = PointEncoderEmbed(
+            encoder = (PointEncoderEmbed if opt.point_encoder_mode == "embed"
+                       else PointEncoderFPS)
+            self.point_encoder = encoder(
                 opt.point_hidden_dim, opt.point_num_heads, opt.point_latent_size,
                 opt.point_latent_dim, use_kernels=use_kernels,
                 remat=opt.checkpointing, **kw)
@@ -75,6 +81,7 @@ class LMM(nn.Module):
             max_position_embeddings=opt.max_seq_length + opt.num_cond_tokens + 10,
             pad_token_id=opt.pad_token_id,
             remat=opt.checkpointing,
+            remat_policy=opt.remat_policy,
             kv_quant=opt.kv_quant,
             kv_bits=opt.kv_bits,
             kv_group=opt.kv_group,

@@ -1,7 +1,9 @@
-"""Point-cloud latent encoder of the port (edgerunner_tpu/models/point_encoder.py:22-113).
+"""Point-cloud latent encoders of the port (edgerunner_tpu/models/point_encoder.py:22-113).
 
-A bank of learned queries cross-attends over frequency-embedded surface
-points and projects to a compact latent (reference: point.py:23-205).
+Queries cross-attend over frequency-embedded surface points and project to
+a compact latent (reference: point.py:23-205): a bank of learned queries
+(point_encoder_mode 'embed'), or the embeds of farthest-point-sampled
+points of the cloud itself ('downsample').
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import torch
 from torch import nn
 
 from edgerunner_tpu_torch.models.layers import LN_EPS, ResCrossAttBlock
+from edgerunner_tpu_torch.ops.pointops import farthest_point_sample
 
 
 def point_freq_basis(freq_embed_dim: int = 48) -> np.ndarray:
@@ -72,6 +75,35 @@ class PointEncoderEmbed(nn.Module):
         x = self.ln(self.point_embed(pts))
         q = self.query_embed.expand(pts.shape[0], -1, -1)
         return self.linear(self.cross_att(q, x))
+
+
+class PointEncoderFPS(nn.Module):
+    """Farthest-point-sampled queries (point_encoder_mode='downsample',
+    edgerunner_tpu/models/point_encoder.py:83-106; reference: point.py:129-169).
+    `point_embed` embeds every point, which then goes through `ln`, and the
+    `latent_size` points that farthest-point sampling picks, which do not;
+    those are the queries of `cross_att`. There is no `query_embed`. The
+    sampling takes no gradient and runs outside the checkpointed block."""
+
+    def __init__(self, hidden_dim: int = 1024, num_heads: int = 16,
+                 latent_size: int = 2048, latent_dim: int = 64, *,
+                 use_kernels: bool = True, remat: bool = False, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.latent_size = latent_size
+        self.point_embed = PointEmbed(hidden_dim, **kw)
+        self.ln = nn.LayerNorm(hidden_dim, eps=LN_EPS, **kw)
+        self.cross_att = ResCrossAttBlock(hidden_dim, num_heads,
+                                          use_kernels=use_kernels, remat=remat, **kw)
+        self.linear = nn.Linear(hidden_dim, latent_dim, **kw)
+
+    def forward(self, pts):
+        """pts [B, N, 3] -> latent [B, latent_size, latent_dim]."""
+        x = self.ln(self.point_embed(pts))
+        idx = farthest_point_sample(pts, self.latent_size)
+        query_pts = torch.take_along_dim(pts, idx[..., None], dim=1)
+        return self.linear(self.cross_att(self.point_embed(query_pts), x))
 
 
 def latent_kl(latent: torch.Tensor) -> torch.Tensor:

@@ -63,8 +63,10 @@ class ShapeOPTConfig:
     dropout: float = 0.1
     init_std: float = 0.02
     pad_token_id: int = 0
-    # gradient checkpointing of each decoder layer in training
+    # gradient checkpointing of each decoder layer in training; 'attn' keeps
+    # each layer's attention output instead of replaying it
     remat: bool = False
+    remat_policy: str = "full"
     # quantised KV cache (values + a bf16 scale plane) for decoding: int8,
     # or with kv_bits 4 packed int4 with per-row scales or kv_group lanes
     # per scale; kv_rotate rotates K/V rows per head before quantising
@@ -138,12 +140,17 @@ class OPTAttention(nn.Module):
         B, N, C = x.shape
         return x.reshape(B, N, self.num_heads, C // self.num_heads)
 
-    def forward(self, h, lengths=None):
+    def core(self, h, lengths=None):
+        """The causal attention over h's own projections, before out_proj:
+        o [B, N, hidden] (what remat_policy 'attn' keeps)."""
         B, N, _ = h.shape
         o = self.attend(self._heads(self.q_proj(h)), self._heads(self.k_proj(h)),
                         self._heads(self.v_proj(h)), causal=True, q_len=lengths,
                         kv_len=lengths)
-        return self.out_proj(o.reshape(B, N, -1))
+        return o.reshape(B, N, -1)
+
+    def forward(self, h, lengths=None):
+        return self.out_proj(self.core(h, lengths))
 
     def prefill(self, h):
         """Causal attention over the prompt; returns (out, k, v) with k/v in
@@ -219,7 +226,12 @@ class OPTDecoderLayer(nn.Module):
     def forward(self, h, lengths=None, train: bool = False):
         """Residual dropout on the attention and MLP branches in training
         (edgerunner_tpu/models/shape_opt.py:412-426)."""
-        a = F.dropout(self.self_attn(h, lengths), self.dropout, training=train)
+        return self.after_attention(h, self.self_attn.core(h, lengths), train)
+
+    def after_attention(self, h, o, train: bool = False):
+        """The layer past its attention output o: out_proj, the residuals,
+        dropout, both LayerNorms and the MLP."""
+        a = F.dropout(self.self_attn.out_proj(o), self.dropout, training=train)
         return self._mlp(self.self_attn_layer_norm(h + a), train)
 
     def prefill(self, h):
@@ -254,7 +266,13 @@ class ShapeOPTDecoder(nn.Module):
 
     def forward(self, inputs_embeds, lengths=None, train: bool = False):
         """With `cfg.remat`, each layer is checkpointed
-        (edgerunner_tpu/models/shape_opt.py:524-538). Under an sp context
+        (edgerunner_tpu/models/shape_opt.py:524-538): as a whole under
+        remat_policy 'full', so that the backward pass replays its
+        attention; under 'attn' the attention (q/k/v projections and the
+        attention call, a ring under sp) runs outside the checkpoint and
+        keeps its inputs and output, and the rest of the layer is
+        checkpointed, as JAX's save_only_these_names("attn_out") keeps the
+        output and no replay runs the attention again. Under an sp context
         the positions of the full length T are added, then the rank keeps
         its shard [rank * T/R, (rank + 1) * T/R): every layer runs on it
         (LayerNorm and MLP per token, attention as the ring), and the hidden
@@ -266,8 +284,13 @@ class ShapeOPTDecoder(nn.Module):
         sp = active_sequence_parallel()
         if sp is not None:
             h = sp.shard(h)
+        keep_attn = self.remat and self.cfg.remat_policy == "attn"
         for layer in self.layers:
-            h = maybe_checkpoint(self.remat, layer, h, lengths, train)
+            if keep_attn:
+                h = maybe_checkpoint(True, layer.after_attention, h,
+                                     layer.self_attn.core(h, lengths), train)
+            else:
+                h = maybe_checkpoint(self.remat, layer, h, lengths, train)
         return h
 
     def prefill(self, inputs_embeds, max_len: int):

@@ -1,8 +1,33 @@
-"""Point-cloud helpers of the port (host numpy)."""
+"""Point-cloud helpers of the port: farthest-point sampling on the device,
+surface sampling on the host (numpy)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+@torch.no_grad()
+def farthest_point_sample(pts: torch.Tensor, k: int) -> torch.Tensor:
+    """k indices per row by farthest-point sampling (edgerunner_tpu/ops/
+    pointops.py:14-35, the reference's torch_cluster.fps): pts [B, N, 3];
+    returns int64 [B, k]. Starts from point 0; each next point is the one
+    farthest from those chosen, the first of equal maxima (as jnp.argmax
+    takes it). The squared distance is summed in f32 as the JAX loop sums
+    it, x then y then z, so that both packages choose the same points.
+    Plain PyTorch, ~7 launches per chosen point: the JAX function is a
+    fori_loop, not a Pallas kernel."""
+    B, N, _ = pts.shape
+    p = pts.float()
+    rows = torch.arange(B, device=p.device)
+    idx = torch.zeros((B, k), dtype=torch.int64, device=p.device)
+    dists = torch.full((B, N), float("inf"), device=p.device)
+    for i in range(1, k):
+        diff = p - p[rows, idx[:, i - 1]][:, None]
+        sq = diff * diff
+        dists = torch.minimum(dists, sq[..., 0] + sq[..., 1] + sq[..., 2])
+        idx[:, i] = dists.argmax(-1)
+    return idx
 
 
 def sample_surface_points(vertices, faces, n: int, rng) -> np.ndarray:

@@ -9,10 +9,17 @@ naming, each save holds the optimizer state (`opt_state.pt`) and
 continues exactly. With `--ema_decay` each save also holds the weights'
 moving average as `ema.safetensors`, a whole model file like the weights'
 (the workspace's `ema.safetensors` points at the latest), from which a
-resume restores it (`sibling_ema_path`). Saves are synchronous. Under
-data or sequence parallelism every rank of the world (`group`) holds the
-same weights, optimizer state and EMA: its rank 0 writes, and every rank
-waits at a barrier until it has.
+resume restores it (`sibling_ema_path`). Each save first copies the
+weights, the optimizer state and the EMA to host memory. With `async_save`
+(--async_checkpointing; edgerunner_tpu/train/checkpoint.py:142-215) the
+save returns then, and a background thread writes the files while training
+goes on; the bookkeeping (train_state.json, the workspace's links, `best/`,
+the pruning) waits for the next save or for `wait()`, so the workspace's
+`model.safetensors` lags one save while a save is in flight, and at most
+one is in flight. Under data or sequence parallelism every rank of the
+world (`group`) holds the same weights, optimizer state and EMA: its rank
+0 writes, and every rank waits at a barrier until it has (in `wait()`
+under async_save).
 
 The non-strict loads (`--resume2`, `main_dit`'s `--resume`) are a question
 of the weights' format and live in weights.py (`tolerant_merge`,
@@ -24,6 +31,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from typing import Optional
 
 import torch
@@ -32,7 +40,6 @@ import torch.distributed as dist
 from edgerunner_tpu_torch.weights import (
     load_state,
     read_safetensors,
-    reference_state_dict,
     write_safetensors,
 )
 
@@ -42,14 +49,6 @@ OPT_FILE = "opt_state.pt"
 STATE_FILE = "train_state.json"
 
 
-def ema_state_dict(model, ema: dict) -> dict:
-    """The model's weights with each averaged parameter's EMA in its place:
-    a model file that loads like the weights'."""
-    state = reference_state_dict(model)
-    state.update({n: t.detach().float().cpu().numpy() for n, t in ema.items()})
-    return state
-
-
 def _link(workspace: str, target: str, name: str):
     path = os.path.join(workspace, name)
     if os.path.lexists(path):
@@ -57,35 +56,114 @@ def _link(workspace: str, target: str, name: str):
     os.symlink(target, path)
 
 
+def _to_host(obj):
+    """`obj` with every tensor in it copied to host memory: a snapshot that
+    later steps, which update the tensors in place, leave as it is."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    return obj
+
+
+def host_snapshot(model, optimizer=None, ema: Optional[dict] = None) -> dict:
+    """What a save writes, copied to host memory: the weights and the EMA
+    as {reference name: f32 array}, the optimizer's state dict."""
+    weights = {k: v.detach().to("cpu", torch.float32, copy=True).numpy()
+               for k, v in model.state_dict().items()}
+    snap = {"weights": weights, "ema": None, "opt": None}
+    if ema is not None:
+        snap["ema"] = {**weights, **{n: t.detach().to("cpu", torch.float32, copy=True).numpy()
+                                     for n, t in ema.items()}}
+    if optimizer is not None:
+        snap["opt"] = _to_host(optimizer.state_dict())
+    return snap
+
+
+def write_snapshot(save_dir: str, snap: dict):
+    os.makedirs(save_dir, exist_ok=True)
+    write_safetensors(os.path.join(save_dir, MODEL_FILE), snap["weights"])
+    if snap["ema"] is not None:
+        write_safetensors(os.path.join(save_dir, EMA_FILE), snap["ema"])
+    if snap["opt"] is not None:
+        torch.save(snap["opt"], os.path.join(save_dir, OPT_FILE))
+
+
 class CheckpointManager:
-    def __init__(self, workspace: str, keep: int = 2, group=None):
+    def __init__(self, workspace: str, keep: int = 2, group=None, async_save: bool = False):
         self.workspace = workspace
         self.keep = keep
         # every rank of the run (parallel/mesh.py); None for one process
         self.group = group if group is not None and group.size > 1 else None
+        self.writes = self.group is None or self.group.rank == 0
         self.old_dirs: list[str] = []
         self.best_loss = float("inf")
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
+        self._thread_error: Optional[Exception] = None
+        self._pending = None  # the bookkeeping of the save in flight
         os.makedirs(workspace, exist_ok=True)
 
     def _save(self, tag: str, model, optimizer=None, loss: Optional[float] = None,
               train_state: Optional[dict] = None, log=print, ema: Optional[dict] = None):
-        if self.group is None:
-            self._write(tag, model, optimizer, loss, train_state, log, ema)
+        if self.async_save:
+            self.wait(log)  # the previous save: its files, then its bookkeeping
+            if self.writes:
+                self._write(tag, model, optimizer, loss, train_state, log, ema)
             return
         try:
-            if self.group.rank == 0:
+            if self.writes:
                 self._write(tag, model, optimizer, loss, train_state, log, ema)
         finally:
-            dist.barrier(self.group.group)
+            if self.group is not None:
+                dist.barrier(self.group.group)
 
     def _write(self, tag: str, model, optimizer, loss, train_state, log, ema):
+        """The writing rank's save: the host copy, then the files and the
+        bookkeeping, or under async_save the files on a background thread
+        and the bookkeeping deferred."""
         save_dir = os.path.join(self.workspace, tag)
-        os.makedirs(save_dir, exist_ok=True)
-        write_safetensors(os.path.join(save_dir, MODEL_FILE), reference_state_dict(model))
-        if ema is not None:
-            write_safetensors(os.path.join(save_dir, EMA_FILE), ema_state_dict(model, ema))
-        if optimizer is not None:
-            torch.save(optimizer.state_dict(), os.path.join(save_dir, OPT_FILE))
+        snap = host_snapshot(model, optimizer, ema)
+        bookkeeping = (tag, save_dir, loss, train_state)
+        if self.async_save:
+            self._start_write(save_dir, snap)
+            self._pending = (bookkeeping, ema is not None)
+            return
+        write_snapshot(save_dir, snap)
+        self._bookkeep(*bookkeeping, log, ema is not None)
+
+    def _start_write(self, save_dir: str, snap: dict):
+        def write():
+            try:
+                write_snapshot(save_dir, snap)
+            except Exception as exc:  # noqa: BLE001 - raised again by wait()
+                self._thread_error = exc
+
+        self._thread = threading.Thread(target=write, name="checkpoint-writer")
+        self._thread.start()
+
+    def wait(self, log=print):
+        """Under async_save: block until the save in flight is on disk, then
+        do its bookkeeping; under dp or sp every rank waits at a barrier
+        until rank 0 has. Call it at the end of training. Nothing to do
+        for synchronous saves."""
+        if not self.async_save:
+            return
+        try:
+            if self._thread is not None:
+                self._thread.join()
+                self._thread = None
+                if self._thread_error is not None:
+                    error, self._thread_error = self._thread_error, None
+                    raise RuntimeError("the checkpoint writer failed") from error
+            if self._pending is not None:
+                (bookkeeping, has_ema), self._pending = self._pending, None
+                self._bookkeep(*bookkeeping, log, has_ema)
+        finally:
+            if self.group is not None:
+                dist.barrier(self.group.group)
+
+    def _bookkeep(self, tag: str, save_dir: str, loss, train_state, log, has_ema: bool):
         # best first, so that train_state.json records the true best so far
         new_best = loss is not None and loss < self.best_loss
         if new_best:
@@ -95,7 +173,7 @@ class CheckpointManager:
                 json.dump({**train_state, "best_loss": self.best_loss}, f)
 
         _link(self.workspace, os.path.join(tag, MODEL_FILE), MODEL_FILE)
-        if ema is not None:
+        if has_ema:
             _link(self.workspace, os.path.join(tag, EMA_FILE), EMA_FILE)
         if new_best:
             best = os.path.join(self.workspace, "best")

@@ -48,6 +48,7 @@ one-process loss.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Optional
 
@@ -73,6 +74,8 @@ from edgerunner_tpu_torch.train.state import (
 from edgerunner_tpu_torch.weights import read_safetensors
 
 METRICS = ("loss", "loss_ce", "loss_kl", "loss_mtp")
+# the steps of epoch 0 that `train_epoch(profile_dir=...)` traces, first and last
+PROFILE_STEPS = (10, 14)
 
 
 def _lmm_call(model, b, train, generator):
@@ -230,13 +233,23 @@ class Trainer:
         return self.forward(batch, train=False)
 
     def train_epoch(self, loader, epoch: int,
-                    on_step: Optional[Callable[[int, dict], None]] = None) -> float:
+                    on_step: Optional[Callable[[int, dict], None]] = None,
+                    profile_dir: Optional[str] = None) -> float:
         """One pass over the loader; logs every 10 steps in the JAX package's
-        format (trainer.py:262-287). Returns the mean loss."""
+        format (trainer.py:262-287). Returns the mean loss. With
+        `profile_dir`, steps 10-14 of epoch 0 run under torch.profiler (the
+        CPU, and the card's kernels on the card), exported as a Chrome
+        trace, trace.json (trace_rank{r}.json under dp or sp) in
+        `profile_dir`, as the JAX trainer traces them
+        (trainer.py:257-267); an epoch that ends sooner writes the steps it
+        traced."""
         t_start = t_step = time.time()
         total, n = 0.0, 0
         num_batches = len(loader)
+        prof = None
         for i, batch in enumerate(loader):
+            if profile_dir and epoch == 0 and i == PROFILE_STEPS[0]:
+                prof = self._start_profiler()
             if i == 0 and self.sp is not None:
                 # every rank of an sp group must hold the same batch
                 assert_same_on_every_rank(batch_checksum(batch).to(self.device),
@@ -259,10 +272,34 @@ class Trainer:
                     if k in m:
                         log += f" {k}: {m[k]:.6f}"
                 self.log(log)
+            if prof is not None and i == PROFILE_STEPS[1]:
+                self._write_trace(prof, profile_dir)
+                prof = None
+        if prof is not None:
+            self._write_trace(prof, profile_dir)
         avg = total / max(n, 1)
         self.log(f"Train epoch: {epoch} loss: {avg:.6f} "
                  f"time: {(time.time() - t_start) / 60:.2f}min")
         return avg
+
+    def _start_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _write_trace(self, prof, profile_dir: str):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        name = "trace.json" if self.world is None else f"trace_rank{self.world.rank}.json"
+        prof.export_chrome_trace(os.path.join(profile_dir, name))
+        self.log(f"[profiler] trace written to {profile_dir}")
 
     @torch.no_grad()
     def eval_loss(self, batch: dict, use_ema: bool = False) -> float:

@@ -92,7 +92,8 @@ def _point_encoder(sd, prefix, tree):
     _linear(sd, block + ".mlp.net.0", cross["mlp"]["fc_in"])
     _linear(sd, block + ".mlp.net.2", cross["mlp"]["fc_out"])
     _linear(sd, prefix + ".linear", tree["linear"])
-    sd[prefix + ".query_embed"] = np.asarray(tree["query_embed"], np.float32)
+    if "query_embed" in tree:  # the learned queries of 'embed'; 'downsample' has none
+        sd[prefix + ".query_embed"] = np.asarray(tree["query_embed"], np.float32)
 
 
 def _shape_opt(sd, prefix, tree):
@@ -287,7 +288,7 @@ def _unpoint_encoder(sd, p):
     cross = p + ".cross_att"
     att = {n: _unlinear({}, sd, f"{cross}.att.{n}")
            for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
-    return {
+    tree = {
         "point_embed": {"mlp": _unlinear({}, sd, p + ".point_embed.mlp")},
         "ln": _unlayernorm(sd, p + ".ln"),
         "cross_att": {"ln1": _unlayernorm(sd, cross + ".ln1"),
@@ -295,8 +296,10 @@ def _unpoint_encoder(sd, p):
                       "mlp": {"fc_in": _unlinear({}, sd, cross + ".mlp.net.0"),
                               "fc_out": _unlinear({}, sd, cross + ".mlp.net.2")}},
         "linear": _unlinear({}, sd, p + ".linear"),
-        "query_embed": sd[p + ".query_embed"],
     }
+    if p + ".query_embed" in sd:
+        tree["query_embed"] = sd[p + ".query_embed"]
+    return tree
 
 
 def flax_from_state_dict(sd: dict) -> dict:

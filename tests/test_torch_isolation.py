@@ -75,10 +75,12 @@ def test_validate_refuses_options_the_port_does_not_run():
     for change in (dict(kv_quant=True, kv_bits=4, kv_group=12),
                    dict(kv_quant=True, kv_bits=4, kv_group=100),
                    dict(kv_quant=True, kv_bits=3), dict(cond_mode="image"),
-                   dict(point_encoder_mode="downsample"), dict(num_cond_tokens=7)):
+                   dict(num_cond_tokens=7)):
         with pytest.raises(ValueError):
             validate(dataclasses.replace(config_defaults["ArAE"], **change))
     validate(dataclasses.replace(config_defaults["ArAE"]))
+    # the FPS point encoder is ported
+    validate(dataclasses.replace(config_defaults["ArAE"], point_encoder_mode="downsample"))
     # the int8 and int4 KV caches (grouped, rotated), int8 weights, the draft
     # heads and speculative decoding are ported; spec_decode outside greedy
     # mode warns and decodes vanilla, as in the JAX package
@@ -95,33 +97,41 @@ def test_validate_accepts_dp_size_and_refuses_the_training_options_not_ported_ye
 
     import dataclasses
 
-    for change in (dict(dp_size=0), dict(dp_size=-2), dict(eval_mode="generate"),
-                   dict(async_checkpointing=True),
-                   dict(use_wandb=True), dict(data_root="https://example.com/meshes"),
-                   dict(data_root="s3://bucket/meshes"), dict(data_root="dir_a:dir_b")):
+    for change in (dict(dp_size=0), dict(dp_size=-2), dict(moe_experts=4), dict(lora_rank=8),
+                   dict(tp_size=2), dict(pp_size=2), dict(ep_size=2), dict(scan_layers=True)):
         with pytest.raises(ValueError):
             validate(dataclasses.replace(config_defaults["ArAE"], **change))
     # the weight EMA is ported: main and main_dit keep one; --resume2 is
     # ported: main and infer overlay it on the ArAE (a pretrained CLIP tower);
     # dp is ported: main and main_dit train under torchrun, infer and serve
-    # decode on a fleet
+    # decode on a fleet; the training extras are ported: the generate eval,
+    # async checkpoints, wandb, remote roots and mixed local roots
     for ok in (dict(dp_size=-1), dict(dp_size=1), dict(dp_size=2),
                dict(dp_size=2, sp_size=2), dict(data_root="./data"),
-               dict(ema_decay=0.999), dict(resume2="clip.safetensors")):
+               dict(ema_decay=0.999), dict(resume2="clip.safetensors"),
+               dict(eval_mode="generate"), dict(async_checkpointing=True),
+               dict(use_wandb=True), dict(data_root="https://example.com/meshes"),
+               dict(data_root="http://127.0.0.1:8000/set"),
+               dict(data_root="s3://bucket/meshes"), dict(data_root="dir_a:dir_b"),
+               dict(data_root="dir_a:dir_b", dataset="objxl")):
         validate(dataclasses.replace(config_defaults["ArAE"], **ok))
 
 
 def test_validate_refuses_remat_policy_attn_and_accepts_prevent_cse():
-    """'attn' would silently train with full recompute (the port's
-    checkpointing has no selective policy yet); remat_prevent_cse is an XLA
-    option that the port's recompute needs no counterpart of."""
+    """The name is older than 'attn' in the port: 'attn' is now accepted
+    (models/shape_opt.py keeps each layer's attention output), and a policy
+    other than 'full' or 'attn', which the JAX package would silently train
+    with full recompute, is refused; remat_prevent_cse is an XLA option that
+    the port's recompute needs no counterpart of."""
     from edgerunner_tpu_torch.config import config_defaults, validate
 
     import dataclasses
 
-    with pytest.raises(ValueError, match="remat_policy"):
-        validate(dataclasses.replace(config_defaults["ArAE"], remat_policy="attn"))
-    for ok in (dict(remat_policy="full"), dict(remat_prevent_cse=True)):
+    for bad in ("dots", "none", ""):
+        with pytest.raises(ValueError, match="remat_policy"):
+            validate(dataclasses.replace(config_defaults["ArAE"], remat_policy=bad))
+    for ok in (dict(remat_policy="full"), dict(remat_policy="attn"),
+               dict(remat_prevent_cse=True)):
         validate(dataclasses.replace(config_defaults["ArAE"], **ok))
 
 
