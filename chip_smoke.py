@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: the quickest proof that
 the port still builds, agrees with its plain versions, generates meshes
 from point clouds and from images (through the DiT's latents, and through
-the image-conditioned ArAE), serves them over HTTP and trains.
+the image-conditioned ArAE), serves them over HTTP and trains, also with
+the MoE decoder, expert parallelism and LoRA.
 
     python3 chip_smoke.py [--phases build,kernels,...]
 
@@ -214,6 +215,36 @@ Phases, one JSON line each:
              equal; then timed steps at 4 x 4355 positions (s/it, tokens/s,
              peak memory, busy share).
 
+22. moe      the MoE decoder (--moe_experts 4 --moe_top_k 2, capacity factor
+             1.25) at full ArAE width, random weights from seed 0: the train
+             phase's step (bf16 autocast, checkpointing; launches held to A 50
+             and C 25 per step; loss_moe, s/it, peak memory, dropped
+             assignments), infer's greedy decode of 12 rows at 512 tokens in
+             bf16 (A 25, B 24 per step; tokens/s, ms per step, busy share),
+             the engine with 8 slots and 4 requests of 256 tokens (D once per
+             layer and step); then at 2 layers in f32 with capacity factor
+             0.5 (tokens dropped, counted) the kernel path against the plain
+             one (index dispatch and flash kernels against one-hot einsums
+             and plain attention): one training step's loss and gradients,
+             and the greedy streams up to near-ties.
+23. ep       expert parallelism with 2 ranks that share the card (gloo,
+             staged through pinned host memory), spawned from this process:
+             `main ArAE --moe_experts 4 --moe_top_k 2 --ep_size 2` at full
+             width for 2 steps (launches held, s/it per rank, the bytes the
+             ep ops sum per step, the saved file's experts whole, the
+             router's and the attention's weights bit-equal on both ranks);
+             then at 2 layers in f32 a dp 1 x ep 2 step and a dp 2 x ep 1
+             step against one process: the loss, every gradient, the global
+             norm, and the same assignments dropped (the global routing).
+24. lora     LoRA at full width: the seed's dense weights saved, `main
+             --resume dense --lora_rank 8 --lora_alpha 16` for 3 steps
+             (A 50, C 25 per step; the base weights bit-unchanged, every
+             adapter moved, the logged grad norm that of every gradient),
+             `python -m edgerunner_tpu_torch.merge_lora`, then the adapted
+             and the merged weights' f32 greedy streams (12 rows, 256
+             tokens) equal up to near-ties, and a bf16 decode with the
+             adapters (A and B held).
+
 Then one JSON line with every kernel's numbers, the card's name and power
 limit from nvidia-smi, and last the result line. Exits non-zero, printing
 no result line, without a CUDA device, without the repository beside this
@@ -253,7 +284,7 @@ GRAD_TOL = 2e-2          # train parity: gradient error over the tensor's larges
 PHASES = ("build", "kernels", "generate", "generate_q8", "generate_q4", "parity", "parity_q4",
           "serve", "serve_parity", "spec", "train", "train_parity", "train_extras", "sp", "dp",
           "dit", "dit_parity", "dit_train", "dit_train_parity", "image", "image_parity",
-          "image_train")
+          "image_train", "moe", "ep", "lora")
 EXTRAS_REMAT_STEPS = 3   # train_extras: timed steps per remat policy after one warm-up
 EXTRAS_FPS_CALLS = 3     # ... farthest-point sampling calls timed after one warm-up
 EXTRAS_MESHES = 32       # ... main ArAE on a loopback HTTP root of 32 meshes: 16 steps ...
@@ -317,6 +348,20 @@ IMAGE_TRAIN_ROWS = 4     # image_train: the default preset's batch ...
 IMAGE_TRAIN_SAMPLES = 16  # ... over --synthetic_size 16: one warm-up and three timed steps
 IMAGE_PROBE_STEPS = 3    # ... then timed steps at 4 rows of bench.py's train probe rows
 IMAGE_RAGGED_LEN = 3000  # the kernels' image training case: every other row cut to this
+MOE_EXPERTS, MOE_TOP_K = 4, 2  # moe, ep: --moe_experts 4 --moe_top_k 2 (the JAX tests' E, K)
+MOE_TRAIN_STEPS = 2      # moe: timed steps of the train phase's batch after one warm-up
+MOE_DECODE_BUDGET = CUT_BUCKET  # moe: infer's decode of ROWS rows, the budget cut for time
+MOE_SERVE_REQUESTS = 4   # moe: the engine, SERVE_ROWS slots, 4 requests ...
+MOE_SERVE_FACES = 38     # ... of 38 faces: a 254-token budget in a MOE_SERVE_BUCKET bucket
+MOE_SERVE_BUCKET = 256
+MOE_PARITY_CF = 0.5      # moe, ep parities: a capacity factor that drops tokens
+MOE_PARITY_STEPS = 256   # moe: greedy steps of the f32 stream parity
+EP_RANKS = 2             # ep: ranks sharing the card, 2 experts each
+EP_MAIN_SAMPLES = 4      # ep: main on 4 synthetic meshes, TRAIN_ROWS rows a step: 2 steps
+LORA_RANK, LORA_ALPHA = 8, 16.0  # lora: --lora_rank 8 --lora_alpha 16
+LORA_SAMPLES = 6         # lora: main on 6 synthetic meshes, TRAIN_ROWS rows a step: 3 steps
+LORA_DECODE_BUDGET = 256  # lora: the f32 decodes of ROWS rows ...
+LORA_BF16_BUDGET = 64    # ... and the bf16 one's budget and bucket, cut for time
 # shapes that straddle the flash kernels' 64-row tiles (B, N, M, H, D, causal,
 # kv_len, q_len), as tests/test_torch_attention.py and
 # tests/test_torch_flash_backward.py hold the plain versions at them
@@ -1228,9 +1273,7 @@ def parity_run(dev, steps, conds=None, preset="ArAE", **changes):
     1e-2 (f32 sums in another order differ by ~1e-5). `changes` set options
     (the KV cache's kind, the condition mode) of `preset`; `conds` are the
     rows' conditions (2 point clouds from a seed when None)."""
-    from edgerunner_tpu_torch.config import config_defaults, vocab_size_for
-    from edgerunner_tpu_torch.generate import decode_shape, generate_tokens
-    from edgerunner_tpu_torch.ops import sampling as S
+    from edgerunner_tpu_torch.config import config_defaults
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1241,6 +1284,21 @@ def parity_run(dev, steps, conds=None, preset="ArAE", **changes):
     rows = 2 if conds is None else len(conds)
     points = (np.random.default_rng(SEED + 1).normal(size=(rows, opt.point_num, 3)).astype(
         np.float32) if conds is None else conds)
+    return {"preset": preset, "options": changes, "layers": 2,
+            **stream_parity(kernel, plain, opt, dev, points, steps)}
+
+
+def stream_parity(kernel, plain, opt, dev, points, steps) -> dict:
+    """`parity_run`'s check of two models' greedy streams of the rows
+    `points` (the second the reference): each decodes its own stream of
+    `steps` tokens (EOS forbidden), then a lockstep replay on the
+    reference's tokens reads its logits' top-2 gap and both models' choices
+    at every step; ok as `parity_run` states it."""
+    from edgerunner_tpu_torch.config import vocab_size_for
+    from edgerunner_tpu_torch.generate import decode_shape, generate_tokens
+    from edgerunner_tpu_torch.ops import sampling as S
+
+    rows = len(points)
     kw = dict(num_faces=FACES, max_new_tokens=steps, bench_no_eos=True)
     stream_k = generate_tokens(kernel, points, **kw)
     stream_p = generate_tokens(plain, points, **kw)
@@ -1280,8 +1338,7 @@ def parity_run(dev, steps, conds=None, preset="ArAE", **changes):
     streams_ok = all(t is None or gaps[r, t] < NEAR_TIE for r, t in enumerate(first))
     ok = (streams_ok and bool(np.array_equal(replay, stream_p))
           and not (flips & (gaps >= NEAR_TIE)).any() and max_diff < 1e-2)
-    return {"ok": ok, "preset": preset, "options": changes, "layers": 2, "rows": rows,
-            "steps": steps,
+    return {"ok": ok, "rows": rows, "steps": steps,
             "dtype": "float32",
             "tf32": False, "near_tie": NEAR_TIE,
             "streams_identical": bool(np.array_equal(stream_k, stream_p)),
@@ -1491,9 +1548,9 @@ def serve_http(opt, dev) -> tuple:
             "malformed_status": bad[0], "statz": statz[1]}, frontend.engine.model
 
 
-def serve_bench(model, opt, dev, kernel, requests) -> tuple:
-    """The engine alone, EOS forbidden: `requests` requests of
-    SERVE_BENCH_FACES faces into SERVE_ROWS slots. The kernels' counts are
+def serve_bench(model, opt, dev, kernel, requests, faces=SERVE_BENCH_FACES) -> tuple:
+    """The engine alone, EOS forbidden: `requests` requests of `faces` faces
+    (SERVE_BENCH_FACES by default) into SERVE_ROWS slots. The kernels' counts are
     zeroed just before and read just after; `kernel` (the wrapper the
     engine's decode goes through) must have run exactly once per layer and
     engine step (a speculative pass under spec decoding), and the others not
@@ -1513,7 +1570,7 @@ def serve_bench(model, opt, dev, kernel, requests) -> tuple:
         fn.launches = 0
     steps0, t0 = engine.steps, time.perf_counter()
     threads = [threading.Thread(target=lambda i=i: results.__setitem__(
-        i, engine.submit(points[i], SERVE_BENCH_FACES, i))) for i in range(requests)]
+        i, engine.submit(points[i], faces, i))) for i in range(requests)]
     for t in threads:
         t.start()
     for t in threads:
@@ -1527,7 +1584,7 @@ def serve_bench(model, opt, dev, kernel, requests) -> tuple:
     tokens = sum(len(r["tokens"]) for r in results if r)
     expected = {name: (opt.num_layers * steps if name == kernel.__name__ else 0)
                 for name in launches}
-    budget = round_up_bucket(min(SERVE_BENCH_FACES * 5 + 64, engine.N), opt.decode_bucket)
+    budget = round_up_bucket(min(faces * 5 + 64, engine.N), opt.decode_bucket)
     ok = (all(r is not None and len(r["tokens"]) == budget for r in results)
           and launches == expected)
     return {"ok": ok, "requests": requests, "slots": SERVE_ROWS, "budget": budget,
@@ -3556,10 +3613,12 @@ def profile_dit_train_step(trainer, batch) -> dict:
 
 @contextlib.contextmanager
 def counted_train_steps(steps: list, snapshot: dict):
-    """`Trainer.train_step` patched inside: each step's seconds, metrics and
-    kernel A's and C's launches (counted from 0) appended to `steps`, and
-    the parameters before the first step copied into `snapshot`."""
+    """`Trainer.train_step` patched inside: each step's seconds, metrics,
+    kernel A's and C's launches (counted from 0) and the bytes that expert
+    parallelism's ops summed appended to `steps`, and the parameters before
+    the first step copied into `snapshot`."""
     from edgerunner_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from edgerunner_tpu_torch.parallel import ep_sum
     from edgerunner_tpu_torch.train.trainer import Trainer
 
     original = Trainer.train_step
@@ -3568,13 +3627,14 @@ def counted_train_steps(steps: list, snapshot: dict):
         if not snapshot:
             snapshot.update({n: p.detach().cpu() for n, p in self.model.named_parameters()})
         flash_attention.launches = flash_attention_bwd.launches = 0
+        summed = ep_sum.bytes
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         m = original(self, batch)
         torch.cuda.synchronize()
-        steps.append({"s": time.perf_counter() - t1, **m, "launches": {
-            "flash_attention_fwd": flash_attention.launches,
-            "flash_attention_bwd": flash_attention_bwd.launches}})
+        steps.append({"s": time.perf_counter() - t1, **m, "ep_bytes": ep_sum.bytes - summed,
+                      "launches": {"flash_attention_fwd": flash_attention.launches,
+                                   "flash_attention_bwd": flash_attention_bwd.launches}})
         return m
 
     Trainer.train_step = counted_step
@@ -3993,6 +4053,575 @@ def phase_image_train(dev):
             **prof, "card": card_line()}
 
 
+# --------------------------------------------------------- moe, ep, lora --
+
+def moe_options(**changes):
+    """The ArAE preset with the MoE decoder of the moe and ep phases."""
+    from edgerunner_tpu_torch.config import config_defaults
+
+    return dataclasses.replace(config_defaults["ArAE"], moe_experts=MOE_EXPERTS,
+                               moe_top_k=MOE_TOP_K, **changes)
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """Every MoE routing made inside: a list of `route`'s dicts, call by
+    call, each with "gap" [N], the smallest difference between neighbours
+    among a token's K + 1 largest probabilities (the order routing reads)."""
+    from edgerunner_tpu_torch.models import moe as M
+
+    seen, route = [], M.route
+
+    def recording(logits, top, *a, **kw):
+        r = route(logits, top, *a, **kw)
+        # detached: a kept graph would keep every layer's saved tensors
+        rec = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in r.items()}
+        ranked = torch.sort(rec["probs"], dim=-1, descending=True).values
+        rec["gap"] = (ranked[:, :top] - ranked[:, 1:top + 1]).min(dim=-1).values
+        seen.append(rec)
+        return r
+
+    M.route = recording
+    try:
+        yield seen
+    finally:
+        M.route = route
+
+
+@contextlib.contextmanager
+def forced_routes(recorded: list):
+    """Every MoE routing inside takes the decisions of another run's
+    routings (`moe_routes`, call by call, no dp): their experts, queue
+    positions and drops, with this run's own probabilities, gates and aux
+    loss, as `route` computes them. The lockstep of the stream parities,
+    for the router: two paths then compare their arithmetic, not a
+    rounding's choice between near-equal probabilities."""
+    import torch.nn.functional as F
+
+    from edgerunner_tpu_torch.models import moe as M
+
+    route, calls = M.route, iter(recorded)
+
+    def forced(logits, top, capacity_factor, dp=None, with_aux=True):
+        rec = next(calls)
+        N, E = logits.shape
+        probs = torch.softmax(logits, dim=-1)
+        gate = probs.gather(-1, rec["idx"])
+        gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+        aux = None
+        if with_aux:
+            first = F.one_hot(rec["idx"][:, 0], E).sum(0).float()
+            aux = E * torch.sum(first / N * probs.mean(0))
+        return {**rec, "probs": probs, "gate": gate, "aux": aux}
+
+    M.route = forced
+    try:
+        yield
+    finally:
+        M.route = route
+
+
+def drops_of(routes) -> dict:
+    """Dropped assignments and all assignments over recorded routings."""
+    return {"dropped": sum(int((~r["keep"]).sum()) for r in routes),
+            "assignments": sum(int(r["keep"].numel()) for r in routes)}
+
+
+def route_flips(got, want) -> dict:
+    """Tokens whose experts (or their order) differ between two runs'
+    routings, call by call, and the largest gap (`moe_routes`) of the
+    reference run among them: a rounding can swap neighbours only where
+    their probabilities are about equal."""
+    flips, gap = 0, 0.0
+    for r1, r2 in zip(got, want):
+        rows = (r1["idx"] != r2["idx"]).any(dim=-1)
+        flips += int(rows.sum())
+        if rows.any():
+            gap = max(gap, float(r2["gap"][rows].max()))
+    return {"routing_calls": len(want), "routing_calls_equal": len(got) == len(want),
+            "tokens_routed_otherwise": flips, "their_largest_gap": gap}
+
+
+def moe_train(dev) -> dict:
+    """The train phase's step with the MoE decoder: full width, bf16
+    autocast, checkpointing and dropout on, bench.py's train batch; one
+    warm-up and MOE_TRAIN_STEPS timed steps, launches held to A 2 and C 1
+    per attention call, loss_moe (about 1 with a near-uniform router at
+    init), the assignments dropped, s/it and peak memory."""
+    from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+    from edgerunner_tpu_torch.train.trainer import Trainer
+
+    opt = moe_options(batch_size=TRAIN_ROWS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(init_weights(LMM(opt, device=dev), SEED), opt, total_steps=1000)
+    batch = train_batch(opt, TRAIN_ROWS)
+    setup_s = time.perf_counter() - t0
+    calls = opt.num_layers + 1
+    want = {"flash_attention_fwd": 2 * calls, "flash_attention_bwd": calls}
+    steps = []
+    with counted_train_steps(steps, {}), moe_routes() as routes:
+        for _ in range(1 + MOE_TRAIN_STEPS):
+            trainer.train_step(batch)
+    moe = [st["loss_moe"] for st in steps]
+    losses = [st["loss"] for st in steps]
+    ok = (all(st["launches"] == want for st in steps) and all(np.isfinite(losses))
+          and 0.5 < moe[0] < 2.0)
+    res = {"ok": bool(ok), "experts": MOE_EXPERTS, "top_k": MOE_TOP_K,
+           "capacity_factor": opt.moe_capacity_factor, "rows": TRAIN_ROWS,
+           "positions": train_positions(opt), "layers": opt.num_layers,
+           "parameters": sum(p.numel() for p in trainer.params.values()),
+           "autocast": "bfloat16", "checkpointing": opt.checkpointing, "setup_s": setup_s,
+           "warmup_s": steps[0]["s"], "s_per_it": sum(st["s"] for st in steps[1:]) / MOE_TRAIN_STEPS,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "losses": losses,
+           "loss_moe": moe, "grad_norms": [st["grad_norm"] for st in steps],
+           "launches_per_step": [st["launches"] for st in steps],
+           "launches_expected_per_step": want, **drops_of(routes)}
+    res["tokens_per_s"] = TRAIN_ROWS * res["positions"] / res["s_per_it"]
+    del trainer, routes
+    return res
+
+
+def moe_decode(dev) -> tuple:
+    """infer's greedy decode of the MoE model in bf16: ROWS rows, 1000
+    faces, MOE_DECODE_BUDGET tokens, EOS forbidden (every row of a step
+    routed together); launches held to A once per layer and the encoder
+    and B once per layer and step; tokens/s, ms per step and the device's
+    busy share (a profiled segment). Returns (report, the model)."""
+    from edgerunner_tpu_torch.ops.decode_attention import fused_decode_attention
+
+    opt = moe_options(generate_mode="greedy", decode_bucket=CUT_BUCKET)
+    model = build_model(opt, dev, torch.bfloat16, SEED)
+    with moe_routes() as routes:
+        run = timed_generate(model, opt, dev, ROWS, MOE_DECODE_BUDGET)
+        drops = drops_of(routes)
+    del routes
+    num_new, max_len = decode_shape_of(opt, MOE_DECODE_BUDGET)
+    want = expected_launches(opt, fused_decode_attention, num_new - 1)
+    res = {"rows": ROWS, "num_new": num_new, "max_len": max_len, "dtype": "bfloat16",
+           "prefill_s": run["prefill_s"], "generate_s": run["generate_s"],
+           "ms_per_step": (run["generate_s"] - run["prefill_s"]) / (num_new - 1) * 1e3,
+           "tokens_per_s": run["tokens_per_s"], "peak_mem_gib": run["peak_mem_gib"],
+           "launches": run["launches"], "launches_expected": want, **drops}
+    res.update(profile_decode(model, opt, dev, run["points"], max_len,
+                              opt.num_cond_tokens + 1 + num_new // 2))
+    res["ok"] = bool(run["tokens"].shape == (ROWS, num_new) and run["launches"] == want
+                     and res["device_ms_per_step"] > 0)
+    return res, model
+
+
+def moe_serve(dev, model) -> dict:
+    """The continuous engine over the MoE model: SERVE_ROWS slots,
+    MOE_SERVE_REQUESTS requests of MOE_SERVE_FACES faces (a 256-token
+    budget), every slot routed together, free ones included; kernel D once
+    per layer and engine step."""
+    from edgerunner_tpu_torch.ops import decode_attention as DA
+
+    opt = moe_options(generate_mode="greedy", decode_bucket=MOE_SERVE_BUCKET,
+                      test_batch_size=SERVE_ROWS)
+    res, engine = serve_bench(model, opt, dev, DA.fused_decode_attention_multi,
+                              MOE_SERVE_REQUESTS, faces=MOE_SERVE_FACES)
+    del engine
+    return res
+
+
+def moe_train_parity(dev) -> dict:
+    """2 layers at full width in f32 (TF32 off), capacity factor
+    MOE_PARITY_CF (tokens dropped), dropout and num-face dropout off,
+    checkpointing on (the replays routed as the first pass): the training
+    loss (with the
+    aux term) and every gradient of the kernel path (index dispatch, the
+    flash kernels) against the plain path (one-hot einsums, plain attention)
+    under train parity's rule, the kernel path routed as the plain path
+    routed (`forced_routes`). Routed freely, the kernel path may send a
+    token otherwise where its largest probabilities are within rounding of
+    each other; those tokens are counted, and their gaps must be under
+    1e-4."""
+    from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt = moe_options(num_layers=2, mixed_precision="no", moe_capacity_factor=MOE_PARITY_CF,
+                      nof_dropout_ratio=0.0)
+    kernel = init_weights(LMM(opt, device=dev), SEED + 2)
+    plain = LMM(opt, device=dev, use_kernels=False)
+    plain.load_state_dict(kernel.state_dict())
+    for model in (kernel, plain):
+        for layer in model.mesh_decoder.model.layers:
+            layer.dropout = 0.0
+    batch = train_batch(opt, TRAIN_ROWS, lengths=[train_positions(opt), TRAIN_RAGGED_LEN])
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    def run(model):
+        return model(b["conds"], b["tokens"], b["labels"], b["num_faces"], b["lengths"],
+                     train=True)
+
+    def loss_and_grads(model):
+        o = run(model)
+        params = dict(model.named_parameters())
+        return o, dict(zip(params, torch.autograd.grad(o["loss"], list(params.values()))))
+
+    with moe_routes() as routes_p:
+        op_, gp = loss_and_grads(plain)
+    with forced_routes(routes_p):
+        ok_, gk = loss_and_grads(kernel)
+    with torch.no_grad(), moe_routes() as routes_k:
+        run(kernel)
+    # the forward's routings (the plain run's list goes on with the replays)
+    flips = route_flips(routes_k, routes_p[:opt.num_layers])
+    worst, worst_name, top = grad_err_over_tol(gk, gp)
+    loss_err = abs(ok_["loss"].item() - op_["loss"].item()) / abs(op_["loss"].item())
+    ok = (loss_err <= 1e-5 and worst <= 1.0 and flips["routing_calls_equal"]
+          and flips["their_largest_gap"] < 1e-4)
+    return {"ok": bool(ok), "layers": 2, "rows": TRAIN_ROWS, "dtype": "float32", "tf32": False,
+            "capacity_factor": MOE_PARITY_CF, "lengths": batch["lengths"].tolist(),
+            "loss_kernel": ok_["loss"].item(), "loss_plain": op_["loss"].item(),
+            "loss_moe_kernel": ok_["loss_moe"].item(), "loss_rel_err": loss_err,
+            "grad_tensors": len(gp), "grad_max_abs": top, "grad_worst_err_over_tol": worst,
+            "grad_worst_tensor": worst_name, "routed_as_the_plain_path": True, **flips,
+            **drops_of(routes_p)}
+
+
+def phase_moe(dev):
+    """The MoE decoder (--moe_experts 4 --moe_top_k 2) at full ArAE width on
+    the existing kernels: training (A, C), infer's decode (A, B) and the
+    engine (D), then its f32 parities at 2 layers with tokens dropped: the
+    training loss and gradients, and the greedy streams."""
+    res = {"card": card_line(), "train": moe_train(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["decode"], model = moe_decode(dev)
+    res["serve"] = moe_serve(dev, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["train_parity"] = moe_train_parity(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with moe_routes() as routes:
+        res["stream_parity"] = parity_run(
+            dev, MOE_PARITY_STEPS, decode_bucket=MOE_SERVE_BUCKET, moe_experts=MOE_EXPERTS,
+            moe_top_k=MOE_TOP_K, moe_capacity_factor=MOE_PARITY_CF)
+        res["stream_parity"].update(drops_of(routes))
+    res["ok"] = all(res[k]["ok"] for k in ("train", "decode", "serve", "train_parity",
+                                           "stream_parity"))
+    return res
+
+
+def safetensors_header(path: str) -> dict:
+    """{name: shape} from a .safetensors file's header alone."""
+    import struct
+
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+    return {k: v["shape"] for k, v in header.items() if k != "__metadata__"}
+
+
+def ep_main(path: str) -> dict:
+    """`main ArAE --moe_experts 4 --moe_top_k 2 --ep_size 2` as torchrun runs
+    it, in this rank's process of the ep phase's world: full width, bf16
+    autocast, checkpointing and dropout, TRAIN_ROWS rows (the same on both
+    ranks), EP_MAIN_SAMPLES synthetic meshes for one epoch, no eval, the
+    weights saved (every expert gathered to rank 0). Each step's launches
+    held to A 2 and C 1 per attention call, s/it, the bytes the ep ops sum,
+    peak memory, and the checksum of the replicated (non-expert) weights."""
+    from edgerunner_tpu_torch import main as main_cli
+    from edgerunner_tpu_torch.models.moe import is_expert_param
+
+    ws = os.path.join(path, "ep_ws")
+    argv = ["ArAE", "--moe_experts", str(MOE_EXPERTS), "--moe_top_k", str(MOE_TOP_K),
+            "--ep_size", str(EP_RANKS), "--data_root", os.path.join(path, "none"),
+            "--synthetic_size", str(EP_MAIN_SAMPLES), "--batch_size", str(TRAIN_ROWS),
+            "--num_epochs", "1", "--num_workers", "0", "--eval_mode", "none",
+            "--save_optimizer_state", "false", "--workspace", ws, "--seed", str(SEED)]
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_train_steps(steps, {}):
+        trainer = main_cli.main(argv)
+    L = trainer.opt.num_layers
+    want = {"flash_attention_fwd": 2 * (L + 1), "flash_attention_bwd": L + 1}
+    losses = [st["loss"] for st in steps]
+    res = {"layers": L, "hidden": trainer.opt.hidden_dim, "experts_here": sum(
+        p.shape[0] for n, p in trainer.params.items() if n.endswith("layers.0.moe.w1")),
+        "ep_size": trainer.ep.size, "seconds": time.perf_counter() - t0,
+        "steps": len(steps), "s_per_step": [st["s"] for st in steps],
+        "s_per_it": steps[-1]["s"], "s_per_it_label": f"{EP_RANKS} ranks sharing one card",
+        "ep_bytes_per_step": [st["ep_bytes"] for st in steps], "losses": losses,
+        "loss_moe": [st["loss_moe"] for st in steps],
+        "grad_norms": [st["grad_norm"] for st in steps],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "state_gib": sum(p.numel() for p in trainer.params.values()) * (4 + 4 + 2 + 4) / 2 ** 30,
+        "launches_per_step": [st["launches"] for st in steps], "launches_expected_per_step": want,
+        "replicated_checksum": param_checksum(
+            p for n, p in trainer.params.items() if not is_expert_param(n)),
+        "router_checksum": param_checksum(
+            p for n, p in trainer.params.items() if ".moe.router." in n)}
+    if trainer.is_main:
+        shapes = safetensors_header(os.path.join(ws, "ep0000", "model.safetensors"))
+        res["saved_w1_shape"] = shapes["mesh_decoder.model.layers.0.moe.w1"]
+    res["ok"] = bool(all(st["launches"] == want for st in steps) and all(np.isfinite(losses))
+                     and len(steps) == EP_MAIN_SAMPLES // TRAIN_ROWS)
+    del trainer
+    return res
+
+
+def moe_step_parity(dev, dp=None, ep=None) -> dict:
+    """One training step of the MoE LMM at 2 layers, full width, f32 (TF32
+    off), capacity factor MOE_PARITY_CF, dropout off, from seed SEED + 2's
+    weights, under dp (each rank its row of the train batch, the second cut
+    to TRAIN_RAGGED_LEN) or ep (each rank both rows, half the experts),
+    against rank 0's step in one process on both rows: the loss (the world's
+    metrics), every gradient the optimizer takes (the experts gathered
+    whole) under train parity's rule, the global norm, and the assignments
+    dropped, which come from the global routing."""
+    from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+    from edgerunner_tpu_torch.models.moe import is_expert_param
+    from edgerunner_tpu_torch.parallel import gather_to_first
+    from edgerunner_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt = moe_options(num_layers=2, mixed_precision="no", moe_capacity_factor=MOE_PARITY_CF,
+                      checkpointing=False)
+    whole = train_batch(opt, TRAIN_ROWS, lengths=[train_positions(opt), TRAIN_RAGGED_LEN])
+    world = dp.world if dp is not None else ep.world
+
+    def step(dp_, ep_, batch):
+        model = init_weights(LMM(opt, device=dev, ep=ep_), SEED + 2)
+        for layer in model.mesh_decoder.model.layers:
+            layer.dropout = 0.0
+        trainer = Trainer(model, opt, total_steps=1000, dp=dp_, ep=ep_)
+        seen, update = {}, trainer.optimizer.update
+
+        def capture(grads):
+            seen.update(grads)
+            return update(grads)
+
+        trainer.optimizer.update = capture
+        with moe_routes() as routes:
+            m = trainer.train_step(batch)
+        drops = torch.tensor([drops_of(routes)["dropped"]], device=dev)
+        return m, seen, routes, drops
+
+    mine = whole if dp is None else rows_of(whole, dp.rank, dp.size)
+    m, grads, routes, drops = step(dp, ep, mine)
+    if dp is not None:
+        from edgerunner_tpu_torch.parallel import all_reduce_
+
+        all_reduce_([drops], dp.world)
+    full = {n: (gather_to_first(g, ep) if ep is not None and is_expert_param(n) else g)
+            for n, g in grads.items()}
+    res = {"layers": 2, "dtype": "float32", "tf32": False, "capacity_factor": MOE_PARITY_CF,
+           "dp": 1 if dp is None else dp.size, "ep": 1 if ep is None else ep.size,
+           "lengths": whole["lengths"].tolist(), "loss": m["loss"], "grad_norm": m["grad_norm"],
+           "dropped": int(drops.item())}
+    if world.rank != 0:
+        return res
+    m1, g1, r1, d1 = step(None, None, whole)
+    got = {n: g.to(dev) for n, g in full.items()}
+    worst, worst_name, _ = grad_err_over_tol(got, g1)
+    loss_err = abs(m["loss"] - m1["loss"]) / abs(m1["loss"])
+    norm_err = abs(m["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+    flips = route_flips(routes, r1) if dp is None else {}
+    res.update(loss_solo=m1["loss"], loss_rel_err=loss_err, grad_norm_solo=m1["grad_norm"],
+               grad_norm_rel_err=norm_err, dropped_solo=int(d1.item()),
+               grad_tensors=len(g1), grad_worst_err_over_tol=worst, grad_worst_tensor=worst_name,
+               **flips, ok=bool(loss_err <= 1e-5 and norm_err <= 1e-5 and worst <= 1.0
+                                and int(drops.item()) == int(d1.item()) > 0))
+    return res
+
+
+def ep_rank(rank, R, path):
+    """One rank of the ep phase: joins the group of R ranks through a file
+    under `path`, lays it out as ep R, runs `main` under ep (`ep_main`) and
+    the dp 1 x ep R parity, then lays the same world out as dp R for the
+    dp parity of the MoE step (`moe_step_parity`); writes its results to
+    path/rank{rank}.json."""
+    import torch.distributed as dist
+
+    from edgerunner_tpu_torch.parallel import (
+        init_distributed,
+        make_ep_layout,
+        make_layout,
+        rank_device,
+    )
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    dev = rank_device("cuda")
+    backend = init_distributed(dev, rank=rank, world_size=R,
+                               init_method=f"file://{os.path.join(path, 'init')}")
+    _, ep = make_ep_layout(dev, 1, R)
+    out = {"rank": rank, "device": str(dev), "backend": backend, "describe": ep.describe()}
+    try:
+        out["main"] = ep_main(path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["parity_ep"] = moe_step_parity(dev, ep=ep)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dp, _ = make_layout(dev, R, 1)
+        out["parity_dp"] = moe_step_parity(dev, dp=dp)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(path, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_ep(dev):
+    """Expert parallelism on the card: EP_RANKS ranks that share it (gloo,
+    pinned host staging), spawned from this process; a rank that fails
+    fails the phase. `main` under ep at full width (`ep_main`): its steps'
+    launches, s/it per rank, the bytes the ep ops sum, the saved file's
+    experts whole, and the replicated weights (router, attention) bit-equal
+    on both ranks after the steps; then the f32 parities at 2 layers of dp
+    1 x ep 2 and dp 2 x ep 1 against one process (`moe_step_parity`)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(ep_rank, args=(EP_RANKS, tmp), nprocs=EP_RANKS, join=True)
+        ranks = []
+        for r in range(EP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    mains = [rk["main"] for rk in ranks]
+    res = {"card": card_line(), "ranks_s": time.perf_counter() - t0,
+           "backend": ranks[0]["backend"],
+           "replicated_bit_equal": len({m["replicated_checksum"] for m in mains}) == 1,
+           "router_bit_equal": len({m["router_checksum"] for m in mains}) == 1,
+           "experts_per_rank": [m["experts_here"] for m in mains],
+           "saved_w1_shape": mains[0].get("saved_w1_shape"), "ranks": ranks}
+    res["ok"] = bool(all(m["ok"] for m in mains) and res["replicated_bit_equal"]
+                     and res["router_bit_equal"]
+                     and res["experts_per_rank"] == [MOE_EXPERTS // EP_RANKS] * EP_RANKS
+                     and res["saved_w1_shape"] == [MOE_EXPERTS, mains[0]["hidden"],
+                                                   4 * mains[0]["hidden"]]
+                     and ranks[0]["parity_ep"]["ok"] and ranks[0]["parity_dp"]["ok"])
+    return res
+
+
+def phase_lora(dev):
+    """LoRA fine-tuning at full ArAE width: the seed's dense weights saved,
+    then `main ArAE --resume dense --lora_rank 8 --lora_alpha 16` for
+    LORA_SAMPLES // TRAIN_ROWS steps (bf16 autocast, checkpointing):
+    launches held to A 2 and C 1 per attention call, the base weights
+    bit-unchanged and every adapter moved, the logged grad norm the norm of
+    every gradient (not the adapters' alone); the checkpoint folded by
+    `python -m edgerunner_tpu_torch.merge_lora`; then f32 greedy streams
+    (ROWS rows, LORA_DECODE_BUDGET tokens) of the adapted and the merged
+    weights equal up to near-ties, and a bf16 decode with the adapters
+    (LORA_BF16_BUDGET tokens; A and B held exactly)."""
+    import tempfile
+
+    from edgerunner_tpu_torch import main as main_cli
+    from edgerunner_tpu_torch import merge_lora
+    from edgerunner_tpu_torch.config import config_defaults
+    from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+    from edgerunner_tpu_torch.ops.decode_attention import fused_decode_attention
+    from edgerunner_tpu_torch.train import state as TS
+    from edgerunner_tpu_torch.weights import (
+        load_state,
+        read_safetensors,
+        reference_state_dict,
+        write_safetensors,
+    )
+
+    dense_opt = dataclasses.replace(config_defaults["ArAE"], generate_mode="greedy",
+                                    decode_bucket=LORA_DECODE_BUDGET)
+    lora_opt = dataclasses.replace(dense_opt, lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA)
+    res = {"card": card_line(), "rank": LORA_RANK, "alpha": LORA_ALPHA}
+    with tempfile.TemporaryDirectory() as tmp:
+        dense_path, ws = os.path.join(tmp, "dense.safetensors"), os.path.join(tmp, "ws")
+        t0 = time.perf_counter()
+        dense = reference_state_dict(init_weights(LMM(dense_opt, device=dev), SEED))
+        write_safetensors(dense_path, dense)
+        res["dense_save_s"] = time.perf_counter() - t0
+        steps, snapshot, norms = [], {}, []
+        update = TS.AdamW.update
+
+        def recorded(self, grads):
+            adapters = [g for n, g in grads.items() if n in self.updated]
+            norms.append((TS.global_norm(grads.values()).item(),
+                          TS.global_norm(adapters).item()))
+            return update(self, grads)
+
+        TS.AdamW.update = recorded
+        t1 = time.perf_counter()
+        try:
+            with counted_train_steps(steps, snapshot):
+                trainer = main_cli.main([
+                    "ArAE", "--resume", dense_path, "--lora_rank", str(LORA_RANK),
+                    "--lora_alpha", str(LORA_ALPHA), "--data_root", os.path.join(tmp, "none"),
+                    "--synthetic_size", str(LORA_SAMPLES), "--batch_size", str(TRAIN_ROWS),
+                    "--num_epochs", "1", "--num_workers", "0", "--eval_mode", "none",
+                    "--workspace", ws, "--seed", str(SEED)])
+        finally:
+            TS.AdamW.update = update
+        res["main_s"] = time.perf_counter() - t1
+        L = trainer.opt.num_layers
+        want = {"flash_attention_fwd": 2 * (L + 1), "flash_attention_bwd": L + 1}
+        adapters = set(trainer.optimizer.updated)
+        base_same = all(torch.equal(p.detach().cpu(), torch.as_tensor(dense[n]))
+                        for n, p in trainer.model.named_parameters() if n not in adapters)
+        moved = [n for n, p in trainer.model.named_parameters()
+                 if n in adapters and not torch.equal(p.detach().cpu(), snapshot[n])]
+        logged = [st["grad_norm"] for st in steps]
+        res.update(
+            steps=len(steps), s_per_step=[st["s"] for st in steps],
+            losses=[st["loss"] for st in steps], grad_norms_logged=logged,
+            grad_norms_all=[a for a, _ in norms], grad_norms_adapters=[b for _, b in norms],
+            adapters=len(adapters), adapters_moved=len(moved), base_bit_unchanged=base_same,
+            launches_per_step=[st["launches"] for st in steps],
+            launches_expected_per_step=want)
+        norm_ok = all(abs(g - a) <= 1e-5 * a and abs(g - b) > 1e-3 * a
+                      for g, (a, b) in zip(logged, norms))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        merged_path = merge_lora.main(["--ckpt", os.path.join(ws, "model.safetensors"),
+                                       "--out", os.path.join(tmp, "merged.safetensors"),
+                                       "--lora_alpha", str(LORA_ALPHA)])
+        res["merge_s"] = time.perf_counter() - t2
+        lora_state = read_safetensors(os.path.join(ws, "model.safetensors"))
+        merged_state = read_safetensors(merged_path)
+    res["merged_has_no_adapters"] = not any(".lora_" in n for n in merged_state)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    adapted = load_state(LMM(lora_opt, device=dev), lora_state).eval()
+    merged = load_state(LMM(dense_opt, device=dev), merged_state).eval()
+    del merged_state
+    points = np.random.default_rng(SEED + 3).normal(size=(ROWS, dense_opt.point_num, 3)).astype(
+        np.float32)
+    t3 = time.perf_counter()
+    res["f32_streams"] = stream_parity(adapted, merged, lora_opt, dev, points,
+                                       LORA_DECODE_BUDGET)
+    res["f32_streams"]["seconds"] = time.perf_counter() - t3
+    del adapted, merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_opt = dataclasses.replace(lora_opt, decode_bucket=LORA_BF16_BUDGET)
+    model = load_state(LMM(bf16_opt, dtype=torch.bfloat16, device=dev), lora_state).eval()
+    del lora_state
+    run = timed_generate(model, bf16_opt, dev, ROWS, LORA_BF16_BUDGET)
+    num_new = decode_shape_of(bf16_opt, LORA_BF16_BUDGET)[0]
+    wantd = expected_launches(bf16_opt, fused_decode_attention, num_new - 1)
+    res["decode_bf16"] = {"rows": ROWS, "num_new": num_new, "tokens_per_s": run["tokens_per_s"],
+                          "ms_per_step": (run["generate_s"] - run["prefill_s"])
+                          / (num_new - 1) * 1e3,
+                          "launches": run["launches"], "launches_expected": wantd,
+                          "ok": run["launches"] == wantd}
+    res["ok"] = bool(all(st["launches"] == want for st in steps) and base_same
+                     and len(moved) == len(adapters) > 0 and norm_ok
+                     and res["merged_has_no_adapters"] and res["f32_streams"]["ok"]
+                     and res["decode_bf16"]["ok"])
+    return res
+
+
 def kernels_line(results):
     """One entry per kernel: main-path numbers from this run; launches from
     the path that runs it, each counted from 0 over its run: the generate
@@ -4006,8 +4635,11 @@ def kernels_line(results):
     image-conditioned ArAE (kernels A and B in its generate call, A and C
     per training step), data parallelism (A and C per step and rank of
     the dp training step, A and B in the decode fleet's call, D in the
-    engine fleet's requests), and the training extras (A and C per step of
-    `main` under --remat_policy attn, A and B in its generate eval)."""
+    engine fleet's requests), the training extras (A and C per step of
+    `main` under --remat_policy attn, A and B in its generate eval), the MoE
+    decoder (A and C per training step, A and B in its decode, D in its
+    engine), expert parallelism (A and C per step and rank of `main` under
+    ep) and LoRA (A and C per step of `main`, A and B in its bf16 decode)."""
     kern, gen, train, serve, spec, sp, dp = (results[k] for k in (
         "kernels", "generate", "train", "serve", "spec", "sp", "dp"))
     dp_train_step = dp["ranks"][0]["train"]["launches_per_step"][-1]
@@ -4017,6 +4649,9 @@ def kernels_line(results):
     image, image_train = results["image"], results["image_train"]["launches_per_step"][-1]
     extras = results["train_extras"]["main"]
     attn_step = extras["launches_per_step"][-1]
+    moe, lora = results["moe"], results["lora"]
+    moe_step, lora_step = (r["launches_per_step"][-1] for r in (moe["train"], lora))
+    ep_step = results["ep"]["ranks"][0]["main"]["launches_per_step"][-1]
     gen_q8, gen_q4 = results["generate_q8"], results["generate_q4"]
     def case(cases, prefix):
         return next(c for c in cases if c["case"].startswith(prefix))
@@ -4082,7 +4717,13 @@ def kernels_line(results):
                                     dp_train_step["flash_attention_fwd"],
                                 "dp_fleet": fleet["flash_attention_fwd"],
                                 "train_attn_per_step": attn_step["flash_attention_fwd"],
-                                "generate_eval": extras["eval_launches"]["flash_attention_fwd"]},
+                                "generate_eval": extras["eval_launches"]["flash_attention_fwd"],
+                                "moe_train_per_step": moe_step["flash_attention_fwd"],
+                                "moe_decode": moe["decode"]["launches"]["flash_attention_fwd"],
+                                "ep_main_per_step_and_rank": ep_step["flash_attention_fwd"],
+                                "lora_train_per_step": lora_step["flash_attention_fwd"],
+                                "lora_decode":
+                                    lora["decode_bf16"]["launches"]["flash_attention_fwd"]},
               encoder_shape=sub(case(kern["flash"], "encoder (main")),
               train_decoder_shape=sub(case(kern["flash"], "decoder train")),
               train_encoder_shape=sub(case(kern["flash"], "encoder train")),
@@ -4101,7 +4742,10 @@ def kernels_line(results):
                                 "dit_decode_f32": dit["launches"]["fused_decode_attention"],
                                 "image": image["launches"]["fused_decode_attention"],
                                 "dp_fleet": fleet["fused_decode_attention"],
-                                "generate_eval": extras["eval_launches"]["fused_decode_attention"]},
+                                "generate_eval": extras["eval_launches"]["fused_decode_attention"],
+                                "moe_decode": moe["decode"]["launches"]["fused_decode_attention"],
+                                "lora_decode":
+                                    lora["decode_bf16"]["launches"]["fused_decode_attention"]},
               image_d64_shape=sub(case(kern["decode"], "image index"))),
         entry("flash_attention_bwd", "flash_bwd.cu", "edgerunner_tpu/ops/flash_attention.py:520",
               train["launches"]["flash_attention_bwd"], bwd, lengths=bwd["kv_len"],
@@ -4112,7 +4756,10 @@ def kernels_line(results):
                                 "image_train_per_step": image_train["flash_attention_bwd"],
                                 "dp_train_per_step_and_rank":
                                     dp_train_step["flash_attention_bwd"],
-                                "train_attn_per_step": attn_step["flash_attention_bwd"]},
+                                "train_attn_per_step": attn_step["flash_attention_bwd"],
+                                "moe_train_per_step": moe_step["flash_attention_bwd"],
+                                "ep_main_per_step_and_rank": ep_step["flash_attention_bwd"],
+                                "lora_train_per_step": lora_step["flash_attention_bwd"]},
               encoder_shape=sub(case(kern["flash_bwd"], "encoder train")),
               **{f"dit_train_{kind}_shape": sub(case(kern["flash_bwd"], f"dit train {kind}"))
                  for kind in ("self", "cross")},
@@ -4127,7 +4774,8 @@ def kernels_line(results):
               launches_by_path={**by_path("fused_decode_attention_multi", serve=bench_bf16,
                                           spec_generate=spec["generate_bf16"],
                                           spec_engine=spec["engine_bf16"]),
-                                "dp_engine_fleet": engine_fleet["fused_decode_attention_multi"]},
+                                "dp_engine_fleet": engine_fleet["fused_decode_attention_multi"],
+                                "moe_serve": moe["serve"]["launches"]["fused_decode_attention_multi"]},
               t3_shape=sub(case(multi, "engine bf16 T=3")),
               f32_shape=sub(case(multi, "engine f32 T=1"))),
         entry("fused_decode_attention_q8_multi", "decode_attention_quant.cu",
@@ -4199,7 +4847,8 @@ def main(argv=None) -> int:
             "dit_train": lambda: phase_dit_train(dev),
             "dit_train_parity": lambda: phase_dit_train_parity(dev),
             "image": lambda: phase_image(dev), "image_parity": lambda: phase_image_parity(dev),
-            "image_train": lambda: phase_image_train(dev)}
+            "image_train": lambda: phase_image_train(dev), "moe": lambda: phase_moe(dev),
+            "ep": lambda: phase_ep(dev), "lora": lambda: phase_lora(dev)}
     results, ok = {}, True
     for name in PHASES:
         if name not in wanted:

@@ -407,10 +407,7 @@ def parse_cli(argv: Optional[List[str]] = None, prog: str = "edgerunner-tpu") ->
 
 # options whose paths the port does not run yet, with the value that keeps
 # them off
-_NOT_PORTED = {
-    "moe_experts": 0, "lora_rank": 0, "tp_size": 1,
-    "pp_size": 1, "ep_size": 1, "scan_layers": False,
-}
+_NOT_PORTED = {"tp_size": 1, "pp_size": 1, "scan_layers": False}
 # gradient-checkpointing policies: 'full' recomputes each decoder layer in
 # the backward pass, 'attn' keeps its attention output (models/shape_opt.py)
 REMAT_POLICIES = ("full", "attn")
@@ -427,7 +424,13 @@ def validate(opt: Options) -> Options:
     `remat_policy` is 'full' or 'attn'; any other value is refused, where
     the JAX package silently trains it with full recompute (its ShapeOPT
     sets a policy for 'attn' only). Remote (http, https, s3) and
-    colon-separated `data_root`s are read as the JAX main reads them."""
+    colon-separated `data_root`s are read as the JAX main reads them.
+
+    The MoE decoder (`moe_experts`, `moe_top_k`, `moe_capacity_factor`,
+    `moe_aux_weight`), its expert parallelism (`ep_size`) and LoRA
+    (`lora_rank`, `lora_alpha`) are taken, with the JAX package's asserts
+    (config.py:436-452) raised as ValueErrors; MoE under sp is refused, as
+    the port does not implement it yet."""
     if opt.cond_mode in ("point", "point_latent"):
         # 'point_latent' takes the latents that 'point' encodes: the same
         # condition tokens, and the DiT pipeline's frozen 'embed' encoder
@@ -450,6 +453,30 @@ def validate(opt: Options) -> Options:
     for name, off in _NOT_PORTED.items():
         if getattr(opt, name) != off:
             raise ValueError(f"the port does not implement --{name} yet")
+    if opt.moe_experts:
+        if opt.moe_top_k > opt.moe_experts:
+            raise ValueError(f"moe_top_k ({opt.moe_top_k}) > moe_experts ({opt.moe_experts})")
+        if opt.sp_size > 1:
+            raise ValueError("the port does not implement moe_experts with sp_size > 1 yet "
+                             "(MoE under sequence parallelism)")
+    if opt.ep_size > 1:
+        if not opt.moe_experts > 0:
+            raise ValueError("ep_size > 1 requires moe_experts > 0")
+        if opt.moe_experts % opt.ep_size:
+            raise ValueError(f"moe_experts ({opt.moe_experts}) must divide by ep_size "
+                             f"({opt.ep_size})")
+    elif opt.ep_size < 1:
+        raise ValueError(f"--ep_size must be >= 1, got {opt.ep_size}")
+    if opt.lora_rank:
+        if opt.lora_rank < 0:
+            raise ValueError(f"lora_rank must be >= 0, got {opt.lora_rank}")
+        if opt.w_quant:
+            raise ValueError("lora_rank and w_quant are mutually exclusive: merge the "
+                             "adapters first (python -m edgerunner_tpu_torch.merge_lora), "
+                             "then serve with --w_quant")
+        if opt.moe_experts:
+            raise ValueError("lora_rank with moe_experts adapts only the attention "
+                             "projections (the MoE MLP has no LoRA path); unsupported for now")
     # remat_prevent_cse is XLA-only and changes nothing here
     if opt.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"--remat_policy is one of {REMAT_POLICIES}, got "

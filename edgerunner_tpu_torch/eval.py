@@ -196,14 +196,15 @@ def compute_dtype(opt) -> torch.dtype:
 def decode_model(model, opt):
     """The model in the run's compute dtype, as the JAX package decodes
     (its LMM's dtype): `model` itself when its weights have that dtype, else
-    a copy of them in it on the same device (the point basis stays f32)."""
+    a copy of them in it on the same device (the point basis and the MoE
+    router stay f32; under ep, with the model's share of the experts)."""
     from edgerunner_tpu_torch.models.lmm import LMM
 
     p = next(model.parameters())
     dtype = compute_dtype(opt)
     if p.dtype == dtype:
         return model
-    copy = LMM(opt, dtype=dtype, device=p.device)
+    copy = LMM(opt, dtype=dtype, device=p.device, ep=getattr(model, "ep", None))
     copy.load_state_dict(model.state_dict())
     return copy.eval()
 

@@ -52,7 +52,19 @@ group split each sequence, the decoder's attention as a ring. `--dp_size
 `cuda:{LOCAL_RANK % device_count}` (or the CPU with `--device cpu`), over
 NCCL when every rank has a card of its own and gloo otherwise
 (parallel/mesh.py). A dp × sp other than the world's size raises: it never
-trains unsharded. Rank 0 logs and writes the checkpoints; every dp group
+trains unsharded.
+
+The MoE decoder (`--moe_experts E --moe_top_k K`) trains in one process or
+under dp, and with expert parallelism over dp × ep ranks:
+
+    torchrun --nproc_per_node N*M -m edgerunner_tpu_torch.main ArAE \
+        --moe_experts 4 --moe_top_k 2 --ep_size M [--dp_size N]
+
+Each ep group of M consecutive ranks takes the same rows and holds E / M
+of every layer's experts (models/moe.py); checkpoints hold every expert and
+load at any ep. LoRA fine-tuning (`--resume dense.safetensors --lora_rank 8
+--lora_alpha 16`) updates the adapters only;
+`python -m edgerunner_tpu_torch.merge_lora` folds them back. Rank 0 logs and writes the checkpoints; every dp group
 evaluates the whole test set's loss, rank 0 alone the generate eval (and
 wandb), while the other ranks wait; every rank writes its own trace; the
 process group is destroyed on exit.
@@ -80,7 +92,7 @@ from edgerunner_tpu_torch.data.fetch import is_remote
 from edgerunner_tpu_torch.eval import generate_eval
 from edgerunner_tpu_torch.infer import resolve_device
 from edgerunner_tpu_torch.models.lmm import LMM, init_weights
-from edgerunner_tpu_torch.parallel import DataParallel, SequenceParallel
+from edgerunner_tpu_torch.parallel import DataParallel, ExpertParallel, SequenceParallel
 from edgerunner_tpu_torch.train.checkpoint import (
     CheckpointManager,
     restore_train_state,
@@ -94,9 +106,12 @@ from edgerunner_tpu_torch.weights import merge_checkpoint, overlay_checkpoint, r
 
 def save_eval_meshes(trainer: Trainer, test_loader, opt, tokenizer, epoch: int):
     """Ground-truth and argmax-predicted meshes of one held-out batch
-    (reference: main.py:253-264)."""
+    (reference: main.py:253-264), written by rank 0 (under ep its ep group
+    runs the forward with it)."""
     batch = next(iter(test_loader))
     logits = trainer.eval_step(batch)["logits"]
+    if not trainer.is_main:
+        return
     C = opt.num_cond_tokens
     n_tok = int(batch["num_tokens"][0])
     coords = np.asarray(batch["labels"][0])[C + 1:n_tok - 1]
@@ -122,9 +137,9 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
 
 
 def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
-          dp: Optional[DataParallel] = None) -> Trainer:
+          dp: Optional[DataParallel] = None, ep: Optional[ExpertParallel] = None) -> Trainer:
     """The training run of `main` on this rank."""
-    logger = rank_logger(opt, dp, sp)
+    logger = rank_logger(opt, dp, sp, ep)
     if opt.resume is None and opt.warmup_ratio == 0 and opt.lr > 1.5e-4:
         logger.warning(
             "training from scratch with warmup_ratio=0 and lr "
@@ -159,15 +174,15 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
                              drop_last=False, seed=opt.seed)
 
     total_steps = opt.num_epochs * len(train_loader) // opt.gradient_accumulation_steps
-    model = init_weights(LMM(opt, device=device), opt.seed)
-    trainer = Trainer(model, opt, total_steps, logger=logger, sp=sp, dp=dp)
+    model = init_weights(LMM(opt, device=device, ep=ep), opt.seed)
+    trainer = Trainer(model, opt, total_steps, logger=logger, sp=sp, dp=dp, ep=ep)
     manager = CheckpointManager(opt.workspace, keep=2, group=trainer.world,
                                 async_save=opt.async_checkpointing)
 
     start_epoch, resume_step, opt_state_path = 0, 0, None
     if opt.resume is not None:
-        merge_checkpoint(model, read_safetensors(opt.resume), opt.align_posemb,
-                         log=logger.warning)
+        merge_checkpoint(model, trainer.shard(read_safetensors(opt.resume)),
+                         opt.align_posemb, log=logger.warning)
         logger.info(f"loaded weights from {opt.resume}")
         if opt.resume_train_state:
             start_epoch, resume_step, opt_state_path = restore_train_state(
@@ -176,8 +191,9 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
         overlay_checkpoint(model, opt.resume2, opt.align_posemb, log=logger.warning)
         logger.info(f"merged secondary checkpoint from {opt.resume2}")
     num_params = sum(p.numel() for p in model.parameters())
+    updated = trainer.optimizer.updated
     logger.info(f"total param count: {num_params / 1e6:.3f} M, trainable "
-                f"{sum(p.numel() for p in trainer.params.values()) / 1e6:.3f} M")
+                f"{sum(trainer.params[n].numel() for n in updated) / 1e6:.3f} M")
     ema_path = sibling_ema_path(opt.resume) if opt.ema_decay > 0 and opt.resume else None
     trainer.init_state(step=resume_step, opt_state_path=opt_state_path, ema_path=ema_path)
     wandb = None
@@ -190,10 +206,10 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
         if wandb is not None and step % 10 == 0:
             wandb.log({k: float(v) for k, v in metrics.items()}, step=step)
         if opt.save_every_steps and step % opt.save_every_steps == 0:
-            manager.save_step(step, model,
-                              trainer.optimizer if opt.save_optimizer_state else None,
+            weights, optimizer, ema = trainer.checkpoint_parts(opt.save_optimizer_state)
+            manager.save_step(step, weights, optimizer,
                               train_state={"step": step, "loader": train_loader.state()},
-                              log=logger.info, ema=trainer.ema)
+                              log=logger.info, ema=ema)
 
     for epoch in range(start_epoch, opt.num_epochs):
         if not opt.debug_eval:
@@ -201,11 +217,11 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
                                            profile_dir=os.path.join(opt.workspace, "profile"))
             if (opt.save_every_epochs <= 1 or (epoch + 1) % opt.save_every_epochs == 0
                     or epoch == opt.num_epochs - 1):
+                weights, optimizer, ema = trainer.checkpoint_parts(opt.save_optimizer_state)
                 manager.save_epoch(
-                    epoch, model, trainer.optimizer if opt.save_optimizer_state else None,
-                    loss=avg_loss,
+                    epoch, weights, optimizer, loss=avg_loss,
                     train_state={"step": trainer.step, "loader": train_loader.state()},
-                    log=logger.info, ema=trainer.ema)
+                    log=logger.info, ema=ema)
             if wandb is not None:
                 wandb.log({"train_loss": avg_loss})
         else:
@@ -214,7 +230,7 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
             trainer.eval_epoch(test_loader, epoch)
             if trainer.ema is not None:
                 trainer.eval_epoch(test_loader, epoch, use_ema=True)
-            if not trainer.is_main:
+            if not trainer.first_group:
                 continue
             # meto streams may be invalid early in training: a failed dump is
             # logged and training goes on, as in the reference
@@ -223,8 +239,9 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
             except Exception as e:  # noqa: BLE001
                 logger.warning(f"failed to save validation mesh: {e}")
         elif opt.eval_mode == "generate":
-            if trainer.is_main:
-                log_generate_eval(model, test_loader, opt, tokenizer, epoch, logger, wandb)
+            if trainer.first_group:
+                log_generate_eval(model, test_loader, opt, tokenizer, epoch, logger, wandb,
+                                  write=trainer.is_main)
             if trainer.world is not None:
                 dist.barrier(trainer.world.group)
     # the last asynchronous save on disk, and its bookkeeping
@@ -232,11 +249,14 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
     return trainer
 
 
-def log_generate_eval(model, test_loader, opt, tokenizer, epoch: int, logger, wandb=None):
+def log_generate_eval(model, test_loader, opt, tokenizer, epoch: int, logger, wandb=None,
+                      write: bool = True):
     """--eval_mode generate (reference: main.py:240-265): decode and score
-    held-out samples, log the scores (and send them to wandb)."""
+    held-out samples, log the scores (and send them to wandb); without
+    `write` (the other ranks of rank 0's ep group, which decode with it)
+    no mesh is written."""
     stats = generate_eval(model, test_loader, opt, tokenizer=tokenizer, epoch=epoch,
-                          workspace=opt.workspace, log=logger.warning)
+                          workspace=opt.workspace if write else None, log=logger.warning)
     msg = f"Eval epoch: {epoch} generated meshes saved."
     if stats["n"]:
         msg += (f" chamfer={stats['chamfer_mean']:.5f}±{stats['chamfer_std']:.5f}"

@@ -31,8 +31,9 @@ Data parallelism, one process per rank (train/trainer.py):
 
 Each rank trains on its own equal shard of the data's items (the synthetic
 set is not sharded), `--batch_size` rows per rank; the gradients are summed
-over the ranks. Rank 0 logs and writes the checkpoints. `--sp_size` stays
-`main`'s: the JAX package's DiT step has no sequence parallelism either.
+over the ranks. Rank 0 logs and writes the checkpoints. `--sp_size` and
+`--ep_size` stay `main`'s: the JAX package's DiT step has no sequence
+parallelism either, and the DiT no experts.
 """
 
 from __future__ import annotations
@@ -70,9 +71,9 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     args, rest = pre.parse_known_args(argv)
     device = resolve_device(args.device)
     opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.main_dit"))
-    if opt.sp_size != 1:
+    if opt.sp_size != 1 or opt.ep_size != 1:
         raise ValueError("main_dit splits batches over ranks by rows only (--dp_size); "
-                         "--sp_size is main's")
+                         "--sp_size and --ep_size are main's")
     return run_ranks(opt, device, "edgerunner_tpu_torch.main_dit", train)
 
 

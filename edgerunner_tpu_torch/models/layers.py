@@ -1,15 +1,24 @@
-"""Shared building blocks of the port (edgerunner_tpu/models/layers.py:102-217).
+"""Shared building blocks of the port (edgerunner_tpu/models/layers.py:28-217).
 
 Parameter names follow the reference state_dict naming that
 tools/export_reference_ckpt.py emits, so the reference checkpoints load with
 `strict=True`. Every LayerNorm uses eps 1e-5; the GEGLU feed-forward uses the
 tanh GELU that `jax.nn.gelu` defaults to.
+
+`LoRALinear` is the JAX package's `LoRADense` (layers.py:28-64): a linear
+layer with a low-rank adapter beside its weight and bias, `lora_a` [in, r]
+and `lora_b` [r, out] in the JAX package's layout (N(0, 0.02) and zeros at
+first, so a fresh adapter changes nothing), y = xWᵀ + b + (xA)B · α/r.
+`merge_lora_state` folds the adapters of a state dict into its weights
+(`merge_lora_tree`, layers.py:66-95).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -24,6 +33,57 @@ def attention_fn(use_kernels: bool):
     """The dispatching attention (kernel on CUDA tensors), or the plain
     version everywhere when a caller asks for the reference path."""
     return attention if use_kernels else attention_reference
+
+
+class LoRALinear(nn.Linear):
+    """nn.Linear with the adapters `lora_a` [in, rank] and `lora_b` [rank,
+    out] in the same module, so that a dense checkpoint merges into it (the
+    adapters missing, kept at their init) and the weight keeps its name."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
+                 rank: int = 8, alpha: float = 16.0, device=None, dtype=None):
+        super().__init__(in_features, out_features, bias, device=device, dtype=dtype)
+        self.rank, self.alpha = rank, alpha
+        self.lora_a = nn.Parameter(torch.empty(in_features, rank, device=device, dtype=dtype))
+        self.lora_b = nn.Parameter(torch.zeros(rank, out_features, device=device, dtype=dtype))
+
+    @torch.no_grad()
+    def init_adapters(self, gen: torch.Generator, std: float = 0.02):
+        self.lora_a.normal_(0.0, std, generator=gen)
+        self.lora_b.zero_()
+
+    def forward(self, x):
+        y = super().forward(x)
+        return y + (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype) * (self.alpha / self.rank)
+
+
+def linear_cls(lora_rank: int = 0, lora_alpha: float = 16.0):
+    """The decoder projections' layer: nn.Linear, or LoRALinear under
+    lora_rank (edgerunner_tpu/models/shape_opt.py:33-48)."""
+    if not lora_rank:
+        return nn.Linear
+    return functools.partial(LoRALinear, rank=lora_rank, alpha=lora_alpha)
+
+
+def merge_lora_state(state: dict, alpha: float = 16.0) -> dict:
+    """{name: array} with every adapter folded into its weight, W += (AB ·
+    α/r)ᵀ in f32 in the JAX order (k + (a @ b) · (α / r), layers.py:88-93;
+    the port's weight is the kernel transposed), and the adapters dropped:
+    a dense (lora_rank 0) state dict. The rank is read off lora_a; pass the
+    lora_alpha the adapters were trained with."""
+    out = {}
+    for name, value in state.items():
+        if name.endswith((".lora_a", ".lora_b")):
+            continue
+        prefix = name[:-len(".weight")] if name.endswith(".weight") else None
+        if prefix is not None and prefix + ".lora_a" in state:
+            a = torch.as_tensor(np.asarray(state[prefix + ".lora_a"]), dtype=torch.float32)
+            b = torch.as_tensor(np.asarray(state[prefix + ".lora_b"]), dtype=torch.float32)
+            k = torch.as_tensor(np.asarray(value), dtype=torch.float32).t()
+            merged = k + torch.matmul(a, b) * (alpha / a.shape[-1])
+            value = merged.t().numpy().astype(np.asarray(state[name]).dtype)
+        out[name] = value
+    return out
 
 
 class SelfAttention(nn.Module):

@@ -12,7 +12,9 @@ and 'image' (the default preset: images [B, H, W, 3] in [0, 1] through the
 CLIP tower's last hidden state [B, 257, 1280], frozen under
 `freeze_encoder`; lmm.py:44-47, :111-116). `checkpointing` turns on
 gradient checkpointing of the point encoder's block and of each decoder
-layer, as in the JAX package (lmm.py:50-58, :80-82).
+layer, as in the JAX package (lmm.py:50-58, :80-82). The decoder's MoE MLP
+(`moe_experts`, with `ep` placing this rank's experts) and LoRA adapters
+(`lora_rank`) come from the options, as the JAX LMM passes them.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from edgerunner_tpu_torch.models.clip_vit import (
     init_clip_tower,
     preprocess_images,
 )
-from edgerunner_tpu_torch.models.layers import LN_EPS
+from edgerunner_tpu_torch.models.layers import LN_EPS, LoRALinear
+from edgerunner_tpu_torch.models.moe import MoEMLP
 from edgerunner_tpu_torch.models.point_encoder import (
     PointEncoderEmbed,
     PointEncoderFPS,
@@ -46,7 +49,7 @@ class LMM(nn.Module):
     the reference path that a kernel path is checked against."""
 
     def __init__(self, opt: Options, *, dtype=torch.float32, device=None,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, ep=None):
         super().__init__()
         if opt.cond_mode not in ("point", "point_latent", "image", "none"):
             raise ValueError(f"the port does not implement cond_mode {opt.cond_mode!r}")
@@ -87,8 +90,14 @@ class LMM(nn.Module):
             kv_group=opt.kv_group,
             kv_rotate=opt.kv_rotate,
             mtp_heads=opt.mtp_heads,
+            moe_experts=opt.moe_experts,
+            moe_top_k=opt.moe_top_k,
+            moe_capacity_factor=opt.moe_capacity_factor,
+            lora_rank=opt.lora_rank,
+            lora_alpha=opt.lora_alpha,
         )
-        self.mesh_decoder = ShapeOPT(self.cfg, use_kernels=use_kernels, **kw)
+        self.ep = ep if ep is not None and ep.size > 1 else None
+        self.mesh_decoder = ShapeOPT(self.cfg, use_kernels=use_kernels, ep=self.ep, **kw)
 
     def encode_cond(self, conds, num_faces):
         """conds: points [B, N, 3] (point mode), latents [B, L, D]
@@ -123,7 +132,10 @@ class LMM(nn.Module):
         -100 on cond, BOS and pad; lengths [B] valid total lengths. In
         training, num-face dropout draws from `generator` and the decoder
         applies dropout. Returns dict(loss, loss_ce, loss_kl, logits), and
-        loss_mtp with draft heads (added to loss times mtp_loss_weight).
+        loss_mtp with draft heads (added to loss times mtp_loss_weight), and
+        in training under moe_experts loss_moe, the mean of the layers' aux
+        losses (added times moe_aux_weight, edgerunner_tpu/train/state.py:
+        203-226); the eval loss leaves it out, as the JAX eval step does.
 
         Under an sp context (parallel/mesh.py) the condition encoder runs
         whole on every rank, the decoder on the rank's shard of the
@@ -150,8 +162,8 @@ class LMM(nn.Module):
         embeds = self.mesh_decoder.embed_tokens(tokens)
         if cond_embeds is not None:
             embeds = torch.cat([cond_embeds.to(embeds.dtype), embeds], dim=1)
-        logits, loss_ce, loss_mtp = self.mesh_decoder(embeds, lengths, labels=labels,
-                                                      train=train)
+        logits, loss_ce, loss_mtp, loss_moe = self.mesh_decoder(embeds, lengths,
+                                                                labels=labels, train=train)
         out = {"loss_ce": loss_ce, "logits": logits}
         loss = loss_ce
         sp = active_sequence_parallel()
@@ -163,6 +175,9 @@ class LMM(nn.Module):
         if loss_mtp is not None:
             out["loss_mtp"] = loss_mtp
             loss = loss + opt.mtp_loss_weight * loss_mtp
+        if loss_moe is not None:
+            out["loss_moe"] = loss_moe
+            loss = loss + opt.moe_aux_weight * loss_moe
         out["loss"] = loss
         return out
 
@@ -197,7 +212,10 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     N(0, 0.02) for projections and embeddings (pad row zero), decoder
     out-projections scaled by 1/sqrt(2L), queries N(0, hidden^-0.5), zero
     biases, unit LayerNorms; a CLIP tower at flax's defaults
-    (`init_clip_tower`). Draws on the weights' own device."""
+    (`init_clip_tower`); MoE experts N(0, 0.02) drawn for all experts and
+    sliced to this rank's under ep; LoRA's lora_a N(0, 0.02) and lora_b
+    zero, drawn after every other weight, so that the base weights are the
+    dense model's of the same seed. Draws on the weights' own device."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     std = 0.02
@@ -215,6 +233,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, MoEMLP):
+            mod.init_experts(gen, std)
     for name, p in model.named_parameters():
         if name.endswith("query_embed"):
             p.normal_(0.0, p.shape[-1] ** -0.5, generator=gen)
@@ -225,4 +245,7 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
         decoder.model.embd.weight[decoder.cfg.pad_token_id] = 0.0
         for head in decoder.mtp_proj:  # zero-initialised, as in the JAX package
             head.weight.zero_()
+    for mod in model.modules():
+        if isinstance(mod, LoRALinear):
+            mod.init_adapters(gen, std)
     return model

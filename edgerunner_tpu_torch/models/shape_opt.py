@@ -23,6 +23,13 @@ with per-row scales or `kv_group` lanes per scale; with `kv_rotate` the
 rows are stored rotated per head, q is rotated before the decode kernel
 and its output rotated back after it. All as in the JAX package.
 
+With `moe_experts` > 0 each layer's MLP is a routed mixture of experts
+(`moe`, models/moe.py) in place of fc1/fc2, in every mode; in training the
+layers' Switch aux losses come back beside the loss (`forward`). With
+`lora_rank` > 0 the q/k/v/out and fc1/fc2 projections are `LoRALinear`
+layers (models/layers.py), as the JAX package's `_dense_cls` picks
+LoRADense (shape_opt.py:33-48).
+
 With `mtp_heads` > 0 the decoder carries the multi-token-prediction draft
 heads `mtp_{k}` (zero-initialised Linear(hidden, hidden) blocks feeding the
 shared `lm_head`; head k predicts the token 2+k positions ahead), trained
@@ -43,7 +50,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from edgerunner_tpu_torch.models.layers import LN_EPS, attention_fn, maybe_checkpoint
+from edgerunner_tpu_torch.models.layers import LN_EPS, attention_fn, linear_cls, maybe_checkpoint
+from edgerunner_tpu_torch.models.moe import MoEMLP
 from edgerunner_tpu_torch.ops import decode_attention as DA
 from edgerunner_tpu_torch.ops import kv_quant as KQ
 from edgerunner_tpu_torch.parallel.collectives import dp_total
@@ -76,6 +84,13 @@ class ShapeOPTConfig:
     kv_rotate: bool = False
     # multi-token-prediction draft heads for speculative decoding (0 = none)
     mtp_heads: int = 0
+    # a routed mixture of moe_experts MLPs in each layer (0 = the dense MLP)
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    # LoRA adapters of rank lora_rank on q/k/v/out and fc1/fc2 (0 = none)
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
 
     @property
     def head_dim(self) -> int:
@@ -131,10 +146,11 @@ class OPTAttention(nn.Module):
         self.decode_kw = {"num_heads": c.num_attention_heads}
         if kind == "_q4":
             self.decode_kw["group"] = c.kv_group
-        self.q_proj = nn.Linear(c.hidden_dim, c.hidden_dim, **kw)
-        self.k_proj = nn.Linear(c.hidden_dim, c.hidden_dim, **kw)
-        self.v_proj = nn.Linear(c.hidden_dim, c.hidden_dim, **kw)
-        self.out_proj = nn.Linear(c.hidden_dim, c.hidden_dim, **kw)
+        linear = linear_cls(c.lora_rank, c.lora_alpha)
+        self.q_proj = linear(c.hidden_dim, c.hidden_dim, **kw)
+        self.k_proj = linear(c.hidden_dim, c.hidden_dim, **kw)
+        self.v_proj = linear(c.hidden_dim, c.hidden_dim, **kw)
+        self.out_proj = linear(c.hidden_dim, c.hidden_dim, **kw)
 
     def _heads(self, x):
         B, N, C = x.shape
@@ -206,52 +222,67 @@ class OPTAttention(nn.Module):
 
 
 class OPTDecoderLayer(nn.Module):
-    """Post-LN OPT block (reference: modeling_opt.py:263-288)."""
+    """Post-LN OPT block (reference: modeling_opt.py:263-288); with
+    moe_experts its MLP is `moe` (edgerunner_tpu/models/shape_opt.py:398-420).
+    `ep` places this rank's share of the experts (models/moe.py)."""
 
-    def __init__(self, c: ShapeOPTConfig, *, use_kernels: bool = True,
+    def __init__(self, c: ShapeOPTConfig, *, use_kernels: bool = True, ep=None,
                  device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.self_attn = OPTAttention(c, use_kernels=use_kernels, **kw)
         self.self_attn_layer_norm = nn.LayerNorm(c.hidden_dim, eps=LN_EPS, **kw)
-        self.fc1 = nn.Linear(c.hidden_dim, c.intermediate_dim, **kw)
-        self.fc2 = nn.Linear(c.intermediate_dim, c.hidden_dim, **kw)
+        if c.moe_experts:
+            self.moe = MoEMLP(c.hidden_dim, c.intermediate_dim, c.moe_experts,
+                              c.moe_top_k, c.moe_capacity_factor, use_kernels=use_kernels,
+                              ep=ep, **kw)
+        else:
+            linear = linear_cls(c.lora_rank, c.lora_alpha)
+            self.fc1 = linear(c.hidden_dim, c.intermediate_dim, **kw)
+            self.fc2 = linear(c.intermediate_dim, c.hidden_dim, **kw)
         self.final_layer_norm = nn.LayerNorm(c.hidden_dim, eps=LN_EPS, **kw)
         self.dropout = c.dropout
 
     def _mlp(self, h, train: bool = False):
-        m = F.dropout(self.fc2(F.relu(self.fc1(h))), self.dropout, training=train)
-        return self.final_layer_norm(h + m)
+        """(the block's output, the MoE layer's aux loss or None)."""
+        aux = None
+        if hasattr(self, "moe"):
+            m, aux = self.moe(h, with_aux=train)
+        else:
+            m = self.fc2(F.relu(self.fc1(h)))
+        m = F.dropout(m, self.dropout, training=train)
+        return self.final_layer_norm(h + m), aux
 
     def forward(self, h, lengths=None, train: bool = False):
-        """Residual dropout on the attention and MLP branches in training
+        """(the layer's output, the MoE aux loss in training or None), with
+        residual dropout on the attention and MLP branches in training
         (edgerunner_tpu/models/shape_opt.py:412-426)."""
         return self.after_attention(h, self.self_attn.core(h, lengths), train)
 
     def after_attention(self, h, o, train: bool = False):
         """The layer past its attention output o: out_proj, the residuals,
-        dropout, both LayerNorms and the MLP."""
+        dropout, both LayerNorms and the MLP; returns as `forward`."""
         a = F.dropout(self.self_attn.out_proj(o), self.dropout, training=train)
         return self._mlp(self.self_attn_layer_norm(h + a), train)
 
     def prefill(self, h):
         a, k, v = self.self_attn.prefill(h)
-        return self._mlp(self.self_attn_layer_norm(h + a)), k, v
+        return self._mlp(self.self_attn_layer_norm(h + a))[0], k, v
 
     def step(self, h, k_cache, v_cache, index: int, pos):
         a = self.self_attn.step(h, k_cache, v_cache, index, pos)
-        return self._mlp(self.self_attn_layer_norm(h + a))
+        return self._mlp(self.self_attn_layer_norm(h + a))[0]
 
     def verify_step(self, h, k_cache, v_cache, index_vec):
         a = self.self_attn.verify_step(h, k_cache, v_cache, index_vec)
-        return self._mlp(self.self_attn_layer_norm(h + a))
+        return self._mlp(self.self_attn_layer_norm(h + a))[0]
 
 
 class ShapeOPTDecoder(nn.Module):
     """Token + learned-position embedding, stacked OPT layers
     (reference: modeling_opt.py:307-426)."""
 
-    def __init__(self, c: ShapeOPTConfig, *, use_kernels: bool = True,
+    def __init__(self, c: ShapeOPTConfig, *, use_kernels: bool = True, ep=None,
                  device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -261,7 +292,7 @@ class ShapeOPTDecoder(nn.Module):
         self.embd = nn.Embedding(c.vocab_size, c.hidden_dim, **kw)
         self.embed_positions = nn.Embedding(c.max_position_embeddings, c.hidden_dim, **kw)
         self.layers = nn.ModuleList(
-            OPTDecoderLayer(c, use_kernels=use_kernels, **kw)
+            OPTDecoderLayer(c, use_kernels=use_kernels, ep=ep, **kw)
             for _ in range(c.num_hidden_layers))
 
     def forward(self, inputs_embeds, lengths=None, train: bool = False):
@@ -276,7 +307,10 @@ class ShapeOPTDecoder(nn.Module):
         the positions of the full length T are added, then the rank keeps
         its shard [rank * T/R, (rank + 1) * T/R): every layer runs on it
         (LayerNorm and MLP per token, attention as the ring), and the hidden
-        states returned are the shard's."""
+        states returned are the shard's. Returns (hidden states, the MoE
+        layers' aux losses in training: a list, empty without MoE); a
+        checkpointed layer returns its aux through the checkpoint, so the
+        replay routes as the first pass did."""
         if not inputs_embeds.is_floating_point():
             inputs_embeds = self.embd(inputs_embeds)
         T = inputs_embeds.shape[1]
@@ -285,13 +319,16 @@ class ShapeOPTDecoder(nn.Module):
         if sp is not None:
             h = sp.shard(h)
         keep_attn = self.remat and self.cfg.remat_policy == "attn"
+        aux = []
         for layer in self.layers:
             if keep_attn:
-                h = maybe_checkpoint(True, layer.after_attention, h,
-                                     layer.self_attn.core(h, lengths), train)
+                h, a = maybe_checkpoint(True, layer.after_attention, h,
+                                        layer.self_attn.core(h, lengths), train)
             else:
-                h = maybe_checkpoint(self.remat, layer, h, lengths, train)
-        return h
+                h, a = maybe_checkpoint(self.remat, layer, h, lengths, train)
+            if a is not None:
+                aux.append(a)
+        return h, aux
 
     def prefill(self, inputs_embeds, max_len: int):
         """Returns (hidden [B, P, C], caches): per-layer lists of K and V
@@ -337,11 +374,11 @@ class ShapeOPTDecoder(nn.Module):
 class ShapeOPT(nn.Module):
     """Decoder + LM head (reference: modeling_opt.py:429-517)."""
 
-    def __init__(self, c: ShapeOPTConfig, *, use_kernels: bool = True,
+    def __init__(self, c: ShapeOPTConfig, *, use_kernels: bool = True, ep=None,
                  device=None, dtype=None):
         super().__init__()
         self.cfg = c
-        self.model = ShapeOPTDecoder(c, use_kernels=use_kernels, device=device,
+        self.model = ShapeOPTDecoder(c, use_kernels=use_kernels, ep=ep, device=device,
                                      dtype=dtype)
         self.lm_head = nn.Linear(c.hidden_dim, c.vocab_size, bias=False,
                                  device=device, dtype=dtype)
@@ -365,12 +402,17 @@ class ShapeOPT(nn.Module):
 
     def forward(self, inputs_embeds, lengths=None, labels=None, train: bool = False):
         """Teacher-forcing logits [B, T, V]; with `labels`, (logits, loss,
-        loss_mtp): loss_mtp averages the draft heads' shifted cross-entropies
-        (shift 2+k), None without heads (edgerunner_tpu/models/shape_opt.py:673-690)."""
-        h = self.model(inputs_embeds, lengths, train)
+        loss_mtp, loss_moe): loss_mtp averages the draft heads' shifted
+        cross-entropies (shift 2+k), None without heads
+        (edgerunner_tpu/models/shape_opt.py:673-690); loss_moe is the mean of
+        the MoE layers' aux losses in training, None otherwise (the JAX eval
+        step applies without 'losses', so its sow is a no-op;
+        edgerunner_tpu/train/state.py:203-226, :285-291)."""
+        h, aux = self.model(inputs_embeds, lengths, train)
         logits = self.lm_head(h)
         if labels is None:
             return logits
+        loss_moe = sum(aux) / len(aux) if aux else None
         # under sp, h and logits hold the rank's positions from `offset`
         sp = active_sequence_parallel()
         offset = 0 if sp is None else sp.rank * h.shape[1]
@@ -379,7 +421,8 @@ class ShapeOPT(nn.Module):
             aux = [shifted_cross_entropy(lg, labels, shift=2 + k, offset=offset)
                    for k, lg in enumerate(self.mtp_logits(h))]
             loss_mtp = sum(aux) / len(aux)
-        return logits, shifted_cross_entropy(logits, labels, offset=offset), loss_mtp
+        return (logits, shifted_cross_entropy(logits, labels, offset=offset), loss_mtp,
+                loss_moe)
 
     def embed_tokens(self, ids):
         return self.model.embd(ids)

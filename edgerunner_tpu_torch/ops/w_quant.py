@@ -13,7 +13,12 @@ dtype on every call, which moves more bytes than bf16 weights would (a
 fused int8-weight GEMM is later work).
 
 As in the JAX package the exact weights are loaded first and quantised
-after (`quantize_lmm_params`); `lm_head` stays exact.
+after (`quantize_lmm_params`); `lm_head` stays exact. Under `moe_experts`
+the layers hold no fc1/fc2, so only the attention projections are
+quantised, as the JAX walk over `_QUANT_LEAF_NAMES` finds no others
+(w_quant.py:92-123): the router and the stacked experts stay exact. LoRA
+with `--w_quant` is refused (config.py `validate`): merge the adapters
+first (`python -m edgerunner_tpu_torch.merge_lora`).
 """
 
 from __future__ import annotations
@@ -66,11 +71,12 @@ class QuantDense(nn.Module):
 def quantize_lmm_params(model: nn.Module) -> nn.Module:
     """Replace, in place, the q/k/v/out and fc1/fc2 projections of the LMM's
     mesh decoder with `QuantDense` layers quantised from their weights
-    (w_quant.py:102-122). The conditioner, embeddings, LayerNorms and
-    `lm_head` stay exact. Returns the model."""
+    (w_quant.py:102-122). The conditioner, embeddings, LayerNorms,
+    `lm_head` and a MoE layer (router and experts) stay exact. Returns the
+    model."""
     decoder = model.mesh_decoder
     for parent in list(decoder.modules()):
         for child_name, child in list(parent.named_children()):
-            if child_name in QUANT_NAMES and isinstance(child, nn.Linear):
+            if child_name in QUANT_NAMES and type(child) is nn.Linear:
                 setattr(parent, child_name, QuantDense.from_linear(child))
     return model

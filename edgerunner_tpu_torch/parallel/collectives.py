@@ -5,23 +5,31 @@ package gets them from GSPMD and `jax.lax.ppermute`).
                  rank - 1 of the group, through `dist.batch_isend_irecv`;
 * `all_reduce_`  sums tensors over the group in place, in buckets;
 * `broadcast_`   copies the group's rank 0's tensors to every rank in place;
-* `dp_total`     the sum of a per-dp-group value over the dp groups.
+* `dp_total`     the sum of a per-dp-group value over the dp groups;
+* `all_gather`   every rank's copy of a tensor, in rank order;
+* `gather_to_first`  the ranks' tensors concatenated on the group's rank 0;
+* `ep_sum` / `ep_sum_grad`  expert parallelism's two ops with explicit
+                 autograd (models/moe.py): the first sums its input over
+                 the ep group and passes the gradient through; the second
+                 passes its input through and sums the gradient over the
+                 group.
 
 Under a staged group (gloo over CUDA tensors: ranks that share a card) each
 collective copies its tensors into pinned host buffers, runs there and
 copies the result back: gloo moves host memory. `ring_shift.bytes` counts
-the bytes each call sends and `all_reduce_.bytes` those each call sums, so
+the bytes each call sends, `all_reduce_.bytes` those each call sums and
+`ep_sum.bytes` those that the two ep ops sum (a part of all_reduce_'s), so
 a run can report what its collectives moved.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-from edgerunner_tpu_torch.parallel.mesh import DataParallel, SequenceParallel
+from edgerunner_tpu_torch.parallel.mesh import DataParallel, ExpertParallel, SequenceParallel
 
 BUCKET_BYTES = 64 * 2 ** 20  # all-reduce bucket
 
@@ -99,8 +107,87 @@ def dp_total(x: torch.Tensor, dp: DataParallel) -> torch.Tensor:
     divided by sp, exact for integers. A new tensor; `x` is left as it is."""
     total = x.detach().reshape(1).clone()
     all_reduce_([total], dp.world)
-    total = total // dp.sp_size if not total.is_floating_point() else total / dp.sp_size
+    per = dp.sp_size * dp.ep_size  # ranks per dp group, which hold x alike
+    total = total // per if not total.is_floating_point() else total / per
     return total[0]
+
+
+@torch.no_grad()
+def all_gather(x: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every rank's `x` (same shape and dtype on each), in the group's rank
+    order, on x's device."""
+    if group.size == 1:
+        return [x]
+    x = x.contiguous()
+    buf = _to_host([x])[0] if group.staged else x
+    outs = [torch.empty_like(buf) for _ in range(group.size)]
+    dist.all_gather(outs, buf, group=group.group)
+    return [o.to(x.device) for o in outs] if group.staged else outs
+
+
+@torch.no_grad()
+def gather_to_first(x: torch.Tensor, group) -> Optional[torch.Tensor]:
+    """The group's tensors `x` (same shape on each) concatenated along dim
+    0 in rank order, as a CPU tensor on the group's rank 0; None on the
+    others."""
+    if group.size == 1:
+        return x.detach().cpu()
+    buf = x.detach().contiguous()
+    if group.staged or dist.get_backend(group.group) == "gloo":
+        buf = buf.cpu()
+    dst = dist.get_global_rank(group.group, 0)
+    outs = [torch.empty_like(buf) for _ in range(group.size)] if group.rank == 0 else None
+    dist.gather(buf, outs, dst=dst, group=group.group)
+    return torch.cat([o.cpu() for o in outs]) if group.rank == 0 else None
+
+
+class _EpSum(torch.autograd.Function):
+    """Forward: the sum of x over the ep group; backward: the identity."""
+
+    @staticmethod
+    def forward(ctx, x, ep):
+        y = x.clone()
+        all_reduce_([y], ep)
+        ep_sum.bytes += y.numel() * y.element_size()
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _EpSumGrad(torch.autograd.Function):
+    """Forward: the identity; backward: the sum of the gradient over the ep
+    group."""
+
+    @staticmethod
+    def forward(ctx, x, ep):
+        ctx.ep = ep
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        all_reduce_([g], ctx.ep)
+        ep_sum.bytes += g.numel() * g.element_size()
+        return g, None
+
+
+def ep_sum(x: torch.Tensor, ep: Optional[ExpertParallel]) -> torch.Tensor:
+    """x summed over the ep group (each rank's partial combine of its own
+    experts); the gradient passes through unchanged, as every rank holds
+    the same downstream. x itself without ep."""
+    return x if ep is None or ep.size == 1 else _EpSum.apply(x, ep)
+
+
+ep_sum.bytes = 0
+
+
+def ep_sum_grad(x: torch.Tensor, ep: Optional[ExpertParallel]) -> torch.Tensor:
+    """x unchanged, with its gradient summed over the ep group: what enters
+    a rank's local experts (the tokens, the gates), whose gradient each rank
+    holds only for its own experts' share."""
+    return x if ep is None or ep.size == 1 else _EpSumGrad.apply(x, ep)
 
 
 @torch.no_grad()

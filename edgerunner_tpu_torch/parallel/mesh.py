@@ -1,7 +1,7 @@
 """Process groups and the parallel contexts of the port
 (edgerunner_tpu/parallel/mesh.py: `maybe_initialize_distributed` :25,
 `make_mesh` :60, `set_sequence_parallel` / `active_sequence_parallel`
-:106-116).
+:106-116, the 'ep' axis and `param_shardings` :180-231).
 
 The JAX package runs one controller over a mesh and lets GSPMD and
 `ppermute` move the shards. Here every rank is a process: `init_distributed`
@@ -11,7 +11,12 @@ world out as `make_mesh` lays out its devices: dp × sp ranks, dp outermost
 and sp innermost (rank = d · sp + s), so that an sp group is a run of
 consecutive ranks (`dp_for_world` holds the sizes to the world, dp -1
 taking world / sp). With dp 1 the sp group is the whole world
-(`SequenceParallel.world`). Each rank runs on
+(`SequenceParallel.world`). Expert parallelism (`make_ep_layout`) adds the
+'ep' axis innermost, as `make_mesh` places it: rank = d · ep + e, each ep
+group a run of consecutive ranks that hold the same rows and a share of
+the experts each (E / ep of the stacked [E, ...] expert weights, which
+`param_shardings` shards over 'ep'; models/moe.py); MoE under sp is not
+ported, so the sp axis is 1 there. Each rank runs on
 `cuda:{LOCAL_RANK % device_count}` (`rank_device`).
 
 The backend follows one rule for the whole world (`choose_backend`): NCCL
@@ -111,33 +116,63 @@ class SequenceParallel:
 
 @dataclasses.dataclass(frozen=True)
 class DataParallel:
-    """The dp axis of a dp × sp world: this rank is in dp group `rank` of
-    `size`, each group of `sp_size` ranks holding the same rows; `world` is
-    the group of every rank, over which gradients and metrics are summed."""
+    """The dp axis of a dp × sp (or dp × ep) world: this rank is in dp group
+    `rank` of `size`, each group of `sp_size` × `ep_size` ranks holding the
+    same rows; `world` is the group of every rank, over which gradients and
+    metrics are summed when ep is 1."""
 
     rank: int
     size: int
     sp_size: int
     world: SequenceParallel
+    ep_size: int = 1
 
     def describe(self) -> str:
         """The layout and backend, for rank 0's log."""
-        return f"[dp] {self.size} groups of {self.sp_size} sp rank(s), {self.world.placement()}"
+        inner = (f"{self.ep_size} ep rank(s)" if self.ep_size > 1
+                 else f"{self.sp_size} sp rank(s)")
+        return f"[dp] {self.size} groups of {inner}, {self.world.placement()}"
 
 
-def dp_for_world(dp_size: int, sp_size: int, world: int, module: str) -> int:
+@dataclasses.dataclass(frozen=True)
+class ExpertParallel:
+    """The ep axis: this rank is rank `rank` of an ep group of `size` ranks
+    (`group`, run of consecutive ranks) that hold the same rows, each E / ep
+    of the experts, experts [rank · E/ep, (rank + 1) · E/ep). `world` is
+    every rank; `replicas` the ranks that hold this rank's experts, one in
+    each dp group (None with dp 1), over which gradients and metrics are
+    summed: a non-expert parameter's gradient is the same on every rank of
+    an ep group (models/moe.py), an expert shard's is its own."""
+
+    group: Optional[dist.ProcessGroup]
+    rank: int
+    size: int
+    staged: bool
+    world: SequenceParallel
+    replicas: Optional[SequenceParallel] = None
+
+    def describe(self) -> str:
+        return f"[ep] groups of {self.size} ranks, {self.world.placement()}"
+
+
+def dp_for_world(dp_size: int, sp_size: int, world: int, module: str,
+                 ep_size: int = 1) -> int:
     """The dp size of a world of `world` ranks, by `make_mesh`'s rule
-    (edgerunner_tpu/parallel/mesh.py:60-80): dp -1 takes world // sp; any
-    dp × sp other than the world raises, naming the torchrun command that
-    launches `module` with a matching world."""
-    dp = world // sp_size if dp_size == -1 else dp_size
-    if dp < 1 or dp * sp_size != world:
+    (edgerunner_tpu/parallel/mesh.py:60-80): dp -1 takes world // (sp · ep);
+    any dp × sp × ep other than the world raises, naming the torchrun
+    command that launches `module` with a matching world."""
+    inner = sp_size * ep_size
+    dp = world // inner if dp_size == -1 else dp_size
+    if dp < 1 or dp * inner != world:
         dp = max(dp, 1)
-        n = dp * sp_size
+        n = dp * inner
+        ep = f" x --ep_size {ep_size}" if ep_size > 1 else ""
+        ep_flag = f" --ep_size {ep_size}" if ep_size > 1 else ""
         raise RuntimeError(
-            f"--dp_size {dp_size} x --sp_size {sp_size} needs {n} ranks (--dp_size -1 "
-            f"takes the world / sp), and this world has {world}: launch with torchrun "
-            f"--nproc_per_node {n} -m {module} ... --dp_size {dp} --sp_size {sp_size}")
+            f"--dp_size {dp_size} x --sp_size {sp_size}{ep} needs {n} ranks (--dp_size -1 "
+            f"takes the world / (sp x ep)), and this world has {world}: launch with "
+            f"torchrun --nproc_per_node {n} -m {module} ... --dp_size {dp} --sp_size "
+            f"{sp_size}{ep_flag}")
     return dp
 
 
@@ -161,6 +196,31 @@ def make_layout(device: torch.device, dp_size: int, sp_size: int
         sp = SequenceParallel(groups[d], s, sp_size, world.staged)
     dp = DataParallel(d, dp_size, sp_size, world) if dp_size > 1 else None
     return dp, sp
+
+
+def make_ep_layout(device: torch.device, dp_size: int, ep_size: int
+                   ) -> Tuple[Optional[DataParallel], ExpertParallel]:
+    """(dp, ep) of this rank in the initialised world of dp_size × ep_size
+    ranks, ep innermost as `make_mesh` places it: rank = d · ep + e, so the
+    ep group of dp group d is ranks [d · ep, (d + 1) · ep) and the replicas
+    of expert shard e are ranks e, ep + e, ... Every rank creates every
+    group, in the same order (`dist.new_group` is collective)."""
+    world = SequenceParallel.world(device)
+    if dp_size * ep_size != world.size:
+        raise RuntimeError(f"dp {dp_size} x ep {ep_size} is not the world's {world.size} ranks")
+    d, e = divmod(world.rank, ep_size)
+    if dp_size == 1:
+        group = world.group
+    else:
+        group = [dist.new_group(list(range(g * ep_size, (g + 1) * ep_size)))
+                 for g in range(dp_size)][d]
+    replicas = None
+    if dp_size > 1:
+        shards = [dist.new_group(list(range(s, world.size, ep_size))) for s in range(ep_size)]
+        replicas = SequenceParallel(shards[e], d, dp_size, world.staged)
+    ep = ExpertParallel(group, e, ep_size, world.staged, world, replicas)
+    dp = DataParallel(d, dp_size, 1, world, ep_size) if dp_size > 1 else None
+    return dp, ep
 
 
 _SP: Optional[SequenceParallel] = None

@@ -1,5 +1,5 @@
-"""How a training rank joins the dp × sp world, logs and takes its share of
-the data: shared by the training CLIs (`main`, `main_dit`)."""
+"""How a training rank joins the dp × sp (or dp × ep) world, logs and takes
+its share of the data: shared by the training CLIs (`main`, `main_dit`)."""
 
 from __future__ import annotations
 
@@ -14,8 +14,10 @@ from edgerunner_tpu_torch.data.dataset import shard_items_for_host
 from edgerunner_tpu_torch.parallel import (
     DataParallel,
     SequenceParallel,
+    ExpertParallel,
     dp_for_world,
     init_distributed,
+    make_ep_layout,
     make_layout,
     rank_device,
 )
@@ -24,12 +26,14 @@ from edgerunner_tpu_torch.utils import init_logger
 
 def run_ranks(opt, device: torch.device, module: str, train_fn):
     """`train_fn(opt, device, sp, dp)` on this rank of a world of dp × sp
-    ranks (`dp_for_world`'s rule; a world of one runs unsharded): joins the
-    torchrun world unless one is initialised, lays it out (`make_layout`)
-    and leaves it on exit."""
+    ranks, or with `--ep_size` > 1 `train_fn(opt, device, None, dp, ep)` on
+    one of dp × ep ranks (`dp_for_world`'s rule; a world of one runs
+    unsharded): joins the torchrun world unless one is initialised, lays it
+    out (`make_layout`, `make_ep_layout`) and leaves it on exit."""
     world = (dist.get_world_size() if dist.is_initialized()
              else int(os.environ.get("WORLD_SIZE", "1")))
-    dp_size = dp_for_world(opt.dp_size, opt.sp_size, world, module)
+    ep_size = opt.ep_size
+    dp_size = dp_for_world(opt.dp_size, opt.sp_size, world, module, ep_size)
     if world == 1:
         return train_fn(opt, device)
     device = rank_device(device.type)
@@ -37,6 +41,9 @@ def run_ranks(opt, device: torch.device, module: str, train_fn):
     if owned:
         init_distributed(device)
     try:
+        if ep_size > 1:
+            dp, ep = make_ep_layout(device, dp_size, ep_size)
+            return train_fn(opt, device, None, dp, ep)
         dp, sp = make_layout(device, dp_size, opt.sp_size)
         return train_fn(opt, device, sp, dp)
     finally:
@@ -44,18 +51,20 @@ def run_ranks(opt, device: torch.device, module: str, train_fn):
             dist.destroy_process_group()
 
 
-def rank_logger(opt, dp: Optional[DataParallel], sp: Optional[SequenceParallel]):
+def rank_logger(opt, dp: Optional[DataParallel], sp: Optional[SequenceParallel],
+                ep: Optional[ExpertParallel] = None):
     """The workspace's log.txt on rank 0 of the world; a disabled logger on
     every other rank."""
     os.makedirs(opt.workspace, exist_ok=True)
-    world = dp.world if dp is not None else sp
+    world = dp.world if dp is not None else sp if sp is not None else (
+        ep.world if ep is not None else None)
     if world is None or world.rank == 0:
         logger = init_logger(os.path.join(opt.workspace, "log.txt"))
     else:
         logger = logging.getLogger(f"edgerunner_tpu_torch.rank{world.rank}")
         logger.disabled = True
     logger.info(str(opt))
-    for axis in (dp, sp):
+    for axis in (dp, sp, ep):
         if axis is not None:
             logger.info(axis.describe())
     return logger

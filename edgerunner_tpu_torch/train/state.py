@@ -18,6 +18,13 @@ encoder) take no gradient and no optimizer state: the optimizer holds the
 trainable parameters only, which is what the JAX package's masked AdamW
 with `set_to_zero` does (state.py:115-150). Their gradients there are zero,
 so the global norm that clipping sees is the same.
+
+LoRA (`--lora_rank`) is another mask (state.py:112-136): the chain clips
+by the global norm of every gradient, the base weights' included (the JAX
+LoRADense has no stop_gradient on its kernel), then AdamW updates, and
+decays, only the adapters (`LORA_TRAINABLE_KEYS`); the base weights take
+no update and no AdamW state. So the optimizer takes every trainable
+parameter's gradient and `updated` names the adapters.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ import torch
 
 B1, B2, EPS = 0.9, 0.95, 1e-8
 MU_DTYPE = torch.bfloat16
+# the parameters that LoRA fine-tuning updates (state.py:112-114)
+LORA_TRAINABLE_KEYS = ("lora_a", "lora_b")
 
 
 def cosine_warmup_schedule(base_lr: float, total_steps: int, warmup_ratio: float = 0.01,
@@ -60,29 +69,35 @@ def global_norm(tensors) -> torch.Tensor:
 class AdamW:
     """Clip + AdamW + gradient accumulation over named f32 parameters.
 
-    `update(grads)` takes one micro-step's gradients {name: tensor} and
-    returns their global norm; every `accumulate`-th call applies the update
-    to the parameters in place (the JAX package returns new arrays).
-    `count` is the number of updates applied, the step of the schedule.
+    `update(grads)` takes one micro-step's gradients {name: tensor} of every
+    parameter in `params` and returns their global norm (`norm`, by default
+    `global_norm` of them all); every `accumulate`-th call applies the update
+    to the parameters named in `updated` (default: all) in place (the JAX
+    package returns new arrays); only they have AdamW state. `count` is the
+    number of updates applied, the step of the schedule.
     """
 
     def __init__(self, params: Dict[str, torch.Tensor], schedule: Callable[[int], float], *,
-                 weight_decay: float, clip: float, accumulate: int = 1):
+                 weight_decay: float, clip: float, accumulate: int = 1,
+                 updated: Optional[list] = None,
+                 norm: Optional[Callable[[Dict[str, torch.Tensor]], torch.Tensor]] = None):
         self.params = params
+        self.updated = list(params) if updated is None else [n for n in params if n in updated]
+        self.norm = norm or (lambda grads: global_norm(grads.values()))
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.clip = clip
         self.accumulate = accumulate
         self.count = 0
-        self.mu = {n: torch.zeros_like(p, dtype=MU_DTYPE) for n, p in params.items()}
-        self.nu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
+        self.mu = {n: torch.zeros_like(params[n], dtype=MU_DTYPE) for n in self.updated}
+        self.nu = {n: torch.zeros_like(params[n], dtype=torch.float32) for n in self.updated}
         self.mini_step = 0
         self.acc: Optional[Dict[str, torch.Tensor]] = (
             {n: torch.zeros_like(p) for n, p in params.items()} if accumulate > 1 else None)
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-        gnorm = global_norm(grads.values())
+        gnorm = self.norm(grads)
         if self.acc is None:
             self._apply(grads, gnorm)
             return gnorm
@@ -90,7 +105,7 @@ class AdamW:
         for n, g in grads.items():
             self.acc[n] += (g.float() - self.acc[n]) / (self.mini_step + 1)
         if self.mini_step == self.accumulate - 1:
-            self._apply(self.acc, global_norm(self.acc.values()))
+            self._apply(self.acc, self.norm(self.acc))
             for a in self.acc.values():
                 a.zero_()
             self.mini_step = 0
@@ -105,7 +120,8 @@ class AdamW:
         lr = self.schedule(self.count)
         bc1 = float(f32(1.0) - f32(B1) ** f32(count_inc))
         bc2 = float(f32(1.0) - f32(B2) ** f32(count_inc))
-        for n, p in self.params.items():
+        for n in self.updated:
+            p = self.params[n]
             g = grads[n].float() * gscale
             mu, nu = self.mu[n], self.nu[n]
             # the b1 * mu product is rounded in mu's bf16 before the f32 add
@@ -163,10 +179,19 @@ def trainable_parameters(model: torch.nn.Module, frozen_keys: tuple = ()
     return out
 
 
-def make_optimizer(opt, params: Dict[str, torch.Tensor], total_steps: int):
+def lora_parameter_names(params) -> list:
+    """The adapters among parameter names: the ones LoRA updates."""
+    return [n for n in params if n.split(".")[-1] in LORA_TRAINABLE_KEYS]
+
+
+def make_optimizer(opt, params: Dict[str, torch.Tensor], total_steps: int, norm=None):
     """(AdamW, schedule) for an Options, as the JAX package's
     `make_optimizer` builds them (state.py:116-150); `params` are the
-    trainable parameters (`trainable_parameters`)."""
+    trainable parameters (`trainable_parameters`), all clipped by their
+    global norm (`norm`: AdamW's default, or expert parallelism's); under
+    `lora_rank` only the adapters are updated."""
     schedule = cosine_warmup_schedule(opt.lr, total_steps, warmup_ratio=opt.warmup_ratio)
+    updated = lora_parameter_names(params) if opt.lora_rank else None
     return AdamW(params, schedule, weight_decay=opt.weight_decay, clip=opt.gradient_clip,
-                 accumulate=opt.gradient_accumulation_steps), schedule
+                 accumulate=opt.gradient_accumulation_steps, updated=updated,
+                 norm=norm), schedule

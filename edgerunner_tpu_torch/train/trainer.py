@@ -44,6 +44,21 @@ checked equal over the sp group (dp groups hold other rows). Eval, as in
 the JAX package, is not sharded over dp: every dp group evaluates the
 whole batch, summed over its sp ranks, so the logged loss is the
 one-process loss.
+
+Expert parallelism (`ep`, a parallel/mesh.py `ExpertParallel`, from
+`--ep_size` with `--moe_experts`): the ranks of an ep group take the same
+rows (the batch is split over dp only) and each holds E / ep of every MoE
+layer's experts (models/moe.py); each computes the whole loss of its
+group's rows, the whole gradient of every non-expert parameter and its
+experts' own. So gradients and metrics are summed over the ranks that hold
+the same experts, one per dp group (`ep.replicas`), and the norm that
+clipping takes counts the non-expert part once and the experts' summed over
+the ep group. Saves gather the experts and their optimizer state into full
+[E, ...] tensors (`checkpoint_parts`), which load at any ep: each rank
+slices its share of a file's experts (`shard_experts`). Under dp with MoE
+every group's rows are padded to the longest group's length first, so
+that the step routes one global batch, as the JAX step's has one length.
+MoE's aux loss joins the metrics as loss_moe, in the JAX log's format.
 """
 
 from __future__ import annotations
@@ -57,23 +72,28 @@ import torch
 from torch.func import functional_call
 
 from edgerunner_tpu_torch.data.dataset import batch_checksum
+from edgerunner_tpu_torch.models.moe import is_expert_param, shard_experts
 from edgerunner_tpu_torch.parallel import (
     DataParallel,
+    ExpertParallel,
     SequenceParallel,
+    all_gather,
     all_reduce_,
     assert_same_on_every_rank,
     broadcast_,
     data_parallel,
+    gather_to_first,
     sequence_parallel,
 )
 from edgerunner_tpu_torch.train.state import (
     frozen_param_keys,
+    global_norm,
     make_optimizer,
     trainable_parameters,
 )
 from edgerunner_tpu_torch.weights import read_safetensors
 
-METRICS = ("loss", "loss_ce", "loss_kl", "loss_mtp")
+METRICS = ("loss", "loss_ce", "loss_kl", "loss_mtp", "loss_moe")
 # the steps of epoch 0 that `train_epoch(profile_dir=...)` traces, first and last
 PROFILE_STEPS = (10, 14)
 
@@ -114,7 +134,11 @@ def pad_for_sp(batch: dict, size: int, pad_token_id: int) -> dict:
     length) divides over `size` sp ranks (edgerunner_tpu/train/trainer.py:58-82):
     labels with -100, tokens with PAD. Causal attention over a suffix pad
     leaves every position that the loss reads unchanged."""
-    pad = (-np.asarray(batch["labels"]).shape[1]) % size
+    return pad_to_length(batch, (-np.asarray(batch["labels"]).shape[1]) % size, pad_token_id)
+
+
+def pad_to_length(batch: dict, pad: int, pad_token_id: int) -> dict:
+    """`pad` more positions of tokens (PAD) and labels (-100)."""
     if not pad:
         return batch
     out = dict(batch)
@@ -126,7 +150,7 @@ def pad_for_sp(batch: dict, size: int, pad_token_id: int) -> dict:
 class Trainer:
     def __init__(self, model, opt, total_steps: int, logger=None,
                  sp: Optional[SequenceParallel] = None, kind: str = "arae",
-                 dp: Optional[DataParallel] = None):
+                 dp: Optional[DataParallel] = None, ep: Optional[ExpertParallel] = None):
         self.model = model
         self.opt = opt
         self.logger = logger
@@ -134,12 +158,22 @@ class Trainer:
         self.batch_keys, self.call = MODEL_KINDS[kind]
         self.sp = sp if sp is not None and sp.size > 1 else None
         self.dp = dp if dp is not None and dp.size > 1 else None
-        # every rank: gradients and training metrics are summed over it
-        self.world = self.dp.world if self.dp is not None else self.sp
+        self.ep = ep if ep is not None and ep.size > 1 else None
+        # every rank; it logs and saves from its rank 0
+        self.world = (self.dp.world if self.dp is not None else
+                      self.sp if self.sp is not None else
+                      self.ep.world if self.ep is not None else None)
+        # gradients and training metrics are summed over these ranks: every
+        # rank, or under ep the ranks holding this rank's experts
+        self.sums = self.ep.replicas if self.ep is not None else self.world
         self.is_main = self.world is None or self.world.rank == 0
+        # rank 0, and under ep the rest of its ep group, which its forward needs
+        self.first_group = self.is_main or (self.ep is not None and (
+            self.dp is None or self.dp.rank == 0))
         self.device = next(model.parameters()).device
         self.params = trainable_parameters(model, frozen_param_keys(opt, kind))
-        self.optimizer, self.schedule = make_optimizer(opt, self.params, total_steps)
+        self.optimizer, self.schedule = make_optimizer(
+            opt, self.params, total_steps, norm=self._ep_norm if self.ep is not None else None)
         self.autocast = self.device.type == "cuda" and opt.mixed_precision == "bf16"
         self.ema_decay = float(opt.ema_decay or 0.0)
         self.ema: Optional[dict] = None  # {name: f32 tensor} of every parameter
@@ -154,23 +188,78 @@ class Trainer:
         else:
             print(msg)
 
+    def _ep_norm(self, grads: dict) -> torch.Tensor:
+        """The global norm of the whole model's gradients under ep: the
+        non-expert part, the same on every rank of the group, once; the
+        experts' squares summed over the group."""
+        dense = [g for n, g in grads.items() if not is_expert_param(n)]
+        experts = [(g.float() ** 2).sum() for n, g in grads.items() if is_expert_param(n)]
+        sq = torch.stack(experts).sum().reshape(1)
+        all_reduce_([sq], self.ep)
+        return torch.sqrt(global_norm(dense) ** 2 + sq[0])
+
+    def shard(self, state: dict) -> dict:
+        """A saved state's full [E, ...] expert entries cut to this rank's
+        experts under ep; `state` itself otherwise."""
+        if self.ep is None:
+            return state
+        return shard_experts(state, self.ep, self.opt.moe_experts)
+
     def init_state(self, step: int = 0, opt_state_path: Optional[str] = None,
                    ema_path: Optional[str] = None):
         """`step` restarts the schedule and the step seeds where a run left
         off; `opt_state_path` restores a saved optimizer state. Under sp or
-        dp, every rank takes rank 0's weights. With --ema_decay the EMA
-        starts from the weights, or from the EMA file `ema_path`."""
+        dp, every rank takes rank 0's weights (under ep, an expert shard its
+        first replica's). With --ema_decay the EMA starts from the weights,
+        or from the EMA file `ema_path`. Saved experts are cut to this
+        rank's under ep."""
         self.step = step
-        if self.world is not None:
+        if self.ep is not None:
+            broadcast_([p for n, p in self.params.items() if not is_expert_param(n)],
+                       self.world)
+            if self.sums is not None:
+                broadcast_([p for n, p in self.params.items() if is_expert_param(n)],
+                           self.sums)
+        elif self.world is not None:
             broadcast_(list(self.params.values()), self.world)
         if self.ema_decay > 0:
-            saved = read_safetensors(ema_path) if ema_path else None
+            saved = self.shard(read_safetensors(ema_path)) if ema_path else None
             self.ema = {n: (p.detach().clone() if saved is None else
                             torch.as_tensor(saved[n]).to(self.device, p.dtype))
                         for n, p in self.model.named_parameters()}
         if opt_state_path:
-            self.optimizer.load_state_dict(
-                torch.load(opt_state_path, map_location=self.device, weights_only=True))
+            state = torch.load(opt_state_path, map_location="cpu", weights_only=True)
+            for table in ("mu", "nu", "acc"):
+                if state.get(table) is not None:
+                    state[table] = self.shard(state[table])
+            self.optimizer.load_state_dict(state)
+
+    def checkpoint_parts(self, with_optimizer: bool = True) -> tuple:
+        """(weights, optimizer, EMA) for a save, each with `state_dict()`
+        (the EMA a dict): the live model and optimizer, or under ep every
+        expert tensor gathered into its full [E, ...] on the host of the ep
+        group's rank 0 (collective over the ep groups of dp group 0, whose
+        rank 0 writes; the others return what nobody writes)."""
+        optimizer = self.optimizer if with_optimizer else None
+        if self.ep is None:
+            return self.model, optimizer, self.ema
+        if not self.first_group:
+            return _Saved({}), None, None
+
+        def full(tensors: Optional[dict]) -> Optional[dict]:
+            if tensors is None:
+                return None
+            return {n: (gather_to_first(t, self.ep) if is_expert_param(n) else t.detach())
+                    for n, t in tensors.items()}
+
+        weights = _Saved(full(self.model.state_dict()))
+        ema = full(self.ema)
+        if optimizer is not None:
+            state = dict(optimizer.state_dict())
+            for table in ("mu", "nu", "acc"):
+                state[table] = full(state[table])
+            optimizer = _Saved(state)
+        return weights, optimizer, ema
 
     def forward(self, batch: dict, *, train: bool, generator=None, use_ema: bool = False
                 ) -> dict:
@@ -194,6 +283,16 @@ class Trainer:
             return batch
         return pad_for_sp(batch, self.sp.size, self.opt.pad_token_id)
 
+    def _dp_moe_batch(self, batch: dict) -> dict:
+        """Under dp with MoE, this group's rows padded to the longest
+        group's length: the step routes one global batch."""
+        if self.dp is None or not self.opt.moe_experts:
+            return batch
+        T = np.asarray(batch["labels"]).shape[1]
+        longest = max(int(t) for t in all_gather(
+            torch.tensor([T], device=self.device), self.dp.world))
+        return pad_to_length(batch, longest - T, self.opt.pad_token_id)
+
     @staticmethod
     def _summed(out: dict, group: Optional[SequenceParallel]) -> dict:
         """Host floats of the metrics in `out`, summed over `group`."""
@@ -210,18 +309,19 @@ class Trainer:
         nof_seed, drop_seed = step_seeds(self.opt.seed, self.step, dp_rank)
         generator = torch.Generator(device=self.device).manual_seed(nof_seed)
         cuda = self.device.type == "cuda"
+        batch = self._dp_moe_batch(batch)
         with torch.random.fork_rng(devices=[self.device.index or 0] if cuda else []), \
                 sequence_parallel(self.sp), data_parallel(self.dp):
             torch.manual_seed(drop_seed)
             out = self.forward(self._sp_batch(batch), train=True, generator=generator)
             grads = torch.autograd.grad(out["loss"], list(self.params.values()))
-        if self.world is not None:
-            all_reduce_(grads, self.world)
+        if self.sums is not None:
+            all_reduce_(grads, self.sums)
         gnorm = self.optimizer.update(dict(zip(self.params, grads)))
         if self.ema is not None:
             self.update_ema()
         self.step += 1
-        metrics = self._summed(out, self.world)
+        metrics = self._summed(out, self.sums)
         metrics["grad_norm"] = float(gnorm)
         self.losses.append(metrics["loss"])
         return metrics
@@ -268,7 +368,7 @@ class Trainer:
                 if mem:
                     log = log.replace(" lr:", f" mem: {mem} lr:", 1)
                 log += f" gnorm: {m['grad_norm']:.3f}"
-                for k in ("loss_ce", "loss_kl", "loss_mtp"):
+                for k in ("loss_ce", "loss_kl", "loss_mtp", "loss_moe"):
                     if k in m:
                         log += f" {k}: {m[k]:.6f}"
                 self.log(log)
@@ -324,3 +424,13 @@ class Trainer:
         avg = total / max(n, 1)
         self.log(f"Eval epoch: {epoch}{' (ema)' if use_ema else ''} loss: {avg:.6f}")
         return avg
+
+
+class _Saved:
+    """A gathered state in place of a module or an optimizer in a save."""
+
+    def __init__(self, state: dict):
+        self.state = state
+
+    def state_dict(self) -> dict:
+        return self.state

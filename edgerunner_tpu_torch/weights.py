@@ -17,6 +17,17 @@ loads only weights that hold them, through `--resume` (`merge_checkpoint`)
 it keeps the seed's heads where the file has none, as the JAX package's
 merge does.
 
+`export_lmm` has no names for the MoE decoder or the LoRA adapters either;
+the port picks them after the JAX modules and carries them both ways:
+layer i's routed MLP as `mesh_decoder.model.layers.{i}.moe.router.weight`
+/ `.bias` (the router, [E, C] as any torch weight) and `.moe.w1`, `.b1`,
+`.w2`, `.b2` (the stacked experts in the JAX layout, [E, C, F], [E, F],
+[E, F, C], [E, C]) in place of fc1/fc2; an adapted projection's adapters
+as `...q_proj.lora_a` [in, r] and `...q_proj.lora_b` [r, out] beside its
+weight and bias (the JAX layout, not transposed). A dense checkpoint
+merges into a LoRA model through `tolerant_merge`: the adapters stay at
+the seed's values and are logged as missing.
+
 A `w_quant` model loads as the JAX package loads one (serve.py:497-505,
 infer.py:124-133): the exact weights cross over into the plain model and
 its decoder projections are quantised after (`load_for_inference`).
@@ -61,13 +72,15 @@ import numpy as np
 import torch
 
 from edgerunner_tpu_torch.models.clip_vit import clip_state_from_hf, init_clip_tower
+from edgerunner_tpu_torch.models.moe import EXPERT_PARAMS
 from edgerunner_tpu_torch.models.point_encoder import point_freq_basis
 
 
 def _linear(sd, prefix, tree):
     sd[prefix + ".weight"] = np.asarray(tree["kernel"], np.float32).T
-    if "bias" in tree:
-        sd[prefix + ".bias"] = np.asarray(tree["bias"], np.float32)
+    for name in ("bias", "lora_a", "lora_b"):  # the adapters in the JAX layout
+        if name in tree:
+            sd[f"{prefix}.{name}"] = np.asarray(tree[name], np.float32)
 
 
 def _layernorm(sd, prefix, tree):
@@ -106,8 +119,13 @@ def _shape_opt(sd, prefix, tree):
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             _linear(sd, f"{lp}.self_attn.{name}", lt["self_attn"][name])
         _layernorm(sd, lp + ".self_attn_layer_norm", lt["self_attn_layer_norm"])
-        _linear(sd, lp + ".fc1", lt["fc1"])
-        _linear(sd, lp + ".fc2", lt["fc2"])
+        if "moe" in lt:
+            _linear(sd, lp + ".moe.router", lt["moe"]["router"])
+            for name in EXPERT_PARAMS:
+                sd[f"{lp}.moe.{name}"] = np.asarray(lt["moe"][name], np.float32)
+        else:
+            _linear(sd, lp + ".fc1", lt["fc1"])
+            _linear(sd, lp + ".fc2", lt["fc2"])
         _layernorm(sd, lp + ".final_layer_norm", lt["final_layer_norm"])
         i += 1
     _linear(sd, prefix + ".lm_head", tree["lm_head"])
@@ -275,8 +293,9 @@ def overlay_checkpoint(model, path: str, align_posemb: str = "right", log=print)
 
 def _unlinear(tree, sd, prefix):
     tree["kernel"] = sd[prefix + ".weight"].T
-    if prefix + ".bias" in sd:
-        tree["bias"] = sd[prefix + ".bias"]
+    for name in ("bias", "lora_a", "lora_b"):
+        if f"{prefix}.{name}" in sd:
+            tree[name] = sd[f"{prefix}.{name}"]
     return tree
 
 
@@ -320,16 +339,21 @@ def flax_from_state_dict(sd: dict) -> dict:
     model = {"embd": {"embedding": sd[m + ".embd.weight"]},
              "embed_positions": {"embedding": sd[m + ".embed_positions.weight"]}}
     i = 0
-    while f"{m}.layers.{i}.fc1.weight" in sd:
+    while f"{m}.layers.{i}.final_layer_norm.weight" in sd:
         lp = f"{m}.layers.{i}"
-        model[f"layers_{i}"] = {
+        layer = {
             "self_attn": {n: _unlinear({}, sd, f"{lp}.self_attn.{n}")
                           for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
             "self_attn_layer_norm": _unlayernorm(sd, lp + ".self_attn_layer_norm"),
-            "fc1": _unlinear({}, sd, lp + ".fc1"),
-            "fc2": _unlinear({}, sd, lp + ".fc2"),
             "final_layer_norm": _unlayernorm(sd, lp + ".final_layer_norm"),
         }
+        if f"{lp}.moe.w1" in sd:
+            layer["moe"] = {"router": _unlinear({}, sd, lp + ".moe.router"),
+                            **{n: sd[f"{lp}.moe.{n}"] for n in EXPERT_PARAMS}}
+        else:
+            layer["fc1"] = _unlinear({}, sd, lp + ".fc1")
+            layer["fc2"] = _unlinear({}, sd, lp + ".fc2")
+        model[f"layers_{i}"] = layer
         i += 1
     params["mesh_decoder"] = {"model": model,
                               "lm_head": _unlinear({}, sd, "mesh_decoder.lm_head")}

@@ -97,16 +97,26 @@ def test_validate_accepts_dp_size_and_refuses_the_training_options_not_ported_ye
 
     import dataclasses
 
-    for change in (dict(dp_size=0), dict(dp_size=-2), dict(moe_experts=4), dict(lora_rank=8),
-                   dict(tp_size=2), dict(pp_size=2), dict(ep_size=2), dict(scan_layers=True)):
+    # tp, pp and scan_layers are the next slice's, MoE under sp too; the JAX
+    # package's asserts (config.py:436-452) are ValueErrors
+    for change in (dict(dp_size=0), dict(dp_size=-2), dict(tp_size=2), dict(pp_size=2),
+                   dict(scan_layers=True), dict(moe_experts=4, sp_size=2),
+                   dict(moe_experts=2, moe_top_k=3), dict(ep_size=2),
+                   dict(moe_experts=3, ep_size=2), dict(lora_rank=8, w_quant=True),
+                   dict(lora_rank=8, moe_experts=4), dict(lora_rank=-1)):
         with pytest.raises(ValueError):
             validate(dataclasses.replace(config_defaults["ArAE"], **change))
     # the weight EMA is ported: main and main_dit keep one; --resume2 is
     # ported: main and infer overlay it on the ArAE (a pretrained CLIP tower);
     # dp is ported: main and main_dit train under torchrun, infer and serve
     # decode on a fleet; the training extras are ported: the generate eval,
-    # async checkpoints, wandb, remote roots and mixed local roots
-    for ok in (dict(dp_size=-1), dict(dp_size=1), dict(dp_size=2),
+    # async checkpoints, wandb, remote roots and mixed local roots; the MoE
+    # decoder, its expert parallelism and LoRA are ported
+    for ok in (dict(moe_experts=4), dict(moe_experts=4, moe_top_k=1, moe_capacity_factor=0.5,
+                                         moe_aux_weight=0.1),
+               dict(moe_experts=4, ep_size=2), dict(moe_experts=4, ep_size=4, dp_size=2),
+               dict(lora_rank=8), dict(lora_rank=8, lora_alpha=32.0),
+               dict(moe_experts=4, w_quant=True), dict(dp_size=-1), dict(dp_size=1), dict(dp_size=2),
                dict(dp_size=2, sp_size=2), dict(data_root="./data"),
                dict(ema_decay=0.999), dict(resume2="clip.safetensors"),
                dict(eval_mode="generate"), dict(async_checkpointing=True),
