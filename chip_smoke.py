@@ -241,9 +241,30 @@ Phases, one JSON line each:
              (A 50, C 25 per step; the base weights bit-unchanged, every
              adapter moved, the logged grad norm that of every gradient),
              `python -m edgerunner_tpu_torch.merge_lora`, then the adapted
-             and the merged weights' f32 greedy streams (12 rows, 256
+             and the merged weights' f32 greedy streams (12 rows, 128
              tokens) equal up to near-ties, and a bf16 decode with the
              adapters (A and B held).
+25. tp       Megatron tensor parallelism with 2 ranks that share the card
+             (gloo, pinned host staging): `main ArAE --tp_size 2` at full
+             width, 6 of the 24 decoder layers, for 3 steps (A and C held
+             per step and rank at 8 of the 16 heads; s/it per rank, the
+             bytes each kind of collective moved per step, peak memory per
+             rank, the whole (replicated) weights bit-equal on both ranks,
+             the saved file whole); then at 2 layers in f32 one step
+             against one process: the loss, every gradient gathered whole,
+             the global norm.
+26. pp       GPipe with 2 ranks that share the card: `main ArAE --pp_size 2
+             --pp_microbatches 2` the same way (each rank's 3 layers on 2
+             microbatches, replayed; A and C held per step and rank), then
+             the f32 step at 2 layers, one a stage, against one process.
+27. moe_sp   the MoE decoder under sequence parallelism with 2 ranks that
+             share the card: `main ArAE --moe_experts 4 --moe_top_k 2
+             --sp_size 2` the same way (the ring's row-5 launches held per
+             step on each rank, every token routed among the whole
+             sequence's), then the f32 step at 2 layers with capacity
+             factor 0.5 on full rows against one process.
+The sp, dp and ep phases' full-width training runs 6 of the 24 layers
+too (MULTI_RANK_LAYERS): a layer's kernel shapes are the same.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit from nvidia-smi, and last the result line. Exits non-zero, printing
@@ -284,7 +305,7 @@ GRAD_TOL = 2e-2          # train parity: gradient error over the tensor's larges
 PHASES = ("build", "kernels", "generate", "generate_q8", "generate_q4", "parity", "parity_q4",
           "serve", "serve_parity", "spec", "train", "train_parity", "train_extras", "sp", "dp",
           "dit", "dit_parity", "dit_train", "dit_train_parity", "image", "image_parity",
-          "image_train", "moe", "ep", "lora")
+          "image_train", "moe", "ep", "lora", "tp", "pp", "moe_sp")
 EXTRAS_REMAT_STEPS = 3   # train_extras: timed steps per remat policy after one warm-up
 EXTRAS_FPS_CALLS = 3     # ... farthest-point sampling calls timed after one warm-up
 EXTRAS_MESHES = 32       # ... main ArAE on a loopback HTTP root of 32 meshes: 16 steps ...
@@ -309,9 +330,11 @@ SERVE_BENCH_Q4_REQUESTS = 8  # one wave over the int4 cache (--kv_quant true --k
 SPEC_HEADS = 2           # --mtp_heads 2 --spec_decode true: verify passes at T = 3
 MTP_STD = 0.02           # the random draft heads' weights (the init's std)
 SPEC_ROWS = ROWS         # spec generate: the headline batch ...
-SPEC_BUDGET = CUT_BUCKET  # ... and a budget cut for time (one CUT_BUCKET decode bucket)
-PROFILE_STEPS = 8        # decode steps in a profiled segment (engine: cut from 16 for the sp
-                         # phase's time: the profiler's processing grows with them)
+SPEC_BUDGET = 256        # ... and a budget cut for time in a CUT_BUCKET decode bucket (512
+                         # before the tp, pp and moe_sp phases)
+PROFILE_STEPS = 4        # decode steps in a profiled segment (engine: cut from 16 for the sp
+                         # phase's time, then from 8 for the tp, pp and moe_sp phases':
+                         # the profiler's processing grows with them)
 SERVE_PARITY_FACES = (10, 20, 10, 20, 10, 20)  # 6 staggered requests into 4 slots
 SERVE_PARITY_BUCKET = 128
 NEAR_TIE = 1e-3          # plain top-2 logit gap under which a flip is allowed
@@ -322,10 +345,11 @@ DP_RANKS = 2             # dp phase: dp ranks sharing the card, TRAIN_ROWS rows 
 DP_TRAIN_STEPS = 2       # ... timed steps after one warm-up step (three in all)
 DP_MAIN_MESHES = 10      # ... then main under dp on procedural meshes, 2 held out, shards of 4 ...
 DP_MAIN_LAYERS = 2       # ... at full width, the decoder cut to 2 layers for time
-FLEET_BUDGET = 256       # dp phase: the fleets' budget and decode bucket (the generate
-                         # phase's rows), cut from 512 for the phase's time
+FLEET_BUDGET = 128       # dp phase: the fleets' budget and decode bucket (the generate
+                         # phase's rows), cut from 512 for the phase's time, then from
+                         # 256 for the tp, pp and moe_sp phases' time
 FLEET_REQUESTS = 4       # dp phase: concurrent HTTP requests to the engine fleet ...
-FLEET_FACES = 10         # ... of 10 faces (a 256-token budget), EOS allowed
+FLEET_FACES = 10         # ... of 10 faces (a FLEET_BUDGET-token budget), EOS allowed
 FLEET_INFER_REPEATS = 3  # dp phase: infer's fleet, 3 repeats in groups of 2 (the last alone)
 DIT_REPEATS = 1          # dit: one DDIM run of infer_dit's, test_batch_size 1 (the
                          # device-bound DDIM loop takes ~10 s a repeat) ...
@@ -360,8 +384,18 @@ EP_RANKS = 2             # ep: ranks sharing the card, 2 experts each
 EP_MAIN_SAMPLES = 4      # ep: main on 4 synthetic meshes, TRAIN_ROWS rows a step: 2 steps
 LORA_RANK, LORA_ALPHA = 8, 16.0  # lora: --lora_rank 8 --lora_alpha 16
 LORA_SAMPLES = 6         # lora: main on 6 synthetic meshes, TRAIN_ROWS rows a step: 3 steps
-LORA_DECODE_BUDGET = 256  # lora: the f32 decodes of ROWS rows ...
+LORA_DECODE_BUDGET = 128  # lora: the f32 decodes of ROWS rows (cut from 256 for the tp,
+#                          pp and moe_sp phases' time) ...
 LORA_BF16_BUDGET = 64    # ... and the bf16 one's budget and bucket, cut for time
+MULTI_RANK_LAYERS = 6    # sp, dp and ep's full-width training (cut from 24 for the tp, pp
+#                          and moe_sp phases' time: a layer's kernel shapes do not change)
+#                          and the tp, pp and moe_sp phases' `main`
+TP_RANKS = 2             # tp: main ArAE --tp_size 2, 8 of the 16 heads a rank
+PP_RANKS, PP_MICROBATCHES = 2, 2  # pp: main ArAE --pp_size 2 --pp_microbatches 2
+MOE_SP_RANKS = 2         # moe_sp: the MoE ArAE at --sp_size 2
+LAYOUT_SAMPLES = 6       # tp, pp, moe_sp: main on 6 synthetic meshes, TRAIN_ROWS rows a
+#                          step: one warm-up and two timed steps, each row collated to
+#                          TRAIN_MESH_TOKENS (--collate_bucket): bench.py's 2 x 6147
 # shapes that straddle the flash kernels' 64-row tiles (B, N, M, H, D, causal,
 # kv_len, q_len), as tests/test_torch_attention.py and
 # tests/test_torch_flash_backward.py hold the plain versions at them
@@ -1022,6 +1056,24 @@ def phase_kernels(dev):
         dict(case="encoder train float32 (f32 training)", **flash_bwd_case(
             dev, TRAIN_ROWS, opt.point_latent_size, opt.point_num, pH, ph // pH, False, f32,
             timed=True)),
+    ]
+    # the tensor-parallel step's shapes (the tp phase, --tp_size 2): each rank
+    # attends over its 8 of the decoder's 16 heads and of the encoder's 16
+    flash += [
+        dict(case="decoder train tp2 (tp path)", **flash_case(
+            dev, TRAIN_ROWS, T, T, H // TP_RANKS, hd // H, True, bf, kv_len=lens, q_len=lens,
+            timed=True)),
+        dict(case="encoder train tp2 (tp path)", **flash_case(
+            dev, TRAIN_ROWS, opt.point_latent_size, opt.point_num, pH // TP_RANKS, ph // pH,
+            False, bf, timed=True)),
+    ]
+    flash_bwd += [
+        dict(case="decoder train tp2 (tp path)", **flash_bwd_case(
+            dev, TRAIN_ROWS, T, T, H // TP_RANKS, hd // H, True, bf, kv_len=lens, q_len=lens,
+            timed=True)),
+        dict(case="encoder train tp2 (tp path)", **flash_bwd_case(
+            dev, TRAIN_ROWS, opt.point_latent_size, opt.point_num, pH // TP_RANKS, ph // pH,
+            False, bf, timed=True)),
     ]
     flash_bwd += [dict(case=f"keyless causal {str(dt).split('.')[-1]}", **flash_bwd_case(
         dev, 3, 130, 130, 4, D, True, dt, kv_len=[130, 0, 70], q_len=[130, 130, 70]))
@@ -2594,12 +2646,14 @@ def sp_train(dev, sp) -> dict:
     forward and 1 backward of rows 1/3 (the point encoder)."""
     from edgerunner_tpu_torch.config import config_defaults
     from edgerunner_tpu_torch.models.lmm import LMM, init_weights
-    from edgerunner_tpu_torch.parallel import ring_shift
+    from edgerunner_tpu_torch.parallel import make_layout, ring_shift
     from edgerunner_tpu_torch.train.trainer import Trainer, pad_for_sp
 
-    opt = dataclasses.replace(config_defaults["ArAE"], batch_size=TRAIN_ROWS, sp_size=sp.size)
+    opt = dataclasses.replace(config_defaults["ArAE"], batch_size=TRAIN_ROWS, sp_size=sp.size,
+                              num_layers=MULTI_RANK_LAYERS)
     t0 = time.perf_counter()
-    trainer = Trainer(init_weights(LMM(opt, device=dev), SEED), opt, total_steps=1000, sp=sp)
+    trainer = Trainer(init_weights(LMM(opt, device=dev), SEED), opt, total_steps=1000,
+                      layout=make_layout(dev, sp=sp.size))
     trainer.init_state()
     batch = train_batch(opt, TRAIN_ROWS)
     setup_s = time.perf_counter() - t0
@@ -2721,7 +2775,8 @@ def sp_rank(rank, R, path):
             out["parity"] = sp_parity(dev, sp)
         if R == SP_DP_SP[0] * SP_DP_SP[1]:
             torch.cuda.empty_cache()
-            out["dp_sp_parity"] = lmm_dp_parity(dev, *make_layout(dev, *SP_DP_SP))
+            layout = make_layout(dev, dp=SP_DP_SP[0], sp=SP_DP_SP[1])
+            out["dp_sp_parity"] = lmm_dp_parity(dev, layout.dp, layout.sp)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(path, f"rank{rank}.json"), "w") as f:
@@ -2779,7 +2834,7 @@ def rows_of(batch: dict, d: int, groups: int) -> dict:
     return {k: v[d * per:(d + 1) * per] for k, v in batch.items()}
 
 
-def dp_train(dev, dp) -> dict:
+def dp_train(dev, layout) -> dict:
     """(a) The ArAE training step at full width with dp ranks sharing the
     card: `Trainer` as main builds it, bf16 autocast, checkpointing and
     dropout on, each rank TRAIN_ROWS rows of its own of bench.py's train
@@ -2797,9 +2852,12 @@ def dp_train(dev, dp) -> dict:
     from edgerunner_tpu_torch.parallel import all_reduce_, data_parallel
     from edgerunner_tpu_torch.train.trainer import Trainer
 
-    opt = dataclasses.replace(config_defaults["ArAE"], batch_size=TRAIN_ROWS, dp_size=dp.size)
+    dp = layout.dp
+    opt = dataclasses.replace(config_defaults["ArAE"], batch_size=TRAIN_ROWS, dp_size=dp.size,
+                              num_layers=MULTI_RANK_LAYERS)
     t0 = time.perf_counter()
-    trainer = Trainer(init_weights(LMM(opt, device=dev), SEED), opt, total_steps=1000, dp=dp)
+    trainer = Trainer(init_weights(LMM(opt, device=dev), SEED), opt, total_steps=1000,
+                      layout=layout)
     trainer.init_state()
     whole = train_batch(opt, TRAIN_ROWS * dp.size)
     batch = rows_of(whole, dp.rank, dp.size)
@@ -2968,10 +3026,11 @@ def dp_rank(rank, R, path):
     dev = rank_device("cuda")
     backend = init_distributed(dev, rank=rank, world_size=R,
                                init_method=f"file://{os.path.join(path, 'init')}")
-    dp, _ = make_layout(dev, R, 1)
+    layout = make_layout(dev, dp=R)
+    dp = layout.dp
     out = {"rank": rank, "device": str(dev), "backend": backend, "describe": dp.describe()}
     try:
-        out["train"] = dp_train(dev, dp)
+        out["train"] = dp_train(dev, layout)
         torch.cuda.empty_cache()
         out["parity"] = lmm_dp_parity(dev, dp)
         torch.cuda.empty_cache()
@@ -3612,29 +3671,40 @@ def profile_dit_train_step(trainer, batch) -> dict:
 
 
 @contextlib.contextmanager
-def counted_train_steps(steps: list, snapshot: dict):
+def counted_train_steps(steps: list, snapshot: dict, lse: bool = False):
     """`Trainer.train_step` patched inside: each step's seconds, metrics,
-    kernel A's and C's launches (counted from 0) and the bytes that expert
-    parallelism's ops summed appended to `steps`, and the parameters before
-    the first step copied into `snapshot`."""
-    from edgerunner_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
-    from edgerunner_tpu_torch.parallel import ep_sum
+    kernel A's and C's launches (counted from 0; with `lse` also the ring's
+    row 5, `sp_launch_counts`), the bytes that expert parallelism's ops
+    summed and, under "bytes", what each kind of collective moved (the
+    all-reduces, the tp ops' sums and gathers, the pipeline's sends and
+    broadcasts, the ring's shifts), and the batch's [rows, positions]
+    appended to `steps`, and the parameters before the first step copied
+    into `snapshot`."""
+    from edgerunner_tpu_torch.parallel import all_reduce_, ep_sum, reduce_from_tp, ring_shift
+    from edgerunner_tpu_torch.parallel.pipeline import gpipe
     from edgerunner_tpu_torch.train.trainer import Trainer
 
     original = Trainer.train_step
+    counters = {"all_reduce": all_reduce_, "tp": reduce_from_tp, "pipeline": gpipe,
+                "ring": ring_shift, "ep": ep_sum}
 
     def counted_step(self, batch):
         if not snapshot:
             snapshot.update({n: p.detach().cpu() for n, p in self.model.named_parameters()})
-        flash_attention.launches = flash_attention_bwd.launches = 0
-        summed = ep_sum.bytes
+        zero_sp_launch_counts()
+        before = {k: c.bytes for k, c in counters.items()}
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         m = original(self, batch)
         torch.cuda.synchronize()
-        steps.append({"s": time.perf_counter() - t1, **m, "ep_bytes": ep_sum.bytes - summed,
-                      "launches": {"flash_attention_fwd": flash_attention.launches,
-                                   "flash_attention_bwd": flash_attention_bwd.launches}})
+        launches = sp_launch_counts()
+        if not lse:
+            launches = {k: launches[k] for k in ("flash_attention_fwd", "flash_attention_bwd")}
+        moved = {k: c.bytes - before[k] for k, c in counters.items()}
+        steps.append({"s": time.perf_counter() - t1, **m, "ep_bytes": moved["ep"],
+                      "bytes": moved, "launches": launches,
+                      "rows_positions": list(np.asarray(
+                          batch["labels"] if "labels" in batch else batch["points"]).shape[:2])})
         return m
 
     Trainer.train_step = counted_step
@@ -4102,7 +4172,7 @@ def forced_routes(recorded: list):
 
     route, calls = M.route, iter(recorded)
 
-    def forced(logits, top, capacity_factor, dp=None, with_aux=True):
+    def forced(logits, top, capacity_factor, dp=None, sp=None, with_aux=True, rows=1):
         rec = next(calls)
         N, E = logits.shape
         probs = torch.softmax(logits, dim=-1)
@@ -4331,7 +4401,8 @@ def ep_main(path: str) -> dict:
 
     ws = os.path.join(path, "ep_ws")
     argv = ["ArAE", "--moe_experts", str(MOE_EXPERTS), "--moe_top_k", str(MOE_TOP_K),
-            "--ep_size", str(EP_RANKS), "--data_root", os.path.join(path, "none"),
+            "--ep_size", str(EP_RANKS), "--num_layers", str(MULTI_RANK_LAYERS),
+            "--data_root", os.path.join(path, "none"),
             "--synthetic_size", str(EP_MAIN_SAMPLES), "--batch_size", str(TRAIN_ROWS),
             "--num_epochs", "1", "--num_workers", "0", "--eval_mode", "none",
             "--save_optimizer_state", "false", "--workspace", ws, "--seed", str(SEED)]
@@ -4367,7 +4438,7 @@ def ep_main(path: str) -> dict:
     return res
 
 
-def moe_step_parity(dev, dp=None, ep=None) -> dict:
+def moe_step_parity(dev, layout) -> dict:
     """One training step of the MoE LMM at 2 layers, full width, f32 (TF32
     off), capacity factor MOE_PARITY_CF, dropout off, from seed SEED + 2's
     weights, under dp (each rank its row of the train batch, the second cut
@@ -4386,13 +4457,14 @@ def moe_step_parity(dev, dp=None, ep=None) -> dict:
     opt = moe_options(num_layers=2, mixed_precision="no", moe_capacity_factor=MOE_PARITY_CF,
                       checkpointing=False)
     whole = train_batch(opt, TRAIN_ROWS, lengths=[train_positions(opt), TRAIN_RAGGED_LEN])
-    world = dp.world if dp is not None else ep.world
+    dp, ep, world = layout.dp, layout.ep, layout.world
 
-    def step(dp_, ep_, batch):
-        model = init_weights(LMM(opt, device=dev, ep=ep_), SEED + 2)
+    def step(layout_, batch):
+        model = init_weights(LMM(opt, device=dev, ep=None if layout_ is None else layout_.ep),
+                             SEED + 2)
         for layer in model.mesh_decoder.model.layers:
             layer.dropout = 0.0
-        trainer = Trainer(model, opt, total_steps=1000, dp=dp_, ep=ep_)
+        trainer = Trainer(model, opt, total_steps=1000, layout=layout_)
         seen, update = {}, trainer.optimizer.update
 
         def capture(grads):
@@ -4406,7 +4478,7 @@ def moe_step_parity(dev, dp=None, ep=None) -> dict:
         return m, seen, routes, drops
 
     mine = whole if dp is None else rows_of(whole, dp.rank, dp.size)
-    m, grads, routes, drops = step(dp, ep, mine)
+    m, grads, routes, drops = step(layout, mine)
     if dp is not None:
         from edgerunner_tpu_torch.parallel import all_reduce_
 
@@ -4419,7 +4491,7 @@ def moe_step_parity(dev, dp=None, ep=None) -> dict:
            "dropped": int(drops.item())}
     if world.rank != 0:
         return res
-    m1, g1, r1, d1 = step(None, None, whole)
+    m1, g1, r1, d1 = step(None, whole)
     got = {n: g.to(dev) for n, g in full.items()}
     worst, worst_name, _ = grad_err_over_tol(got, g1)
     loss_err = abs(m["loss"] - m1["loss"]) / abs(m1["loss"])
@@ -4441,28 +4513,23 @@ def ep_rank(rank, R, path):
     path/rank{rank}.json."""
     import torch.distributed as dist
 
-    from edgerunner_tpu_torch.parallel import (
-        init_distributed,
-        make_ep_layout,
-        make_layout,
-        rank_device,
-    )
+    from edgerunner_tpu_torch.parallel import init_distributed, make_layout, rank_device
 
     os.environ["LOCAL_RANK"] = str(rank)
     dev = rank_device("cuda")
     backend = init_distributed(dev, rank=rank, world_size=R,
                                init_method=f"file://{os.path.join(path, 'init')}")
-    _, ep = make_ep_layout(dev, 1, R)
-    out = {"rank": rank, "device": str(dev), "backend": backend, "describe": ep.describe()}
+    layout = make_layout(dev, ep=R)
+    out = {"rank": rank, "device": str(dev), "backend": backend,
+           "describe": layout.ep.describe()}
     try:
         out["main"] = ep_main(path)
         gc.collect()
         torch.cuda.empty_cache()
-        out["parity_ep"] = moe_step_parity(dev, ep=ep)
+        out["parity_ep"] = moe_step_parity(dev, layout)
         gc.collect()
         torch.cuda.empty_cache()
-        dp, _ = make_layout(dev, R, 1)
-        out["parity_dp"] = moe_step_parity(dev, dp=dp)
+        out["parity_dp"] = moe_step_parity(dev, make_layout(dev, dp=R))
     finally:
         dist.destroy_process_group()
     with open(os.path.join(path, f"rank{rank}.json"), "w") as f:
@@ -4622,6 +4689,272 @@ def phase_lora(dev):
     return res
 
 
+# ------------------------------------------------------ tp, pp, moe_sp --
+
+def layout_main(path: str, name: str, flags: list, want: dict, lse: bool = False) -> dict:
+    """`main ArAE <flags>` as torchrun runs it, in this rank's process of the
+    phase's world: full width at MULTI_RANK_LAYERS layers, bf16 autocast,
+    checkpointing and dropout on, TRAIN_ROWS rows, LAYOUT_SAMPLES synthetic
+    meshes for one epoch (a warm-up and two timed steps), each row collated
+    to TRAIN_MESH_TOKENS tokens, so that every step is bench.py's train
+    batch of TRAIN_ROWS x train_positions (the meshes' own tokens, the rest
+    padding past their lengths), no eval, the
+    weights saved (every split tensor gathered whole to rank 0). Each
+    step's launches held to `want`, s/it (the timed steps' mean), the bytes
+    each kind of collective moved per step, peak memory, the parameters'
+    bytes on this rank, and the checksum of the parameters that no axis
+    splits (every rank's alike)."""
+    from edgerunner_tpu_torch import main as main_cli
+
+    ws = os.path.join(path, f"{name}_ws")
+    argv = ["ArAE", *flags, "--num_layers", str(MULTI_RANK_LAYERS),
+            "--data_root", os.path.join(path, "none"),
+            "--synthetic_size", str(LAYOUT_SAMPLES), "--batch_size", str(TRAIN_ROWS),
+            "--collate_bucket", str(TRAIN_MESH_TOKENS),
+            "--num_epochs", "1", "--num_workers", "0", "--eval_mode", "none",
+            "--save_optimizer_state", "false", "--workspace", ws, "--seed", str(SEED)]
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_train_steps(steps, {}, lse=lse):
+        trainer = main_cli.main(argv)
+    losses = [st["loss"] for st in steps]
+    timed = steps[1:]
+    res = {"layers": trainer.opt.num_layers, "hidden": trainer.opt.hidden_dim,
+           "seconds": time.perf_counter() - t0, "steps": len(steps),
+           "s_per_step": [st["s"] for st in steps],
+           "s_per_it": sum(st["s"] for st in timed) / len(timed),
+           "s_per_it_label": f"{trainer.world.size} ranks sharing one card, per rank",
+           "bytes_per_step": timed[-1]["bytes"], "losses": losses,
+           "rows_positions_per_step": [st["rows_positions"] for st in steps],
+           "loss_moe": [st.get("loss_moe") for st in steps],
+           "grad_norms": [st["grad_norm"] for st in steps],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "param_gib": sum(p.numel() for p in trainer.model.parameters()) * 4 / 2 ** 30,
+           "launches_per_step": [st["launches"] for st in steps],
+           "launches_expected_per_step": want,
+           "whole_checksum": param_checksum(
+               p for n, p in trainer.params.items() if not trainer.split_axes(n))}
+    if trainer.is_main:
+        shapes = safetensors_header(os.path.join(ws, "ep0000", "model.safetensors"))
+        res["saved_q_proj_shape"] = shapes["mesh_decoder.model.layers.0.self_attn.q_proj.weight"]
+        res["saved_layers"] = len({n.split(".")[3] for n in shapes
+                                   if n.startswith("mesh_decoder.model.layers.")})
+    full = [TRAIN_ROWS, train_positions(trainer.opt)]
+    res["ok"] = bool(all(st["launches"] == want for st in steps) and all(np.isfinite(losses))
+                     and len(steps) == LAYOUT_SAMPLES // TRAIN_ROWS
+                     and all(st["rows_positions"] == full for st in steps))
+    del trainer
+    return res
+
+
+def layout_parity(dev, layout, opt, batch) -> dict:
+    """One training step at 2 layers, full width, f32 (TF32 off), dropout
+    off, under `layout` (each rank its shards of seed SEED + 2's weights,
+    cut from the one-process model's) against rank 0's step in one process
+    on the same batch: the loss, every gradient the optimizer takes
+    (gathered whole) under train parity's rule, and the global norm."""
+    from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+    from edgerunner_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    whole = init_weights(LMM(opt, device=dev), SEED + 2)
+    model = LMM(opt, device=dev, ep=layout.ep, tp=layout.tp, pp=layout.pp)
+
+    def step(m, layout_):
+        for layer in m.mesh_decoder.model.layers:
+            layer.dropout = 0.0
+        trainer = Trainer(m, opt, total_steps=1000, layout=layout_)
+        if layout_ is not None:
+            m.load_state_dict(trainer.shard(whole.state_dict()))
+        seen, update = {}, trainer.optimizer.update
+
+        def capture(grads):
+            seen.update(grads)
+            return update(grads)
+
+        trainer.optimizer.update = capture
+        out = trainer.train_step(batch)
+        return out, (trainer._gather(seen) if trainer.first_group else None)
+
+    m, grads = step(model, layout)
+    res = {"layers": 2, "dtype": "float32", "tf32": False, "loss": m["loss"],
+           "grad_norm": m["grad_norm"], "lengths": batch["lengths"].tolist()}
+    if m.get("loss_moe") is not None:
+        res["loss_moe"] = m["loss_moe"]
+    del model
+    if layout.world.rank != 0:
+        return res
+    m1, g1 = step(whole, None)
+    worst, worst_name, _ = grad_err_over_tol({n: g.to(dev) for n, g in grads.items()}, g1)
+    loss_err = abs(m["loss"] - m1["loss"]) / abs(m1["loss"])
+    norm_err = abs(m["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+    res.update(loss_solo=m1["loss"], loss_rel_err=loss_err, grad_norm_solo=m1["grad_norm"],
+               grad_norm_rel_err=norm_err, grad_tensors=len(g1),
+               grad_worst_err_over_tol=worst, grad_worst_tensor=worst_name,
+               ok=bool(loss_err <= 1e-5 and norm_err <= 1e-5 and worst <= 1.0
+                       and set(grads) == set(g1)))
+    return res
+
+
+def layout_run(dev, R: int, path: str, name: str) -> dict:
+    """This rank's tp, pp or moe_sp phase in the initialised world of R
+    ranks: `main` under the phase's layout (`layout_main`), then its f32
+    parity at 2 layers (`layout_parity`)."""
+    from edgerunner_tpu_torch.config import config_defaults
+    from edgerunner_tpu_torch.parallel import make_layout
+    from edgerunner_tpu_torch.train.trainer import pad_for_sp
+
+    t0 = time.perf_counter()
+    L, rank = MULTI_RANK_LAYERS, torch.distributed.get_rank()
+    base = dataclasses.replace(config_defaults["ArAE"], num_layers=2, mixed_precision="no",
+                               batch_size=TRAIN_ROWS)
+    T = train_positions(base)
+    out = {}
+    if name == "tp":
+        want = {"flash_attention_fwd": 2 * (L + 1), "flash_attention_bwd": L + 1}
+        out["main"] = layout_main(path, name, ["--tp_size", str(R)], want)
+        opt = dataclasses.replace(base, tp_size=R)
+        layout = make_layout(dev, tp=R)
+        batch = train_batch(opt, TRAIN_ROWS, lengths=[T, TRAIN_RAGGED_LEN])
+    elif name == "pp":
+        # a stage's L / R layers on each of M microbatches, replayed in the
+        # backward (checkpointing), and the point encoder on every rank
+        calls = L // R * PP_MICROBATCHES
+        want = {"flash_attention_fwd": 2 * calls + 2, "flash_attention_bwd": calls + 1}
+        out["main"] = layout_main(path, name, ["--pp_size", str(R), "--pp_microbatches",
+                                               str(PP_MICROBATCHES)], want)
+        opt = dataclasses.replace(base, pp_size=R, pp_microbatches=PP_MICROBATCHES,
+                                  scan_layers=True)
+        layout = make_layout(dev, pp=R, microbatches=PP_MICROBATCHES)
+        batch = train_batch(opt, TRAIN_ROWS, lengths=[T, TRAIN_RAGGED_LEN])
+    else:
+        want = {"flash_attention_lse": 2 * L * (rank + 1),
+                "flash_attention_lse_bwd": L * (rank + 1),
+                "flash_attention_fwd": 2, "flash_attention_bwd": 1}
+        out["main"] = layout_main(path, name, [
+            "--sp_size", str(R), "--moe_experts", str(MOE_EXPERTS), "--moe_top_k",
+            str(MOE_TOP_K)], want, lse=True)
+        opt = moe_options(num_layers=2, mixed_precision="no", batch_size=TRAIN_ROWS,
+                          sp_size=R, moe_capacity_factor=MOE_PARITY_CF)
+        layout = make_layout(dev, sp=R)
+        # full rows, padded for sp and valid to their end: the ring, like the
+        # JAX one, leaves rows past a length unmasked, so only then does one
+        # process route the same tokens
+        batch = pad_for_sp(train_batch(opt, TRAIN_ROWS), R, opt.pad_token_id)
+        batch["lengths"] = np.full((TRAIN_ROWS,), batch["labels"].shape[1], np.int32)
+    out["describe"] = layout.describe()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["parity"] = layout_parity(dev, layout, opt, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["in_rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def layout_rank(rank, R, path, names):
+    """One rank of the world that the tp, pp and moe_sp phases share: joins
+    the group of R ranks through a file under `path`, runs `names` in turn
+    (`layout_run`), and writes its results to path/rank{rank}.json."""
+    import torch.distributed as dist
+
+    from edgerunner_tpu_torch.parallel import init_distributed, rank_device
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    dev = rank_device("cuda")
+    backend = init_distributed(dev, rank=rank, world_size=R,
+                               init_method=f"file://{os.path.join(path, 'init')}")
+    out = {"rank": rank, "device": str(dev), "backend": backend}
+    try:
+        for name in names:
+            out[name] = layout_run(dev, R, path, name)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(path, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+LAYOUT_PHASES = ("tp", "pp", "moe_sp")
+LAYOUT_RANKS = {"tp": TP_RANKS, "pp": PP_RANKS, "moe_sp": MOE_SP_RANKS}
+_LAYOUT_RUNS: dict = {}  # phase -> its ranks' results, from the world that ran it
+
+
+def layout_phase(name: str, wanted) -> dict:
+    """The tp, pp or moe_sp phase. The first of them that runs spawns one
+    world for every one of them in `wanted` (ranks that share the card:
+    gloo, pinned host staging; one process start and one CUDA start per
+    rank for all), which runs them in turn; each phase then reports its
+    ranks' results and, as its seconds, its own time in the ranks
+    (`in_rank_s`), the first also the world's start and end (`world_s`);
+    a rank that fails fails them all. Holds every rank's `main` (launches,
+    finite losses, bench.py's rows and positions), the whole parameters
+    bit-equal on every rank, the saved file whole, and rank 0's f32
+    parity."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    world_s = None
+    if name not in _LAYOUT_RUNS:
+        names = [n for n in LAYOUT_PHASES if n in wanted]
+        R = LAYOUT_RANKS[name]
+        assert all(LAYOUT_RANKS[n] == R for n in names)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            mp.spawn(layout_rank, args=(R, tmp, names), nprocs=R, join=True)
+            ranks = []
+            for r in range(R):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+        world_s = time.perf_counter() - t0 - sum(ranks[0][n]["in_rank_s"] for n in names)
+        for n in names:
+            _LAYOUT_RUNS[n] = [{**{k: rk[k] for k in ("rank", "device", "backend")},
+                                **rk[n]} for rk in ranks]
+    ranks = _LAYOUT_RUNS.pop(name)
+    mains = [rk["main"] for rk in ranks]
+    res = {"card": card_line(), "in_rank_s": ranks[0]["in_rank_s"], "world_s": world_s,
+           "seconds": ranks[0]["in_rank_s"] + (world_s or 0.0),
+           "backend": ranks[0]["backend"], "describe": ranks[0]["describe"],
+           "s_per_it_per_rank": [m["s_per_it"] for m in mains],
+           "peak_mem_gib_per_rank": [m["peak_mem_gib"] for m in mains],
+           "bytes_per_step_per_rank": [m["bytes_per_step"] for m in mains],
+           "rows_positions_per_step": mains[0]["rows_positions_per_step"],
+           "launches_per_step_per_rank": [m["launches_per_step"][-1] for m in mains],
+           "whole_bit_equal": len({m["whole_checksum"] for m in mains}) == 1,
+           "saved_q_proj_shape": mains[0].get("saved_q_proj_shape"),
+           "saved_layers": mains[0].get("saved_layers"), "ranks": ranks}
+    hidden = mains[0]["hidden"]
+    res["ok"] = bool(all(m["ok"] for m in mains) and res["whole_bit_equal"]
+                     and res["saved_q_proj_shape"] == [hidden, hidden]
+                     and res["saved_layers"] == MULTI_RANK_LAYERS and ranks[0]["parity"]["ok"])
+    return res
+
+
+def phase_tp(wanted):
+    """Megatron tensor parallelism on the card: `main ArAE --tp_size 2`, the
+    two ranks each holding 8 of the 16 heads and half of every MLP's
+    columns and of lm_head's vocabulary, then the f32 parity at 2 layers."""
+    return layout_phase("tp", wanted)
+
+
+def phase_pp(wanted):
+    """GPipe on the card: `main ArAE --pp_size 2 --pp_microbatches 2`, each
+    rank holding half of the decoder's layers, then the f32 parity at 2
+    layers (one a stage)."""
+    return layout_phase("pp", wanted)
+
+
+def phase_moe_sp(wanted):
+    """The MoE decoder under sequence parallelism on the card: `main ArAE
+    --moe_experts 4 --moe_top_k 2 --sp_size 2`, the ring's row-5 launches
+    held exactly, every token routed among the whole sequence's; then the
+    f32 parity at 2 layers with capacity factor MOE_PARITY_CF (tokens
+    dropped) on full rows."""
+    return layout_phase("moe_sp", wanted)
+
+
 def kernels_line(results):
     """One entry per kernel: main-path numbers from this run; launches from
     the path that runs it, each counted from 0 over its run: the generate
@@ -4639,7 +4972,9 @@ def kernels_line(results):
     `main` under --remat_policy attn, A and B in its generate eval), the MoE
     decoder (A and C per training step, A and B in its decode, D in its
     engine), expert parallelism (A and C per step and rank of `main` under
-    ep) and LoRA (A and C per step of `main`, A and B in its bf16 decode)."""
+    ep), LoRA (A and C per step of `main`, A and B in its bf16 decode) and
+    `main` under tp, pp and MoE × sp (A and C per step and rank, the ring's
+    row 5 per step on each rank), with A and C at the tp shapes."""
     kern, gen, train, serve, spec, sp, dp = (results[k] for k in (
         "kernels", "generate", "train", "serve", "spec", "sp", "dp"))
     dp_train_step = dp["ranks"][0]["train"]["launches_per_step"][-1]
@@ -4652,6 +4987,11 @@ def kernels_line(results):
     moe, lora = results["moe"], results["lora"]
     moe_step, lora_step = (r["launches_per_step"][-1] for r in (moe["train"], lora))
     ep_step = results["ep"]["ranks"][0]["main"]["launches_per_step"][-1]
+    # per step and rank of `main` under tp, pp and MoE x sp (rank 0; the
+    # ring's row-5 counts of every rank)
+    tp_step, pp_step, moe_sp_step = (results[k]["ranks"][0]["main"]["launches_per_step"][-1]
+                                     for k in ("tp", "pp", "moe_sp"))
+    moe_sp_ranks = [rk["main"]["launches_per_step"][-1] for rk in results["moe_sp"]["ranks"]]
     gen_q8, gen_q4 = results["generate_q8"], results["generate_q4"]
     def case(cases, prefix):
         return next(c for c in cases if c["case"].startswith(prefix))
@@ -4723,7 +5063,13 @@ def kernels_line(results):
                                 "ep_main_per_step_and_rank": ep_step["flash_attention_fwd"],
                                 "lora_train_per_step": lora_step["flash_attention_fwd"],
                                 "lora_decode":
-                                    lora["decode_bf16"]["launches"]["flash_attention_fwd"]},
+                                    lora["decode_bf16"]["launches"]["flash_attention_fwd"],
+                                "tp_main_per_step_and_rank": tp_step["flash_attention_fwd"],
+                                "pp_main_per_step_and_rank": pp_step["flash_attention_fwd"],
+                                "moe_sp_main_per_step_and_rank":
+                                    moe_sp_step["flash_attention_fwd"]},
+              tp_train_decoder_shape=sub(case(kern["flash"], "decoder train tp2")),
+              tp_train_encoder_shape=sub(case(kern["flash"], "encoder train tp2")),
               encoder_shape=sub(case(kern["flash"], "encoder (main")),
               train_decoder_shape=sub(case(kern["flash"], "decoder train")),
               train_encoder_shape=sub(case(kern["flash"], "encoder train")),
@@ -4759,7 +5105,13 @@ def kernels_line(results):
                                 "train_attn_per_step": attn_step["flash_attention_bwd"],
                                 "moe_train_per_step": moe_step["flash_attention_bwd"],
                                 "ep_main_per_step_and_rank": ep_step["flash_attention_bwd"],
-                                "lora_train_per_step": lora_step["flash_attention_bwd"]},
+                                "lora_train_per_step": lora_step["flash_attention_bwd"],
+                                "tp_main_per_step_and_rank": tp_step["flash_attention_bwd"],
+                                "pp_main_per_step_and_rank": pp_step["flash_attention_bwd"],
+                                "moe_sp_main_per_step_and_rank":
+                                    moe_sp_step["flash_attention_bwd"]},
+              tp_train_decoder_shape=sub(case(kern["flash_bwd"], "decoder train tp2")),
+              tp_train_encoder_shape=sub(case(kern["flash_bwd"], "encoder train tp2")),
               encoder_shape=sub(case(kern["flash_bwd"], "encoder train")),
               **{f"dit_train_{kind}_shape": sub(case(kern["flash_bwd"], f"dit train {kind}"))
                  for kind in ("self", "cross")},
@@ -4805,6 +5157,7 @@ def kernels_line(results):
               sp_launches("flash_attention_lse"), lse_main,
               launches_by_rank=[rk["train"]["launches"]["flash_attention_lse"]
                                 for rk in sp_ranks],
+              moe_sp_per_step_by_rank=[st["flash_attention_lse"] for st in moe_sp_ranks],
               diagonal_shape=sub(lse_diag), r4_shape=sub(lse_r4),
               f32_shape=sub(lse_f32["off-diagonal"]),
               f32_diagonal_shape=sub(lse_f32["diagonal"])),
@@ -4814,6 +5167,7 @@ def kernels_line(results):
                    shape=lse_main["shape"]),
               launches_by_rank=[rk["train"]["launches"]["flash_attention_lse_bwd"]
                                 for rk in sp_ranks],
+              moe_sp_per_step_by_rank=[st["flash_attention_lse_bwd"] for st in moe_sp_ranks],
               diagonal_shape=lse_bwd_sub(lse_diag), r4_shape=lse_bwd_sub(lse_r4),
               f32_shape=lse_bwd_sub(lse_f32["off-diagonal"]),
               f32_diagonal_shape=lse_bwd_sub(lse_f32["diagonal"])),
@@ -4848,7 +5202,9 @@ def main(argv=None) -> int:
             "dit_train_parity": lambda: phase_dit_train_parity(dev),
             "image": lambda: phase_image(dev), "image_parity": lambda: phase_image_parity(dev),
             "image_train": lambda: phase_image_train(dev), "moe": lambda: phase_moe(dev),
-            "ep": lambda: phase_ep(dev), "lora": lambda: phase_lora(dev)}
+            "ep": lambda: phase_ep(dev), "lora": lambda: phase_lora(dev),
+            "tp": lambda: phase_tp(wanted), "pp": lambda: phase_pp(wanted),
+            "moe_sp": lambda: phase_moe_sp(wanted)}
     results, ok = {}, True
     for name in PHASES:
         if name not in wanted:

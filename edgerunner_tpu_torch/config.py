@@ -153,7 +153,8 @@ class Options:
     # like the reference's --resume)
     resume_train_state: bool = False
 
-    ### parallelism (the JAX package's mesh axes; the port runs dp and sp)
+    ### parallelism (the JAX package's mesh axes; the port runs each as
+    ### torchrun ranks, one process per rank)
     # data-parallel axis size; -1 = all remaining devices (the port's main
     # and main_dit: the torchrun world / sp_size; infer and serve decode on
     # one device unless dp_size > 1, which makes a fleet of that many)
@@ -167,16 +168,18 @@ class Options:
     # pipeline-parallel axis size: the decoder layer stack is split into
     # contiguous stages (one per pp rank, weights sharded — a model pp_size
     # times larger than one chip trains); microbatches rotate through the
-    # stages (GPipe schedule, see the JAX package's parallel/pipeline.py).
+    # stages (GPipe schedule, parallel/pipeline.py).
     # Requires num_layers % pp_size == 0 and sp_size == 1 (composes with
     # dp, tp and MoE/ep).
     pp_size: int = 1
-    # GPipe microbatches per device batch (0 = pp_size). Bubble fraction is
-    # (pp-1)/(M+pp-1): raise M to amortize; batch_size must divide by
-    # (local dp share) * M
+    # GPipe microbatches per rank's batch (0 = pp_size). Bubble fraction is
+    # (pp-1)/(M+pp-1): raise M to amortize; batch_size (per rank) must
+    # divide by M
     pp_microbatches: int = 0
-    # stacked [L, ...] decoder-layer param layout (nn.scan) — auto-enabled by
-    # pp_size > 1; checkpoints convert losslessly either way on load
+    # the JAX package's stacked [L, ...] decoder-layer param layout (nn.scan),
+    # auto-enabled by pp_size > 1; the port's checkpoints keep the per-layer
+    # naming, its flax conversions (weights.py) read and write either, and
+    # the decode paths refuse it as the JAX ones assert against it
     scan_layers: bool = False
     # expert-parallel axis size: Mixture-of-Experts expert weights sharded
     # over 'ep' (requires moe_experts % ep_size == 0)
@@ -405,9 +408,11 @@ def parse_cli(argv: Optional[List[str]] = None, prog: str = "edgerunner-tpu") ->
     return opt
 
 
-# options whose paths the port does not run yet, with the value that keeps
-# them off
-_NOT_PORTED = {"tp_size": 1, "pp_size": 1, "scan_layers": False}
+# the one combination of the JAX package's mesh that the port refuses
+MOE_DP_PP_REFUSED = ("moe_experts under dp x pp is not supported by the port: the JAX "
+                     "pipeline routes each microbatch's rows of every dp group together "
+                     "(its dp axis stays automatic inside the pipeline); train MoE under "
+                     "pp with --dp_size 1")
 # gradient-checkpointing policies: 'full' recomputes each decoder layer in
 # the backward pass, 'attn' keeps its attention output (models/shape_opt.py)
 REMAT_POLICIES = ("full", "attn")
@@ -429,8 +434,16 @@ def validate(opt: Options) -> Options:
     The MoE decoder (`moe_experts`, `moe_top_k`, `moe_capacity_factor`,
     `moe_aux_weight`), its expert parallelism (`ep_size`) and LoRA
     (`lora_rank`, `lora_alpha`) are taken, with the JAX package's asserts
-    (config.py:436-452) raised as ValueErrors; MoE under sp is refused, as
-    the port does not implement it yet."""
+    (config.py:436-452) raised as ValueErrors. So are Megatron tp
+    (`tp_size`) and GPipe pp (`pp_size`, `pp_microbatches`, `scan_layers`),
+    with the JAX trainer's and validate's refusals as ValueErrors: sp with
+    tp or pp (trainer.py:125-128, config.py:428-431), layers that do not
+    divide into the stages (:432-434), a batch that does not divide into
+    the microbatches (trainer.py:141-145; the port's `batch_size` is per
+    rank, so it is the rank's batch). `pp_size` > 1 sets `scan_layers`
+    (:435). One combination the JAX package trains is refused: MoE under dp
+    × pp, whose JAX microbatches route rows of several dp groups together
+    (pipeline.py:84-93)."""
     if opt.cond_mode in ("point", "point_latent"):
         # 'point_latent' takes the latents that 'point' encodes: the same
         # condition tokens, and the DiT pipeline's frozen 'embed' encoder
@@ -450,15 +463,28 @@ def validate(opt: Options) -> Options:
                 f"+ cls + use_num_face_cond ({expected}) in image cond mode")
     elif opt.cond_mode != "none":
         raise ValueError(f"the port does not implement cond_mode {opt.cond_mode!r}")
-    for name, off in _NOT_PORTED.items():
-        if getattr(opt, name) != off:
-            raise ValueError(f"the port does not implement --{name} yet")
+    for name in ("tp_size", "pp_size"):
+        if getattr(opt, name) < 1:
+            raise ValueError(f"--{name} must be >= 1, got {getattr(opt, name)}")
+    if opt.sp_size > 1 and opt.tp_size > 1:
+        raise ValueError("sp_size > 1 currently requires tp_size == 1")
+    if opt.pp_size > 1:
+        if opt.sp_size > 1:
+            raise ValueError("pp_size > 1 currently requires sp_size == 1 (pp composes with "
+                             "dp and tp)")
+        if opt.num_layers % opt.pp_size:
+            raise ValueError(f"num_layers ({opt.num_layers}) must divide into pp_size "
+                             f"({opt.pp_size}) stages")
+        m = opt.pp_microbatches or opt.pp_size
+        if opt.pp_microbatches < 0 or opt.batch_size % m:
+            raise ValueError(f"batch_size ({opt.batch_size}, per rank) must be divisible by "
+                             f"pp_microbatches ({m})")
+        if opt.moe_experts and opt.dp_size > 1:
+            raise ValueError(MOE_DP_PP_REFUSED)
+        opt.scan_layers = True
     if opt.moe_experts:
         if opt.moe_top_k > opt.moe_experts:
             raise ValueError(f"moe_top_k ({opt.moe_top_k}) > moe_experts ({opt.moe_experts})")
-        if opt.sp_size > 1:
-            raise ValueError("the port does not implement moe_experts with sp_size > 1 yet "
-                             "(MoE under sequence parallelism)")
     if opt.ep_size > 1:
         if not opt.moe_experts > 0:
             raise ValueError("ep_size > 1 requires moe_experts > 0")
@@ -497,6 +523,16 @@ def validate(opt: Options) -> Options:
     if opt.dp_size == 0 or opt.dp_size < -1:
         raise ValueError(f"--dp_size is -1 (the world / sp) or >= 1, got {opt.dp_size}")
     return opt
+
+
+def refuse_stacked_layout(opt: Options, what: str) -> None:
+    """Raise for the stacked layer layout (`--scan_layers`, which
+    `--pp_size` > 1 sets): the JAX decode paths assert the per-layer one
+    (edgerunner_tpu/models/shape_opt.py:594-597, :616, :632)."""
+    if opt.scan_layers or opt.pp_size > 1:
+        raise ValueError(f"{what} runs the per-layer decoder layout: --scan_layers and "
+                         "--pp_size > 1 are training layouts (the JAX decode paths assert "
+                         "against them); train with them, then decode without")
 
 
 def vocab_size_for(opt: Options) -> int:

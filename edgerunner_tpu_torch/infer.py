@@ -40,7 +40,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from edgerunner_tpu_torch.config import parse_cli, validate
+from edgerunner_tpu_torch.config import parse_cli, refuse_stacked_layout, validate
 from edgerunner_tpu_torch.data import clean_mesh, load_mesh, normalize_mesh, save_mesh, save_mesh_file
 from edgerunner_tpu_torch.generate import generate_tokens, replicate_model, trim_eos
 from edgerunner_tpu_torch.models.lmm import LMM
@@ -63,7 +63,12 @@ def load_model(opt, device: torch.device, dtype=torch.bfloat16,
     """The LMM of `opt` with its weights (weights.load_for_inference), and
     the file `overlay` merged over them (infer's `--resume2`): with
     `--kv_quant` it decodes over the int8 or int4 cache, with `--w_quant` its
-    decoder projections are quantised after the exact weights are loaded."""
+    decoder projections are quantised after the exact weights are loaded.
+    The decode paths take the per-layer layout alone, as the JAX package's
+    assert (shape_opt.py:594-597): `--scan_layers` (and `--pp_size` > 1,
+    which sets it) is refused; `--tp_size` is ignored, as every mesh
+    option is by the JAX decode paths."""
+    refuse_stacked_layout(opt, "decoding (infer, infer_dit, serve)")
     return load_for_inference(LMM(opt, dtype=dtype, device=device), opt, overlay)
 
 

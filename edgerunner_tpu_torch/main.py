@@ -19,7 +19,7 @@ them as the JAX package's main does (`merge_checkpoint`: entries whose name
 and shape match are taken, position embeddings of another length realigned
 by `--align_posemb`, every missing, mismatched and unexpected entry
 logged); `--resume2` then merges a second, possibly
-partial file over them (`overlay_checkpoint`: a pretrained CLIP tower, in
+partial file over them (`overlay_state`: a pretrained CLIP tower, in
 the port's or HuggingFace's naming); with `--resume_train_state` the step,
 the optimizer state and the loader's position come back too, and training
 continues exactly. Each epoch saves a
@@ -62,7 +62,23 @@ under dp, and with expert parallelism over dp × ep ranks:
 
 Each ep group of M consecutive ranks takes the same rows and holds E / M
 of every layer's experts (models/moe.py); checkpoints hold every expert and
-load at any ep. LoRA fine-tuning (`--resume dense.safetensors --lora_rank 8
+load at any ep. Megatron tensor parallelism and GPipe pipeline parallelism
+split the model further, and compose with dp (and tp with pp):
+
+    torchrun --nproc_per_node T*D -m edgerunner_tpu_torch.main ArAE --tp_size T [--dp_size D]
+    torchrun --nproc_per_node S*D -m edgerunner_tpu_torch.main ArAE --pp_size S \
+        [--pp_microbatches M] [--dp_size D]
+
+Each tp group of T ranks holds H / T of every attention's heads, F / T of
+every MLP's columns and V / T of `lm_head`'s vocabulary; each
+pp rank holds L / S consecutive decoder layers and runs them on M
+microbatches (0: S) of its rows, which `--batch_size` must divide
+(`--pp_size` > 1 sets `--scan_layers`, the JAX package's stacked layout:
+the port's checkpoints keep the per-layer naming at every pp). The
+weights of every layout are the one-process model's of the same seed,
+cut to the rank's shards; checkpoints hold whole tensors, gathered to
+rank 0, and load at any layout. MoE routes the whole batch under sp too.
+LoRA fine-tuning (`--resume dense.safetensors --lora_rank 8
 --lora_alpha 16`) updates the adapters only;
 `python -m edgerunner_tpu_torch.merge_lora` folds them back. Rank 0 logs and writes the checkpoints; every dp group
 evaluates the whole test set's loss, rank 0 alone the generate eval (and
@@ -80,7 +96,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from edgerunner_tpu_torch.config import parse_cli, validate
+from edgerunner_tpu_torch.config import parse_cli, refuse_stacked_layout, validate
 from edgerunner_tpu_torch.data import save_mesh
 from edgerunner_tpu_torch.data.dataset import (
     DataLoader,
@@ -92,7 +108,7 @@ from edgerunner_tpu_torch.data.fetch import is_remote
 from edgerunner_tpu_torch.eval import generate_eval
 from edgerunner_tpu_torch.infer import resolve_device
 from edgerunner_tpu_torch.models.lmm import LMM, init_weights
-from edgerunner_tpu_torch.parallel import DataParallel, ExpertParallel, SequenceParallel
+from edgerunner_tpu_torch.parallel import Layout
 from edgerunner_tpu_torch.train.checkpoint import (
     CheckpointManager,
     restore_train_state,
@@ -101,7 +117,12 @@ from edgerunner_tpu_torch.train.checkpoint import (
 from edgerunner_tpu_torch.train.ranks import rank_logger, run_ranks, shard_train_items
 from edgerunner_tpu_torch.train.trainer import Trainer
 from edgerunner_tpu_torch.utils import get_tokenizer
-from edgerunner_tpu_torch.weights import merge_checkpoint, overlay_checkpoint, read_safetensors
+from edgerunner_tpu_torch.weights import (
+    load_state,
+    merge_checkpoint,
+    overlay_state,
+    read_safetensors,
+)
 
 
 def save_eval_meshes(trainer: Trainer, test_loader, opt, tokenizer, epoch: int):
@@ -133,13 +154,37 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
                          "(edgerunner_tpu_torch.infer_dit, serve --resume2); main trains "
                          "the ArAE on point clouds, and the DiT that makes the latents "
                          "trains with python -m edgerunner_tpu_torch.main_dit DiT")
+    if opt.eval_mode == "generate":
+        refuse_stacked_layout(opt, "main --eval_mode generate")
     return run_ranks(opt, device, "edgerunner_tpu_torch.main", train)
 
 
-def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
-          dp: Optional[DataParallel] = None, ep: Optional[ExpertParallel] = None) -> Trainer:
+def model_kwargs(layout: Optional[Layout]) -> dict:
+    """The groups a rank's model is built with: its shares under ep, tp, pp."""
+    if layout is None:
+        return {}
+    return {"ep": layout.ep, "tp": layout.tp, "pp": layout.pp}
+
+
+def seeded_weights(model, trainer: Trainer, build, seed: int, init=init_weights):
+    """`model` with the seed's weights (`init(model, seed)`): when the
+    layout splits the model, those of the one-process model cut to this
+    rank's shards, so that every layout starts from the same weights. The
+    whole model (`build("cpu")`) lies in host memory and draws on the
+    rank's device, as the one process does there: the card holds only the
+    rank's shards and one tensor being drawn."""
+    if not trainer.split:
+        return init(model, seed)
+    whole = init(build("cpu"), seed, draw_device=trainer.device)
+    model.load_state_dict(trainer.shard(whole.state_dict()))
+    del whole
+    return model
+
+
+def train(opt, device: torch.device, layout: Optional[Layout] = None) -> Trainer:
     """The training run of `main` on this rank."""
-    logger = rank_logger(opt, dp, sp, ep)
+    logger = rank_logger(opt, layout)
+    dp = None if layout is None else layout.dp
     if opt.resume is None and opt.warmup_ratio == 0 and opt.lr > 1.5e-4:
         logger.warning(
             "training from scratch with warmup_ratio=0 and lr "
@@ -174,8 +219,9 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
                              drop_last=False, seed=opt.seed)
 
     total_steps = opt.num_epochs * len(train_loader) // opt.gradient_accumulation_steps
-    model = init_weights(LMM(opt, device=device, ep=ep), opt.seed)
-    trainer = Trainer(model, opt, total_steps, logger=logger, sp=sp, dp=dp, ep=ep)
+    model = LMM(opt, device=device, **model_kwargs(layout))
+    trainer = Trainer(model, opt, total_steps, logger=logger, layout=layout)
+    seeded_weights(model, trainer, lambda dev: LMM(opt, device=dev), opt.seed)
     manager = CheckpointManager(opt.workspace, keep=2, group=trainer.world,
                                 async_save=opt.async_checkpointing)
 
@@ -188,7 +234,8 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
             start_epoch, resume_step, opt_state_path = restore_train_state(
                 opt.resume, train_loader, manager, logger)
     if opt.resume2 is not None:
-        overlay_checkpoint(model, opt.resume2, opt.align_posemb, log=logger.warning)
+        merge_checkpoint(model, trainer.shard(overlay_state(opt.resume2)), opt.align_posemb,
+                         log=logger.warning)
         logger.info(f"merged secondary checkpoint from {opt.resume2}")
     num_params = sum(p.numel() for p in model.parameters())
     updated = trainer.optimizer.updated
@@ -239,7 +286,16 @@ def train(opt, device: torch.device, sp: Optional[SequenceParallel] = None,
             except Exception as e:  # noqa: BLE001
                 logger.warning(f"failed to save validation mesh: {e}")
         elif opt.eval_mode == "generate":
-            if trainer.first_group:
+            if trainer.tp is not None:
+                # the decode paths hold no tp split: rank 0 decodes the
+                # weights gathered whole
+                weights = trainer.checkpoint_parts(with_optimizer=False)[0].state_dict()
+                if trainer.is_main:
+                    whole = load_state(LMM(opt, device=device), weights)
+                    log_generate_eval(whole, test_loader, opt, tokenizer, epoch, logger, wandb)
+                    del whole
+                del weights
+            elif trainer.first_group:
                 log_generate_eval(model, test_loader, opt, tokenizer, epoch, logger, wandb,
                                   write=trainer.is_main)
             if trainer.world is not None:

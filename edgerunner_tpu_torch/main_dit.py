@@ -31,9 +31,13 @@ Data parallelism, one process per rank (train/trainer.py):
 
 Each rank trains on its own equal shard of the data's items (the synthetic
 set is not sharded), `--batch_size` rows per rank; the gradients are summed
-over the ranks. Rank 0 logs and writes the checkpoints. `--sp_size` and
-`--ep_size` stay `main`'s: the JAX package's DiT step has no sequence
-parallelism either, and the DiT no experts.
+over the ranks. Rank 0 logs and writes the checkpoints. `--tp_size T`
+(T × D ranks) splits the DiT's feed-forwards and the frozen towers'
+attention and MLPs over T ranks, as the JAX DiT step shares the Trainer's
+tp mesh (main_dit.py:84); the saves hold whole tensors. `--sp_size`,
+`--pp_size` and `--ep_size` stay `main`'s: the JAX package's DiT step has
+no sequence parallelism either, the MDiT no ShapeOPT layers to stage and
+no experts.
 """
 
 from __future__ import annotations
@@ -47,8 +51,9 @@ from edgerunner_tpu_torch.config import parse_cli, validate
 from edgerunner_tpu_torch.data.dataset import DataLoader
 from edgerunner_tpu_torch.data.dataset_dit import DiTMeshDataset, collate_dit
 from edgerunner_tpu_torch.infer import resolve_device
+from edgerunner_tpu_torch.main import seeded_weights
 from edgerunner_tpu_torch.models.mdit import MDiT
-from edgerunner_tpu_torch.parallel import DataParallel
+from edgerunner_tpu_torch.parallel import Layout
 from edgerunner_tpu_torch.train.checkpoint import (
     CheckpointManager,
     restore_train_state,
@@ -71,15 +76,19 @@ def main(argv: Optional[List[str]] = None) -> Trainer:
     args, rest = pre.parse_known_args(argv)
     device = resolve_device(args.device)
     opt = validate(parse_cli(rest, prog="python -m edgerunner_tpu_torch.main_dit"))
-    if opt.sp_size != 1 or opt.ep_size != 1:
-        raise ValueError("main_dit splits batches over ranks by rows only (--dp_size); "
-                         "--sp_size and --ep_size are main's")
+    if opt.sp_size != 1 or opt.ep_size != 1 or opt.pp_size != 1:
+        # the MDiT has no ShapeOPT layer stack for the JAX pipeline to stage:
+        # under pp the JAX DiT step would run the same batch on every device
+        raise ValueError("main_dit splits batches over ranks by rows (--dp_size) and its "
+                         "feed-forwards and towers by --tp_size; --sp_size, --pp_size and "
+                         "--ep_size are main's")
     return run_ranks(opt, device, "edgerunner_tpu_torch.main_dit", train)
 
 
-def train(opt, device: torch.device, sp=None, dp: Optional[DataParallel] = None) -> Trainer:
-    """The training run of `main` on this rank (`sp` is always None)."""
-    logger = rank_logger(opt, dp, sp)
+def train(opt, device: torch.device, layout: Optional[Layout] = None) -> Trainer:
+    """The training run of `main` on this rank."""
+    logger = rank_logger(opt, layout)
+    dp = None if layout is None else layout.dp
 
     train_dataset = DiTMeshDataset(opt, training=True)
     test_dataset = DiTMeshDataset(opt, training=False)
@@ -93,17 +102,20 @@ def train(opt, device: torch.device, sp=None, dp: Optional[DataParallel] = None)
                              drop_last=False, seed=opt.seed, collate_fn=collate_dit)
 
     total_steps = opt.num_epochs * len(train_loader) // opt.gradient_accumulation_steps
-    model = init_mdit_weights(MDiT(opt, device=device), opt.seed)
+    tp = None if layout is None else layout.tp
+    model = MDiT(opt, device=device, tp=tp)
+    trainer = Trainer(model, opt, total_steps, logger=logger, kind="dit", layout=layout)
+    seeded_weights(model, trainer, lambda dev: MDiT(opt, device=dev), opt.seed,
+                   init=init_mdit_weights)
     # --resume: the ArAE checkpoint that carries the pretrained point
     # encoder; --resume2: the MDiT itself (reference: main_dit.py:55-88)
     for path in (opt.resume, opt.resume2):
         if path is not None:
             load_state(model, tolerant_merge(reference_state_dict(model),
-                                             read_safetensors(path),
+                                             trainer.shard(read_safetensors(path)),
                                              align_posemb=opt.align_posemb,
                                              log=logger.warning))
             logger.info(f"merged weights from {path}")
-    trainer = Trainer(model, opt, total_steps, logger=logger, kind="dit", dp=dp)
     manager = CheckpointManager(opt.workspace, keep=2, group=trainer.world,
                                 async_save=opt.async_checkpointing)
 
@@ -118,8 +130,8 @@ def train(opt, device: torch.device, sp=None, dp: Optional[DataParallel] = None)
     trainer.init_state(step=resume_step, opt_state_path=opt_state_path, ema_path=ema_path)
 
     def save(save_fn, *args, **kw):
-        save_fn(*args, model, trainer.optimizer if opt.save_optimizer_state else None,
-                ema=trainer.ema, log=logger.info, **kw)
+        weights, optimizer, ema = trainer.checkpoint_parts(opt.save_optimizer_state)
+        save_fn(*args, weights, optimizer, ema=ema, log=logger.info, **kw)
 
     def on_step(step, metrics):
         if opt.save_every_steps and step % opt.save_every_steps == 0:

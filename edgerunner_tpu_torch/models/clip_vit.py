@@ -10,6 +10,8 @@ has dropped the two entries the tower never reads. The attention is plain
 PyTorch (einsum and softmax in f32), as it is plain XLA in the JAX package:
 its head dim 80 is not one the flash kernels take. The MLP's GELU is the
 exact erf form, the patch conv has no bias, every LayerNorm uses eps 1e-5.
+Under tensor parallelism (`tp`) each layer's attention holds its share of
+the heads and its MLP its share of fc1's columns (models/layers.py).
 """
 
 from __future__ import annotations
@@ -21,6 +23,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from edgerunner_tpu_torch.models.layers import (
+    normal_,
+    row_linear,
+    split_columns,
+    split_rows,
+    tp_for,
+)
+from edgerunner_tpu_torch.parallel.collectives import copy_to_tp
 
 CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
 CLIP_IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
@@ -60,41 +71,59 @@ def clip_config_from_options(opt) -> CLIPVisionConfig:
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, c: CLIPVisionConfig, **kw):
+    """Under `tp` this rank's heads (models/layers.py)."""
+
+    def __init__(self, c: CLIPVisionConfig, tp=None, **kw):
         super().__init__()
-        self.num_heads = c.num_heads
-        self.q_proj = nn.Linear(c.hidden_size, c.hidden_size, **kw)
-        self.k_proj = nn.Linear(c.hidden_size, c.hidden_size, **kw)
-        self.v_proj = nn.Linear(c.hidden_size, c.hidden_size, **kw)
-        self.out_proj = nn.Linear(c.hidden_size, c.hidden_size, **kw)
+        self.tp = tp_for(tp, c.num_heads)
+        n = 1 if self.tp is None else self.tp.size
+        self.num_heads, self.head_dim = c.num_heads // n, c.hidden_size // c.num_heads
+        width = c.hidden_size // n
+        self.q_proj = nn.Linear(c.hidden_size, width, **kw)
+        self.k_proj = nn.Linear(c.hidden_size, width, **kw)
+        self.v_proj = nn.Linear(c.hidden_size, width, **kw)
+        self.out_proj = nn.Linear(width, c.hidden_size, **kw)
+        if self.tp is not None:
+            for lin in (self.q_proj, self.k_proj, self.v_proj):
+                split_columns(lin)
+            split_rows(self.out_proj)
 
     def forward(self, x):
         B, N, C = x.shape
-        H = self.num_heads
-        q, k, v = (p(x).reshape(B, N, H, C // H) for p in (self.q_proj, self.k_proj,
-                                                            self.v_proj))
-        logits = torch.einsum("bnhd,bmhd->bhnm", q, k).float() / math.sqrt(C // H)
+        H, D = self.num_heads, self.head_dim
+        xt = copy_to_tp(x, self.tp)
+        q, k, v = (p(xt).reshape(B, N, H, D) for p in (self.q_proj, self.k_proj, self.v_proj))
+        logits = torch.einsum("bnhd,bmhd->bhnm", q, k).float() / math.sqrt(D)
         w = torch.softmax(logits, dim=-1).to(x.dtype)
-        return self.out_proj(torch.einsum("bhnm,bmhd->bnhd", w, v).reshape(B, N, C))
+        o = torch.einsum("bhnm,bmhd->bnhd", w, v).reshape(B, N, H * D)
+        return row_linear(self.out_proj, o, self.tp)
 
 
 class CLIPMLP(nn.Module):
-    def __init__(self, c: CLIPVisionConfig, **kw):
+    """Under `tp` this rank's columns of fc1 and rows of fc2."""
+
+    def __init__(self, c: CLIPVisionConfig, tp=None, **kw):
         super().__init__()
-        self.fc1 = nn.Linear(c.hidden_size, c.intermediate_size, **kw)
-        self.fc2 = nn.Linear(c.intermediate_size, c.hidden_size, **kw)
+        self.tp = tp_for(tp, c.intermediate_size)
+        n = 1 if self.tp is None else self.tp.size
+        self.fc1 = nn.Linear(c.hidden_size, c.intermediate_size // n, **kw)
+        self.fc2 = nn.Linear(c.intermediate_size // n, c.hidden_size, **kw)
+        if self.tp is not None:
+            split_columns(self.fc1)
+            split_rows(self.fc2)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))  # exact GELU, as jax.nn.gelu(approximate=False)
+        # exact GELU, as jax.nn.gelu(approximate=False)
+        return row_linear(self.fc2, F.gelu(self.fc1(copy_to_tp(x, self.tp))), self.tp)
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, c: CLIPVisionConfig, **kw):
+    def __init__(self, c: CLIPVisionConfig, tp=None, **kw):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps, **kw)
-        self.self_attn = CLIPAttention(c, **kw)
+        self.self_attn = CLIPAttention(c, tp, **kw)
         self.layer_norm2 = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps, **kw)
-        self.mlp = CLIPMLP(c, **kw)
+        self.mlp = CLIPMLP(c, tp, **kw)
 
     def forward(self, x):
         x = x + self.self_attn(self.layer_norm1(x))
@@ -119,17 +148,17 @@ class CLIPEmbeddings(nn.Module):
 
 
 class CLIPEncoder(nn.Module):
-    def __init__(self, c: CLIPVisionConfig, **kw):
+    def __init__(self, c: CLIPVisionConfig, tp=None, **kw):
         super().__init__()
-        self.layers = nn.ModuleList(CLIPEncoderLayer(c, **kw) for _ in range(c.num_layers))
+        self.layers = nn.ModuleList(CLIPEncoderLayer(c, tp, **kw) for _ in range(c.num_layers))
 
 
 class CLIPVisionTransformer(nn.Module):
-    def __init__(self, c: CLIPVisionConfig, **kw):
+    def __init__(self, c: CLIPVisionConfig, tp=None, **kw):
         super().__init__()
         self.embeddings = CLIPEmbeddings(c, **kw)
         self.pre_layrnorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps, **kw)
-        self.encoder = CLIPEncoder(c, **kw)
+        self.encoder = CLIPEncoder(c, tp, **kw)
 
     def forward(self, pixels):
         x = self.pre_layrnorm(self.embeddings(pixels))
@@ -142,10 +171,11 @@ class CLIPVisionTower(nn.Module):
     """last_hidden_state [B, 257, hidden] for pixels [B, H, W, 3] already
     normalised with the CLIP mean and std (`preprocess_images`)."""
 
-    def __init__(self, cfg: CLIPVisionConfig = CLIPVisionConfig(), *, device=None, dtype=None):
+    def __init__(self, cfg: CLIPVisionConfig = CLIPVisionConfig(), *, tp=None, device=None,
+                 dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.vision_model = CLIPVisionTransformer(cfg, device=device, dtype=dtype)
+        self.vision_model = CLIPVisionTransformer(cfg, tp, device=device, dtype=dtype)
 
     def forward(self, pixels):
         return self.vision_model(pixels)
@@ -159,15 +189,15 @@ def init_clip_tower(tower: CLIPVisionTower, gen: torch.Generator) -> CLIPVisionT
     N(0, 0.02), zero biases, unit LayerNorms."""
     for mod in tower.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
-            mod.weight.normal_(0.0, mod.weight[0].numel() ** -0.5, generator=gen)
+            normal_(mod.weight, 0.0, mod.weight[0].numel() ** -0.5, gen)
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
-            mod.weight.normal_(0.0, 0.02, generator=gen)
+            normal_(mod.weight, 0.0, 0.02, gen)
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
-    tower.vision_model.embeddings.class_embedding.normal_(0.0, 0.02, generator=gen)
+    normal_(tower.vision_model.embeddings.class_embedding, 0.0, 0.02, gen)
     return tower
 
 

@@ -70,13 +70,14 @@ class DiTLayer(nn.Module):
     block has no dropout, so its replay in the backward pass is exact."""
 
     def __init__(self, dim: int, num_heads: int, *, use_kernels: bool = True,
-                 remat: bool = False, **kw):
+                 remat: bool = False, tp=None, **kw):
         super().__init__()
         self.remat = remat
         self.scale_shift_table = nn.Parameter(torch.empty(6, dim, **kw))
+        # attn1/attn2 stay whole under tp: the JAX package's TP_RULES do not name them
         self.attn1 = SelfAttention(dim, dim, num_heads, use_kernels=use_kernels, **kw)
         self.attn2 = CrossAttention(dim, dim, dim, num_heads, use_kernels=use_kernels, **kw)
-        self.ff = FeedForward(dim, **kw)
+        self.ff = FeedForward(dim, tp=tp, **kw)
 
     def forward(self, x, c, t_adaln):
         return maybe_checkpoint(self.remat, self._body, x, c, t_adaln)
@@ -100,7 +101,7 @@ class DiT(nn.Module):
 
     def __init__(self, hidden_dim: int = 1024, num_heads: int = 16, latent_size: int = 2048,
                  latent_dim: int = 64, num_layers: int = 24, *, use_kernels: bool = True,
-                 remat: bool = False, device=None, dtype=None):
+                 remat: bool = False, tp=None, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.hidden_dim = hidden_dim
@@ -109,7 +110,8 @@ class DiT(nn.Module):
         self.timestep_proj = TimestepEmbedding(256, hidden_dim, **kw)
         self.adaln_linear = nn.Linear(hidden_dim, 6 * hidden_dim, **kw)
         self.layers = nn.ModuleList(DiTLayer(hidden_dim, num_heads, use_kernels=use_kernels,
-                                             remat=remat, **kw) for _ in range(num_layers))
+                                             remat=remat, tp=tp, **kw)
+                                    for _ in range(num_layers))
         self.scale_shift_table = nn.Parameter(torch.empty(2, hidden_dim, **kw))
         self.proj_out = nn.Linear(hidden_dim, latent_dim, **kw)
 

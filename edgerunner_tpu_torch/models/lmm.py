@@ -14,7 +14,11 @@ CLIP tower's last hidden state [B, 257, 1280], frozen under
 gradient checkpointing of the point encoder's block and of each decoder
 layer, as in the JAX package (lmm.py:50-58, :80-82). The decoder's MoE MLP
 (`moe_experts`, with `ep` placing this rank's experts) and LoRA adapters
-(`lora_rank`) come from the options, as the JAX LMM passes them.
+(`lora_rank`) come from the options, as the JAX LMM passes them. Under
+tensor parallelism (`tp`) the condition encoder's and the decoder's
+attention and MLPs hold this rank's share (models/layers.py); under
+pipeline parallelism (`pp`) the decoder holds this rank's stage of layers
+(models/shape_opt.py), and the rest is whole on every pp rank.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from edgerunner_tpu_torch.models.clip_vit import (
     init_clip_tower,
     preprocess_images,
 )
-from edgerunner_tpu_torch.models.layers import LN_EPS, LoRALinear
+from edgerunner_tpu_torch.models.layers import LN_EPS, LoRALinear, normal_
 from edgerunner_tpu_torch.models.moe import MoEMLP
 from edgerunner_tpu_torch.models.point_encoder import (
     PointEncoderEmbed,
@@ -49,7 +53,7 @@ class LMM(nn.Module):
     the reference path that a kernel path is checked against."""
 
     def __init__(self, opt: Options, *, dtype=torch.float32, device=None,
-                 use_kernels: bool = True, ep=None):
+                 use_kernels: bool = True, ep=None, tp=None, pp=None):
         super().__init__()
         if opt.cond_mode not in ("point", "point_latent", "image", "none"):
             raise ValueError(f"the port does not implement cond_mode {opt.cond_mode!r}")
@@ -59,7 +63,7 @@ class LMM(nn.Module):
         if opt.cond_mode == "image":
             # its attention stays plain, as in the JAX package: head dim 80
             # is no instance of the flash kernels
-            self.image_encoder = CLIPVisionTower(clip_config_from_options(opt), **kw)
+            self.image_encoder = CLIPVisionTower(clip_config_from_options(opt), tp=tp, **kw)
             self.proj_cond = nn.Linear(opt.clip_hidden_dim, opt.hidden_dim, **kw)
             self.norm_cond = nn.LayerNorm(opt.hidden_dim, eps=LN_EPS, **kw)
         if opt.cond_mode == "point":
@@ -68,7 +72,7 @@ class LMM(nn.Module):
             self.point_encoder = encoder(
                 opt.point_hidden_dim, opt.point_num_heads, opt.point_latent_size,
                 opt.point_latent_dim, use_kernels=use_kernels,
-                remat=opt.checkpointing, **kw)
+                remat=opt.checkpointing, tp=tp, **kw)
         if opt.cond_mode in ("point", "point_latent"):
             self.proj_cond = nn.Linear(opt.point_latent_dim, opt.hidden_dim, **kw)
             self.norm_cond = nn.LayerNorm(opt.hidden_dim, eps=LN_EPS, **kw)
@@ -97,7 +101,8 @@ class LMM(nn.Module):
             lora_alpha=opt.lora_alpha,
         )
         self.ep = ep if ep is not None and ep.size > 1 else None
-        self.mesh_decoder = ShapeOPT(self.cfg, use_kernels=use_kernels, ep=self.ep, **kw)
+        self.mesh_decoder = ShapeOPT(self.cfg, use_kernels=use_kernels, ep=self.ep, tp=tp,
+                                     pp=pp, **kw)
 
     def encode_cond(self, conds, num_faces):
         """conds: points [B, N, 3] (point mode), latents [B, L, D]
@@ -207,7 +212,7 @@ class LMM(nn.Module):
 
 
 @torch.no_grad()
-def init_weights(model: nn.Module, seed: int) -> nn.Module:
+def init_weights(model: nn.Module, seed: int, draw_device=None) -> nn.Module:
     """Random weights from `seed`, with the JAX package's init distributions:
     N(0, 0.02) for projections and embeddings (pad row zero), decoder
     out-projections scaled by 1/sqrt(2L), queries N(0, hidden^-0.5), zero
@@ -215,8 +220,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     (`init_clip_tower`); MoE experts N(0, 0.02) drawn for all experts and
     sliced to this rank's under ep; LoRA's lora_a N(0, 0.02) and lora_b
     zero, drawn after every other weight, so that the base weights are the
-    dense model's of the same seed. Draws on the weights' own device."""
-    device = next(model.parameters()).device
+    dense model's of the same seed. Draws on `draw_device` (default: the
+    weights' own), so a model in host memory can take a card's draws."""
+    device = draw_device or next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     std = 0.02
     n_layers = getattr(getattr(model, "cfg", None), "num_hidden_layers", 1)
@@ -225,11 +231,11 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             continue
         if isinstance(mod, nn.Linear):
             s = std / math.sqrt(2 * n_layers) if name.endswith("self_attn.out_proj") else std
-            mod.weight.normal_(0.0, s, generator=gen)
+            normal_(mod.weight, 0.0, s, gen)
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
-            mod.weight.normal_(0.0, std, generator=gen)
+            normal_(mod.weight, 0.0, std, gen)
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
@@ -237,7 +243,7 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             mod.init_experts(gen, std)
     for name, p in model.named_parameters():
         if name.endswith("query_embed"):
-            p.normal_(0.0, p.shape[-1] ** -0.5, generator=gen)
+            normal_(p, 0.0, p.shape[-1] ** -0.5, gen)
     if hasattr(model, "image_encoder"):
         init_clip_tower(model.image_encoder, gen)
     decoder = getattr(model, "mesh_decoder", None)

@@ -12,6 +12,9 @@ without gradient, and the DiT checkpoints each layer under
 `opt.checkpointing`. `run_mdit` is the DDIM sampling loop with
 classifier-free guidance at scale 7.5 (reference: MDiT.run,
 models_dit.py:184-229), an img2img start from given latents included.
+Under tensor parallelism (`tp`, main_dit --tp_size) the towers' attention
+and MLPs and the DiT's feed-forwards hold this rank's share; the DiT's
+attn1/attn2 stay whole, as the JAX package's `TP_RULES` do not name them.
 """
 
 from __future__ import annotations
@@ -37,19 +40,20 @@ class MDiT(nn.Module):
     """`use_kernels=False` runs the plain attention versions on every device:
     the reference path that a kernel path is checked against."""
 
-    def __init__(self, opt, *, dtype=torch.float32, device=None, use_kernels: bool = True):
+    def __init__(self, opt, *, dtype=torch.float32, device=None, use_kernels: bool = True,
+                 tp=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.opt = opt
         self.dit = DiT(opt.dit_hidden_dim, opt.dit_num_heads, opt.point_latent_size,
                        opt.point_latent_dim, opt.dit_num_layers, use_kernels=use_kernels,
-                       remat=opt.checkpointing, **kw)
-        self.image_encoder = CLIPVisionTower(clip_config_from_options(opt), **kw)
+                       remat=opt.checkpointing, tp=tp, **kw)
+        self.image_encoder = CLIPVisionTower(clip_config_from_options(opt), tp=tp, **kw)
         self.proj_cond = nn.Linear(opt.clip_hidden_dim, opt.dit_hidden_dim, **kw)
         self.norm_cond = nn.LayerNorm(opt.dit_hidden_dim, eps=LN_EPS, **kw)
         self.point_encoder = PointEncoderEmbed(
             opt.point_hidden_dim, opt.point_num_heads, opt.point_latent_size,
-            opt.point_latent_dim, use_kernels=use_kernels, **kw)
+            opt.point_latent_dim, use_kernels=use_kernels, tp=tp, **kw)
         self.schedule = DiffusionSchedule(prediction_type=opt.noise_scheduler_predtype)
 
     def get_cond(self, images):

@@ -32,12 +32,15 @@ Pallas kernel, so neither formulation is a kernel. A CUDA tensor takes
 
 The set of tokens routed together is the caller's: the whole training
 batch (padding and condition tokens included), the prefill's [B, P], a
-decode step's B rows, a verify pass's B × T, an engine segment's slots.
-Under a dp context (parallel/mesh.py) the training step routes the global
-batch, as the JAX step does over its mesh: N and the capacity are those of
-every dp group's tokens, and each group's queue positions start after the
-counts of the groups before it (k-major), from an all-gather of the
-per-rank counts; the aux loss is this group's share.
+decode step's B rows, a verify pass's B × T, an engine segment's slots,
+a pipeline's microbatch (models/shape_opt.py). Under a dp or sp context
+(parallel/mesh.py) the training step routes the global batch, as the JAX
+step does over its mesh (GSPMD routes the whole sequence; only the
+attention is shard_mapped): N and the capacity are those of every rank's
+tokens, and each token's queue position counts the same choice of every
+token before it in (dp group, row, sp shard, position) order, from an
+all-gather of the ranks' per-row counts (`route`); the aux loss is this
+rank's share.
 
 Expert parallelism (`ep`, a parallel/mesh.py `ExpertParallel`): this rank
 holds experts [ep.rank · E/ep, (ep.rank + 1) · E/ep) and routes every token
@@ -58,7 +61,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from edgerunner_tpu_torch.parallel.collectives import all_gather, ep_sum, ep_sum_grad
-from edgerunner_tpu_torch.parallel.mesh import DataParallel, ExpertParallel, active_data_parallel
+from edgerunner_tpu_torch.parallel.mesh import (
+    DataParallel,
+    ExpertParallel,
+    SequenceParallel,
+    active_data_parallel,
+    active_sequence_parallel,
+)
 
 EXPERT_PARAMS = ("w1", "b1", "w2", "b2")
 
@@ -69,16 +78,6 @@ def is_expert_param(name: str) -> bool:
     return len(parts) >= 2 and parts[-2] == "moe" and parts[-1] in EXPERT_PARAMS
 
 
-def shard_experts(state: dict, ep: ExpertParallel, num_experts: int) -> dict:
-    """A state dict (numpy arrays or tensors) with each full [E, ...] expert
-    entry cut to the experts of ep rank `ep.rank`; every other entry as it
-    is. A saved file holds every expert, so it loads at any ep."""
-    local = num_experts // ep.size
-    return {n: (v[ep.rank * local:(ep.rank + 1) * local]
-                if is_expert_param(n) and v.shape[0] == num_experts else v)
-            for n, v in state.items()}
-
-
 def top_k(probs: torch.Tensor, k: int):
     """(values, indices) of the k largest probabilities per row, ties to the
     lower index, as jax.lax.top_k orders them."""
@@ -86,42 +85,51 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def dp_counts(counts: torch.Tensor, dp: DataParallel) -> torch.Tensor:
-    """[dp, K, E] every dp group's counts: an all-gather over the world,
-    one entry per group (its sp and ep ranks hold the same counts)."""
-    every = torch.stack(all_gather(counts, dp.world))
-    return every[::dp.sp_size * dp.ep_size]
-
-
 def route(logits: torch.Tensor, top: int, capacity_factor: float,
-          dp: Optional[DataParallel] = None, with_aux: bool = True) -> dict:
-    """The routing of N tokens from their f32 router logits [N, E]
-    (moe.py:58-71): probs [N, E], gate [N, K] (renormalised), idx [N, K],
-    pos [N, K] (queue position in the expert idx), keep [N, K] (pos < cap),
-    cap, and with `with_aux` the aux loss (this dp group's share under
-    `dp`), else None."""
+          dp: Optional[DataParallel] = None, sp: Optional[SequenceParallel] = None,
+          with_aux: bool = True, rows: int = 1) -> dict:
+    """The routing of N tokens, `rows` rows of N / rows positions each, from
+    their f32 router logits [N, E] (moe.py:58-71): probs [N, E], gate
+    [N, K] (renormalised), idx [N, K], pos [N, K] (queue position in the
+    expert idx), keep [N, K] (pos < cap), cap, and with `with_aux` the aux
+    loss (this rank's share under `dp` or `sp`), else None.
+
+    The JAX step routes its whole batch, whatever shards it: the tokens in
+    (dp group, row, sp shard, position) order. So under `dp` or `sp` each
+    rank's (row, k, expert) counts are gathered over the ranks that hold
+    the batch's other rows and positions (`dp.data`, or the sp group: the
+    order d · sp + s), and a token's queue position starts after every
+    earlier choice of the whole batch (k-major), then the same choice of
+    the earlier dp groups, of the earlier rows of its group, and of its
+    row's earlier shards."""
     N, E = logits.shape
     probs = torch.softmax(logits, dim=-1)
     gate, idx = top_k(probs, top)
     gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
-    onehot = F.one_hot(idx, E)                                    # [N, K, E]
-    total = counts = onehot.sum(0)                                # [K, E]
-    # k-major: every earlier choice of the whole batch, then earlier groups'
-    # and earlier tokens' same choice
-    offset, n_all = total.cumsum(0) - total, N
-    if dp is not None:
-        # every group routes N tokens: the trainer pads the groups' rows to
-        # one length, as the JAX step's global batch has one
-        groups = dp_counts(counts, dp)
-        total = groups.sum(0)
-        offset = total.cumsum(0) - total + groups[:dp.rank].sum(0)
-        n_all = dp.size * N
+    onehot = F.one_hot(idx, E).view(rows, N // rows, top, E)       # [B, T, K, E]
+    counts = onehot.sum(1)                                         # [B, K, E]
+    group = dp.data if dp is not None else sp
+    if group is None:
+        every = counts[None, None]
+    else:
+        # every rank routes as many tokens: the trainer pads the dp groups'
+        # rows to one length, as the JAX step's global batch has one
+        dp_size, sp_size = (dp.size, dp.sp_size) if dp is not None else (1, sp.size)
+        every = torch.stack(all_gather(counts, group)).view(dp_size, sp_size, *counts.shape)
+    d = 0 if dp is None else dp.rank
+    s = 0 if sp is None else sp.rank
+    total = every.sum((0, 1, 2))                                   # [K, E]
+    group_rows = every[d].sum(0)                                   # [B, K, E]
+    offset = (total.cumsum(0) - total + every[:d].sum((0, 1, 2))
+              + group_rows.cumsum(0) - group_rows + every[d, :s].sum(0))
+    n_all = every.shape[0] * every.shape[1] * N
     cap = max(1, int(math.ceil(top * n_all / E * capacity_factor)))
     # the cumulative count includes the token itself
-    pos = (onehot.cumsum(0) + offset).gather(-1, idx[..., None])[..., 0] - 1
+    pos = (onehot.cumsum(1) + offset[:, None]).view(N, top, E).gather(-1, idx[..., None])[..., 0]
+    pos = pos - 1
     aux = None
     if with_aux:  # Switch loss: E * sum_e(share of first choices * mean probability)
-        if dp is None:
+        if group is None:
             aux = E * torch.sum(total[0].float() / N * probs.mean(0))
         else:
             aux = E * torch.sum(total[0].float() / n_all * (probs.sum(0) / n_all))
@@ -214,7 +222,7 @@ class MoEMLP(nn.Module):
         and sliced to this rank's, so that any ep draws the same weights."""
         for p in (self.w1, self.w2):
             full = torch.empty((self.num_experts,) + p.shape[1:], dtype=p.dtype,
-                               device=p.device).normal_(0.0, std, generator=gen)
+                               device=gen.device).normal_(0.0, std, generator=gen)
             p.copy_(full[self.first:self.first + p.shape[0]])
         self.b1.zero_()
         self.b2.zero_()
@@ -230,7 +238,7 @@ class MoEMLP(nn.Module):
         B, T, C = x.shape
         xf = x.reshape(B * T, C)
         r = route(self._logits(xf), self.top_k, self.capacity_factor, active_data_parallel(),
-                  with_aux)
+                  active_sequence_parallel(), with_aux, rows=B)
         mode = self.dispatch or ("index" if self.use_kernels and x.is_cuda else "onehot")
         combine = combine_index if mode == "index" else combine_onehot
         r["gate"] = ep_sum_grad(r["gate"], self.ep)

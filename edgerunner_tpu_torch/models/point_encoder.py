@@ -59,15 +59,15 @@ class PointEncoderEmbed(nn.Module):
 
     def __init__(self, hidden_dim: int = 1024, num_heads: int = 16,
                  latent_size: int = 2048, latent_dim: int = 64, *,
-                 use_kernels: bool = True, remat: bool = False, device=None,
+                 use_kernels: bool = True, remat: bool = False, tp=None, device=None,
                  dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.query_embed = nn.Parameter(torch.empty(1, latent_size, hidden_dim, **kw))
         self.point_embed = PointEmbed(hidden_dim, **kw)
         self.ln = nn.LayerNorm(hidden_dim, eps=LN_EPS, **kw)
-        self.cross_att = ResCrossAttBlock(hidden_dim, num_heads,
-                                          use_kernels=use_kernels, remat=remat, **kw)
+        self.cross_att = ResCrossAttBlock(hidden_dim, num_heads, use_kernels=use_kernels,
+                                          remat=remat, tp=tp, **kw)
         self.linear = nn.Linear(hidden_dim, latent_dim, **kw)
 
     def forward(self, pts):
@@ -87,15 +87,15 @@ class PointEncoderFPS(nn.Module):
 
     def __init__(self, hidden_dim: int = 1024, num_heads: int = 16,
                  latent_size: int = 2048, latent_dim: int = 64, *,
-                 use_kernels: bool = True, remat: bool = False, device=None,
+                 use_kernels: bool = True, remat: bool = False, tp=None, device=None,
                  dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.latent_size = latent_size
         self.point_embed = PointEmbed(hidden_dim, **kw)
         self.ln = nn.LayerNorm(hidden_dim, eps=LN_EPS, **kw)
-        self.cross_att = ResCrossAttBlock(hidden_dim, num_heads,
-                                          use_kernels=use_kernels, remat=remat, **kw)
+        self.cross_att = ResCrossAttBlock(hidden_dim, num_heads, use_kernels=use_kernels,
+                                          remat=remat, tp=tp, **kw)
         self.linear = nn.Linear(hidden_dim, latent_dim, **kw)
 
     def forward(self, pts):

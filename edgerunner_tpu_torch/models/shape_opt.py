@@ -30,6 +30,17 @@ layers' Switch aux losses come back beside the loss (`forward`). With
 layers (models/layers.py), as the JAX package's `_dense_cls` picks
 LoRADense (shape_opt.py:33-48).
 
+Tensor parallelism (`tp`, models/layers.py): each rank holds H / tp of
+every layer's heads and F / tp of its MLP columns (fc1 column-parallel,
+fc2 row-parallel), and V / tp of `lm_head`'s vocabulary, whose logits are
+gathered over the group before the loss (`gather_from_tp`); the MoE MLP
+stays whole. Pipeline parallelism (`pp`, parallel/pipeline.py): the
+decoder holds only its stage's layers, registered under their global
+indices (so the names stay the reference's), and its `forward` runs them
+as one stage of the GPipe schedule; everything else is on every pp rank.
+Both are training layouts: the decode modes run on a model built without
+them (infer and serve build no mesh, as in the JAX package).
+
 With `mtp_heads` > 0 the decoder carries the multi-token-prediction draft
 heads `mtp_{k}` (zero-initialised Linear(hidden, hidden) blocks feeding the
 shared `lm_head`; head k predicts the token 2+k positions ahead), trained
@@ -50,12 +61,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from edgerunner_tpu_torch.models.layers import LN_EPS, attention_fn, linear_cls, maybe_checkpoint
+from edgerunner_tpu_torch.models.layers import (
+    LN_EPS,
+    attention_fn,
+    column_linear,
+    linear_cls,
+    maybe_checkpoint,
+    row_linear,
+    split_columns,
+    split_rows,
+    tp_for,
+)
 from edgerunner_tpu_torch.models.moe import MoEMLP
 from edgerunner_tpu_torch.ops import decode_attention as DA
 from edgerunner_tpu_torch.ops import kv_quant as KQ
-from edgerunner_tpu_torch.parallel.collectives import dp_total
+from edgerunner_tpu_torch.parallel.collectives import copy_to_tp, dp_total, gather_from_tp
 from edgerunner_tpu_torch.parallel.mesh import active_data_parallel, active_sequence_parallel
+from edgerunner_tpu_torch.parallel.pipeline import gpipe, stage_sum
 
 Caches = Tuple[List[torch.Tensor], List[torch.Tensor]]
 
@@ -126,14 +148,17 @@ def _rows_update(cache, rows, index_vec):
 
 
 class OPTAttention(nn.Module):
-    """Separate q/k/v/out projections with bias (reference: modeling_opt.py:164-167)."""
+    """Separate q/k/v/out projections with bias (reference: modeling_opt.py:164-167);
+    under `tp` this rank's heads (training only)."""
 
-    def __init__(self, c: ShapeOPTConfig, *, use_kernels: bool = True,
+    def __init__(self, c: ShapeOPTConfig, *, use_kernels: bool = True, tp=None,
                  device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = c
-        self.num_heads = c.num_attention_heads
+        self.tp = tp_for(tp, c.num_attention_heads)
+        n = 1 if self.tp is None else self.tp.size
+        self.num_heads = c.num_attention_heads // n
         self.kv_quant = c.kv_quant
         self.attend = attention_fn(use_kernels)
         # one-query and multi-query decode over the cache's kind: the kernels'
@@ -147,10 +172,14 @@ class OPTAttention(nn.Module):
         if kind == "_q4":
             self.decode_kw["group"] = c.kv_group
         linear = linear_cls(c.lora_rank, c.lora_alpha)
-        self.q_proj = linear(c.hidden_dim, c.hidden_dim, **kw)
-        self.k_proj = linear(c.hidden_dim, c.hidden_dim, **kw)
-        self.v_proj = linear(c.hidden_dim, c.hidden_dim, **kw)
-        self.out_proj = linear(c.hidden_dim, c.hidden_dim, **kw)
+        self.q_proj = linear(c.hidden_dim, c.hidden_dim // n, **kw)
+        self.k_proj = linear(c.hidden_dim, c.hidden_dim // n, **kw)
+        self.v_proj = linear(c.hidden_dim, c.hidden_dim // n, **kw)
+        self.out_proj = linear(c.hidden_dim // n, c.hidden_dim, **kw)
+        if self.tp is not None:
+            for lin in (self.q_proj, self.k_proj, self.v_proj):
+                split_columns(lin)
+            split_rows(self.out_proj)
 
     def _heads(self, x):
         B, N, C = x.shape
@@ -158,15 +187,22 @@ class OPTAttention(nn.Module):
 
     def core(self, h, lengths=None):
         """The causal attention over h's own projections, before out_proj:
-        o [B, N, hidden] (what remat_policy 'attn' keeps)."""
+        o [B, N, hidden] (what remat_policy 'attn' keeps; under tp this
+        rank's heads)."""
         B, N, _ = h.shape
-        o = self.attend(self._heads(self.q_proj(h)), self._heads(self.k_proj(h)),
-                        self._heads(self.v_proj(h)), causal=True, q_len=lengths,
-                        kv_len=lengths)
+        h = copy_to_tp(h, self.tp)
+        q, k, v = (column_linear(p, h, self.tp) for p in (self.q_proj, self.k_proj,
+                                                           self.v_proj))
+        o = self.attend(self._heads(q), self._heads(k), self._heads(v), causal=True,
+                        q_len=lengths, kv_len=lengths)
         return o.reshape(B, N, -1)
 
+    def project_out(self, o):
+        """out_proj of the attention output (row-parallel under tp)."""
+        return row_linear(self.out_proj, o, self.tp)
+
     def forward(self, h, lengths=None):
-        return self.out_proj(self.core(h, lengths))
+        return self.project_out(self.core(h, lengths))
 
     def prefill(self, h):
         """Causal attention over the prompt; returns (out, k, v) with k/v in
@@ -224,22 +260,29 @@ class OPTAttention(nn.Module):
 class OPTDecoderLayer(nn.Module):
     """Post-LN OPT block (reference: modeling_opt.py:263-288); with
     moe_experts its MLP is `moe` (edgerunner_tpu/models/shape_opt.py:398-420).
-    `ep` places this rank's share of the experts (models/moe.py)."""
+    `ep` places this rank's share of the experts (models/moe.py), `tp` its
+    share of the heads and MLP columns (models/layers.py)."""
 
-    def __init__(self, c: ShapeOPTConfig, *, use_kernels: bool = True, ep=None,
+    def __init__(self, c: ShapeOPTConfig, *, use_kernels: bool = True, ep=None, tp=None,
                  device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.self_attn = OPTAttention(c, use_kernels=use_kernels, **kw)
+        self.self_attn = OPTAttention(c, use_kernels=use_kernels, tp=tp, **kw)
+        self.tp = None
         self.self_attn_layer_norm = nn.LayerNorm(c.hidden_dim, eps=LN_EPS, **kw)
         if c.moe_experts:
             self.moe = MoEMLP(c.hidden_dim, c.intermediate_dim, c.moe_experts,
                               c.moe_top_k, c.moe_capacity_factor, use_kernels=use_kernels,
                               ep=ep, **kw)
         else:
+            self.tp = tp_for(tp, c.intermediate_dim)
+            n = 1 if self.tp is None else self.tp.size
             linear = linear_cls(c.lora_rank, c.lora_alpha)
-            self.fc1 = linear(c.hidden_dim, c.intermediate_dim, **kw)
-            self.fc2 = linear(c.intermediate_dim, c.hidden_dim, **kw)
+            self.fc1 = linear(c.hidden_dim, c.intermediate_dim // n, **kw)
+            self.fc2 = linear(c.intermediate_dim // n, c.hidden_dim, **kw)
+            if self.tp is not None:
+                split_columns(self.fc1)
+                split_rows(self.fc2)
         self.final_layer_norm = nn.LayerNorm(c.hidden_dim, eps=LN_EPS, **kw)
         self.dropout = c.dropout
 
@@ -249,7 +292,8 @@ class OPTDecoderLayer(nn.Module):
         if hasattr(self, "moe"):
             m, aux = self.moe(h, with_aux=train)
         else:
-            m = self.fc2(F.relu(self.fc1(h)))
+            x = copy_to_tp(h, self.tp)
+            m = row_linear(self.fc2, F.relu(column_linear(self.fc1, x, self.tp)), self.tp)
         m = F.dropout(m, self.dropout, training=train)
         return self.final_layer_norm(h + m), aux
 
@@ -262,7 +306,7 @@ class OPTDecoderLayer(nn.Module):
     def after_attention(self, h, o, train: bool = False):
         """The layer past its attention output o: out_proj, the residuals,
         dropout, both LayerNorms and the MLP; returns as `forward`."""
-        a = F.dropout(self.self_attn.out_proj(o), self.dropout, training=train)
+        a = F.dropout(self.self_attn.project_out(o), self.dropout, training=train)
         return self._mlp(self.self_attn_layer_norm(h + a), train)
 
     def prefill(self, h):
@@ -280,20 +324,30 @@ class OPTDecoderLayer(nn.Module):
 
 class ShapeOPTDecoder(nn.Module):
     """Token + learned-position embedding, stacked OPT layers
-    (reference: modeling_opt.py:307-426)."""
+    (reference: modeling_opt.py:307-426). Under `pp` only this stage's
+    layers, [p · L/S, (p + 1) · L/S), under their global indices."""
 
-    def __init__(self, c: ShapeOPTConfig, *, use_kernels: bool = True, ep=None,
-                 device=None, dtype=None):
+    def __init__(self, c: ShapeOPTConfig, *, use_kernels: bool = True, ep=None, tp=None,
+                 pp=None, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = c
         self.remat = c.remat
         self.kv_quant = c.kv_quant
+        self.pp = pp if pp is not None and pp.size > 1 else None
         self.embd = nn.Embedding(c.vocab_size, c.hidden_dim, **kw)
         self.embed_positions = nn.Embedding(c.max_position_embeddings, c.hidden_dim, **kw)
-        self.layers = nn.ModuleList(
-            OPTDecoderLayer(c, use_kernels=use_kernels, ep=ep, **kw)
-            for _ in range(c.num_hidden_layers))
+        L = c.num_hidden_layers
+        first, count = 0, L
+        if self.pp is not None:
+            if L % self.pp.size:
+                raise ValueError(f"{L} layers do not divide into {self.pp.size} pipeline stages")
+            count = L // self.pp.size
+            first = self.pp.rank * count
+        self.layers = nn.ModuleList()
+        for i in range(first, first + count):
+            self.layers.add_module(str(i), OPTDecoderLayer(c, use_kernels=use_kernels, ep=ep,
+                                                           tp=tp, **kw))
 
     def forward(self, inputs_embeds, lengths=None, train: bool = False):
         """With `cfg.remat`, each layer is checkpointed
@@ -307,14 +361,17 @@ class ShapeOPTDecoder(nn.Module):
         the positions of the full length T are added, then the rank keeps
         its shard [rank * T/R, (rank + 1) * T/R): every layer runs on it
         (LayerNorm and MLP per token, attention as the ring), and the hidden
-        states returned are the shard's. Returns (hidden states, the MoE
-        layers' aux losses in training: a list, empty without MoE); a
-        checkpointed layer returns its aux through the checkpoint, so the
-        replay routes as the first pass did."""
+        states returned are the shard's. Under pp the layers run as this
+        rank's stage of the GPipe schedule (`_pipeline`). Returns (hidden
+        states, the MoE layers' aux losses in training: a list, empty
+        without MoE); a checkpointed layer returns its aux through the
+        checkpoint, so the replay routes as the first pass did."""
         if not inputs_embeds.is_floating_point():
             inputs_embeds = self.embd(inputs_embeds)
         T = inputs_embeds.shape[1]
         h = inputs_embeds + self.embed_positions.weight[:T]
+        if self.pp is not None:
+            return self._pipeline(h, lengths, train)
         sp = active_sequence_parallel()
         if sp is not None:
             h = sp.shard(h)
@@ -329,6 +386,29 @@ class ShapeOPTDecoder(nn.Module):
             if a is not None:
                 aux.append(a)
         return h, aux
+
+    def _pipeline(self, h, lengths, train: bool):
+        """The layer stack as this rank's stage of the GPipe schedule
+        (edgerunner_tpu/models/shape_opt.py:541-580): every tick's stage
+        replayed in the backward pass under `cfg.remat` (the whole stage,
+        as `gpipe(remat=True)`). Under MoE in training the aux loss is the
+        mean over (layer, microbatch) of the layers' aux: the stages' sums
+        added over the pp group, over L × M."""
+        moe = bool(self.cfg.moe_experts) and train
+
+        def run(x, lens):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for layer in self.layers:
+                x, a = layer(x, lens, train)
+                if a is not None:
+                    aux = aux + a.float()
+            return x, aux
+
+        y, aux = gpipe(run, self.layers.parameters(), h, lengths, self.pp, remat=self.remat)
+        if not moe:
+            return y, []
+        total = stage_sum(aux, self.pp)
+        return y, [total / (self.cfg.num_hidden_layers * self.pp.microbatches)]
 
     def prefill(self, inputs_embeds, max_len: int):
         """Returns (hidden [B, P, C], caches): per-layer lists of K and V
@@ -372,16 +452,21 @@ class ShapeOPTDecoder(nn.Module):
 
 
 class ShapeOPT(nn.Module):
-    """Decoder + LM head (reference: modeling_opt.py:429-517)."""
+    """Decoder + LM head (reference: modeling_opt.py:429-517); under `tp` the
+    head holds V / tp of the vocabulary's columns."""
 
-    def __init__(self, c: ShapeOPTConfig, *, use_kernels: bool = True, ep=None,
-                 device=None, dtype=None):
+    def __init__(self, c: ShapeOPTConfig, *, use_kernels: bool = True, ep=None, tp=None,
+                 pp=None, device=None, dtype=None):
         super().__init__()
         self.cfg = c
-        self.model = ShapeOPTDecoder(c, use_kernels=use_kernels, ep=ep, device=device,
-                                     dtype=dtype)
-        self.lm_head = nn.Linear(c.hidden_dim, c.vocab_size, bias=False,
+        self.model = ShapeOPTDecoder(c, use_kernels=use_kernels, ep=ep, tp=tp, pp=pp,
+                                     device=device, dtype=dtype)
+        self.tp = tp_for(tp, c.vocab_size)
+        n = 1 if self.tp is None else self.tp.size
+        self.lm_head = nn.Linear(c.hidden_dim, c.vocab_size // n, bias=False,
                                  device=device, dtype=dtype)
+        if self.tp is not None:
+            split_columns(self.lm_head)
         # the draft heads mtp_0 .. (shape_opt.py:657-663), zero at first so
         # that each starts as the base head's distribution
         for k in range(c.mtp_heads):
@@ -394,11 +479,18 @@ class ShapeOPT(nn.Module):
     def mtp_proj(self) -> list:
         return [getattr(self, f"mtp_{k}") for k in range(self.cfg.mtp_heads)]
 
+    def logits(self, h):
+        """`lm_head` of hidden states h: under tp each rank's vocabulary
+        columns, gathered over the group."""
+        if self.tp is None:
+            return self.lm_head(h)
+        return gather_from_tp(self.lm_head(copy_to_tp(h, self.tp)), self.tp)
+
     def mtp_logits(self, h) -> list:
         """Draft-head logits of hidden states h [..., C]: one [..., V] tensor
         per head; head k predicts the token 2+k positions ahead of h's
         (shape_opt.py:665-671)."""
-        return [self.lm_head(h + F.silu(p(h)).to(h.dtype)) for p in self.mtp_proj]
+        return [self.logits(h + F.silu(p(h)).to(h.dtype)) for p in self.mtp_proj]
 
     def forward(self, inputs_embeds, lengths=None, labels=None, train: bool = False):
         """Teacher-forcing logits [B, T, V]; with `labels`, (logits, loss,
@@ -409,7 +501,7 @@ class ShapeOPT(nn.Module):
         step applies without 'losses', so its sow is a no-op;
         edgerunner_tpu/train/state.py:203-226, :285-291)."""
         h, aux = self.model(inputs_embeds, lengths, train)
-        logits = self.lm_head(h)
+        logits = self.logits(h)
         if labels is None:
             return logits
         loss_moe = sum(aux) / len(aux) if aux else None

@@ -1,5 +1,6 @@
-"""How a training rank joins the dp × sp (or dp × ep) world, logs and takes
-its share of the data: shared by the training CLIs (`main`, `main_dit`)."""
+"""How a training rank joins the dp × pp × sp × tp × ep world, logs and
+takes its share of the data: shared by the training CLIs (`main`,
+`main_dit`)."""
 
 from __future__ import annotations
 
@@ -10,14 +11,13 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from edgerunner_tpu_torch.config import MOE_DP_PP_REFUSED
 from edgerunner_tpu_torch.data.dataset import shard_items_for_host
 from edgerunner_tpu_torch.parallel import (
     DataParallel,
-    SequenceParallel,
-    ExpertParallel,
+    Layout,
     dp_for_world,
     init_distributed,
-    make_ep_layout,
     make_layout,
     rank_device,
 )
@@ -25,15 +25,16 @@ from edgerunner_tpu_torch.utils import init_logger
 
 
 def run_ranks(opt, device: torch.device, module: str, train_fn):
-    """`train_fn(opt, device, sp, dp)` on this rank of a world of dp × sp
-    ranks, or with `--ep_size` > 1 `train_fn(opt, device, None, dp, ep)` on
-    one of dp × ep ranks (`dp_for_world`'s rule; a world of one runs
-    unsharded): joins the torchrun world unless one is initialised, lays it
-    out (`make_layout`, `make_ep_layout`) and leaves it on exit."""
+    """`train_fn(opt, device, layout)` on this rank of a world of dp × pp ×
+    sp × tp × ep ranks (`dp_for_world`'s rule; a world of one runs
+    unsharded, as `train_fn(opt, device)`): joins the torchrun world unless
+    one is initialised, lays it out (`make_layout`) and leaves it on exit."""
     world = (dist.get_world_size() if dist.is_initialized()
              else int(os.environ.get("WORLD_SIZE", "1")))
-    ep_size = opt.ep_size
-    dp_size = dp_for_world(opt.dp_size, opt.sp_size, world, module, ep_size)
+    dp_size = dp_for_world(opt.dp_size, opt.sp_size, world, module, opt.ep_size,
+                           opt.tp_size, opt.pp_size)
+    if opt.moe_experts and opt.pp_size > 1 and dp_size > 1:
+        raise ValueError(MOE_DP_PP_REFUSED)
     if world == 1:
         return train_fn(opt, device)
     device = rank_device(device.type)
@@ -41,32 +42,26 @@ def run_ranks(opt, device: torch.device, module: str, train_fn):
     if owned:
         init_distributed(device)
     try:
-        if ep_size > 1:
-            dp, ep = make_ep_layout(device, dp_size, ep_size)
-            return train_fn(opt, device, None, dp, ep)
-        dp, sp = make_layout(device, dp_size, opt.sp_size)
-        return train_fn(opt, device, sp, dp)
+        layout = make_layout(device, dp_size, opt.pp_size, opt.sp_size, opt.tp_size,
+                             opt.ep_size, opt.pp_microbatches)
+        return train_fn(opt, device, layout)
     finally:
         if owned:
             dist.destroy_process_group()
 
 
-def rank_logger(opt, dp: Optional[DataParallel], sp: Optional[SequenceParallel],
-                ep: Optional[ExpertParallel] = None):
+def rank_logger(opt, layout: Optional[Layout]):
     """The workspace's log.txt on rank 0 of the world; a disabled logger on
     every other rank."""
     os.makedirs(opt.workspace, exist_ok=True)
-    world = dp.world if dp is not None else sp if sp is not None else (
-        ep.world if ep is not None else None)
-    if world is None or world.rank == 0:
+    if layout is None or layout.world.rank == 0:
         logger = init_logger(os.path.join(opt.workspace, "log.txt"))
     else:
-        logger = logging.getLogger(f"edgerunner_tpu_torch.rank{world.rank}")
+        logger = logging.getLogger(f"edgerunner_tpu_torch.rank{layout.world.rank}")
         logger.disabled = True
     logger.info(str(opt))
-    for axis in (dp, sp, ep):
-        if axis is not None:
-            logger.info(axis.describe())
+    for line in ([] if layout is None else layout.describe()):
+        logger.info(line)
     return logger
 
 

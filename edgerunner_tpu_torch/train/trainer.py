@@ -51,14 +51,32 @@ rows (the batch is split over dp only) and each holds E / ep of every MoE
 layer's experts (models/moe.py); each computes the whole loss of its
 group's rows, the whole gradient of every non-expert parameter and its
 experts' own. So gradients and metrics are summed over the ranks that hold
-the same experts, one per dp group (`ep.replicas`), and the norm that
+the same experts, one per dp group (`layout.data`), and the norm that
 clipping takes counts the non-expert part once and the experts' summed over
 the ep group. Saves gather the experts and their optimizer state into full
 [E, ...] tensors (`checkpoint_parts`), which load at any ep: each rank
-slices its share of a file's experts (`shard_experts`). Under dp with MoE
+slices its share of a file's experts (`shard`). Under dp with MoE
 every group's rows are padded to the longest group's length first, so
 that the step routes one global batch, as the JAX step's has one length.
 MoE's aux loss joins the metrics as loss_moe, in the JAX log's format.
+
+All of these, and tensor and pipeline parallelism, come as one `layout`
+(parallel/mesh.py `make_layout`: dp × pp × sp × tp × ep ranks). A rank's
+model holds only its shards: its tp share of the heads and MLP columns
+(models/layers.py), its pp stage of the decoder's layers (models/
+shape_opt.py, parallel/pipeline.py), its ep share of the experts. Every
+parameter that a rank holds whole is the same, and takes the same
+gradient, on every rank of its tp, pp and ep groups: Megatron's f and g
+and the pipeline's broadcasts make it so. So gradients and metrics are
+summed over `layout.data` alone, the dp × sp ranks that hold the same
+parameters, and the norm that clipping takes sums each parameter's
+squares once: over the ranks that split it, from the first rank of the
+others (`_norm`). Saves gather every split parameter, and its optimizer
+state and EMA, into the whole tensor in the reference naming on rank 0
+(`checkpoint_parts`), so a file loads at any layout; a load cuts a whole
+file to this rank's shards (`shard`). Under pp the eval batches' rows are
+padded to a multiple of the microbatches with rows that carry no label,
+as the JAX trainer pads them (trainer.py:311).
 """
 
 from __future__ import annotations
@@ -72,22 +90,22 @@ import torch
 from torch.func import functional_call
 
 from edgerunner_tpu_torch.data.dataset import batch_checksum
-from edgerunner_tpu_torch.models.moe import is_expert_param, shard_experts
+from edgerunner_tpu_torch.models.moe import is_expert_param
 from edgerunner_tpu_torch.parallel import (
-    DataParallel,
-    ExpertParallel,
-    SequenceParallel,
+    Group,
+    Layout,
     all_gather,
     all_reduce_,
     assert_same_on_every_rank,
     broadcast_,
     data_parallel,
-    gather_to_first,
+    gather_list,
     sequence_parallel,
+    tp_join,
+    tp_slice,
 )
 from edgerunner_tpu_torch.train.state import (
     frozen_param_keys,
-    global_norm,
     make_optimizer,
     trainable_parameters,
 )
@@ -147,33 +165,65 @@ def pad_to_length(batch: dict, pad: int, pad_token_id: int) -> dict:
     return out
 
 
+LAYER_PREFIX = "mesh_decoder.model.layers."
+
+
+def layer_index(name: str) -> Optional[int]:
+    """The decoder layer of a parameter name, or None outside the layers."""
+    if not name.startswith(LAYER_PREFIX):
+        return None
+    return int(name[len(LAYER_PREFIX):].split(".", 1)[0])
+
+
+def pad_rows(batch: dict, multiple: int) -> dict:
+    """The batch's rows padded to a multiple of `multiple` with copies of
+    its first row whose labels are all -100 (edgerunner_tpu/train/
+    trainer.py:90-112): the loss's sum and its count of labels are
+    unchanged."""
+    b = len(np.asarray(batch["labels"]))
+    pad = (-b) % multiple
+    if not pad:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if k == "paths":
+            out[k] = v
+            continue
+        v = np.asarray(v)
+        fill = np.repeat(v[:1], pad, axis=0)
+        if k == "labels":
+            fill = np.full_like(fill, -100)
+        out[k] = np.concatenate([v, fill], axis=0)
+    return out
+
+
 class Trainer:
-    def __init__(self, model, opt, total_steps: int, logger=None,
-                 sp: Optional[SequenceParallel] = None, kind: str = "arae",
-                 dp: Optional[DataParallel] = None, ep: Optional[ExpertParallel] = None):
+    def __init__(self, model, opt, total_steps: int, logger=None, kind: str = "arae",
+                 layout: Optional[Layout] = None):
         self.model = model
         self.opt = opt
         self.logger = logger
         self.kind = kind
         self.batch_keys, self.call = MODEL_KINDS[kind]
-        self.sp = sp if sp is not None and sp.size > 1 else None
-        self.dp = dp if dp is not None and dp.size > 1 else None
-        self.ep = ep if ep is not None and ep.size > 1 else None
+        self.layout = layout
+        L = layout
+        self.dp, self.pp, self.sp, self.tp, self.ep = (
+            (None,) * 5 if L is None else (L.dp, L.pp, L.sp, L.tp, L.ep))
         # every rank; it logs and saves from its rank 0
-        self.world = (self.dp.world if self.dp is not None else
-                      self.sp if self.sp is not None else
-                      self.ep.world if self.ep is not None else None)
-        # gradients and training metrics are summed over these ranks: every
-        # rank, or under ep the ranks holding this rank's experts
-        self.sums = self.ep.replicas if self.ep is not None else self.world
+        self.world = None if L is None else L.world
+        # gradients and training metrics are summed over these ranks
+        self.sums = None if L is None else L.data
         self.is_main = self.world is None or self.world.rank == 0
-        # rank 0, and under ep the rest of its ep group, which its forward needs
-        self.first_group = self.is_main or (self.ep is not None and (
-            self.dp is None or self.dp.rank == 0))
+        # rank 0 and the rest of its copy of the model, which its forward needs
+        self.first_group = L is None or L.coords["dp"] == L.coords["sp"] == 0
         self.device = next(model.parameters()).device
+        # the parameters split over tp: (dimension, groups) by name
+        self.tp_splits = {n: p.tp_split for n, p in model.named_parameters()
+                          if hasattr(p, "tp_split")}
         self.params = trainable_parameters(model, frozen_param_keys(opt, kind))
+        self.split = L is not None and L.model is not None
         self.optimizer, self.schedule = make_optimizer(
-            opt, self.params, total_steps, norm=self._ep_norm if self.ep is not None else None)
+            opt, self.params, total_steps, norm=self._norm if self.split else None)
         self.autocast = self.device.type == "cuda" and opt.mixed_precision == "bf16"
         self.ema_decay = float(opt.ema_decay or 0.0)
         self.ema: Optional[dict] = None  # {name: f32 tensor} of every parameter
@@ -188,40 +238,75 @@ class Trainer:
         else:
             print(msg)
 
-    def _ep_norm(self, grads: dict) -> torch.Tensor:
-        """The global norm of the whole model's gradients under ep: the
-        non-expert part, the same on every rank of the group, once; the
-        experts' squares summed over the group."""
-        dense = [g for n, g in grads.items() if not is_expert_param(n)]
-        experts = [(g.float() ** 2).sum() for n, g in grads.items() if is_expert_param(n)]
-        sq = torch.stack(experts).sum().reshape(1)
-        all_reduce_([sq], self.ep)
-        return torch.sqrt(global_norm(dense) ** 2 + sq[0])
+    def split_axes(self, name: str) -> tuple:
+        """The axes among pp, tp and ep over which this rank holds a share
+        of the parameter `name` (the others hold it whole)."""
+        axes = []
+        if self.pp is not None and layer_index(name) is not None:
+            axes.append("pp")
+        if self.tp is not None and name in self.tp_splits:
+            axes.append("tp")
+        if self.ep is not None and is_expert_param(name):
+            axes.append("ep")
+        return tuple(axes)
+
+    def _norm(self, grads: dict) -> torch.Tensor:
+        """The global norm of the whole model's gradients when pp, tp or ep
+        split it: each rank adds the squares of the gradients it holds a
+        share of, and of the whole ones only where it is the first rank of
+        the axes that do not split them, and the sums are added over the
+        ranks that hold one copy of the model (`layout.model`)."""
+        coords = self.layout.coords
+        mine = []
+        for n, g in grads.items():
+            axes = self.split_axes(n)
+            if all(coords[a] == 0 for a in ("pp", "tp", "ep") if a not in axes):
+                mine.append((g.float() ** 2).sum())
+        sq = (torch.stack(mine).sum() if mine
+              else torch.zeros((), device=self.device)).reshape(1)
+        all_reduce_([sq], self.layout.model)
+        return torch.sqrt(sq[0])
 
     def shard(self, state: dict) -> dict:
-        """A saved state's full [E, ...] expert entries cut to this rank's
-        experts under ep; `state` itself otherwise."""
-        if self.ep is None:
+        """A whole state dict (a saved file, an optimizer table; arrays or
+        tensors) cut to this rank's shards: under pp the entries of its
+        stage's layers alone, under ep its experts of every [E, ...] entry,
+        under tp its share of every entry marked `tp_split` (an entry
+        already of the rank's shape is kept as it is). `state` itself when
+        nothing is split."""
+        if not self.split:
             return state
-        return shard_experts(state, self.ep, self.opt.moe_experts)
+        out = {}
+        stage = None
+        if self.pp is not None:
+            per = self.opt.num_layers // self.pp.size
+            stage = range(self.pp.rank * per, (self.pp.rank + 1) * per)
+        E = self.opt.moe_experts
+        params = dict(self.model.named_parameters())
+        for n, v in state.items():
+            i = layer_index(n)
+            if stage is not None and i is not None and i not in stage:
+                continue
+            if self.ep is not None and is_expert_param(n) and v.shape[0] == E:
+                local = E // self.ep.size
+                v = v[self.ep.rank * local:(self.ep.rank + 1) * local]
+            spec = self.tp_splits.get(n)
+            if spec is not None and v.shape[spec[0]] != params[n].shape[spec[0]]:
+                v = tp_slice(v, self.tp.rank, self.tp.size, *spec)
+            out[n] = v
+        return out
 
     def init_state(self, step: int = 0, opt_state_path: Optional[str] = None,
                    ema_path: Optional[str] = None):
         """`step` restarts the schedule and the step seeds where a run left
-        off; `opt_state_path` restores a saved optimizer state. Under sp or
-        dp, every rank takes rank 0's weights (under ep, an expert shard its
-        first replica's). With --ema_decay the EMA starts from the weights,
-        or from the EMA file `ema_path`. Saved experts are cut to this
-        rank's under ep."""
+        off; `opt_state_path` restores a saved optimizer state. Every rank
+        takes the weights of the first rank of the ranks that hold the same
+        parameters (`layout.data`). With --ema_decay the EMA starts from
+        the weights, or from the EMA file `ema_path`. Saved states are cut
+        to this rank's shards."""
         self.step = step
-        if self.ep is not None:
-            broadcast_([p for n, p in self.params.items() if not is_expert_param(n)],
-                       self.world)
-            if self.sums is not None:
-                broadcast_([p for n, p in self.params.items() if is_expert_param(n)],
-                           self.sums)
-        elif self.world is not None:
-            broadcast_(list(self.params.values()), self.world)
+        if self.sums is not None:
+            broadcast_(list(self.params.values()), self.sums)
         if self.ema_decay > 0:
             saved = self.shard(read_safetensors(ema_path)) if ema_path else None
             self.ema = {n: (p.detach().clone() if saved is None else
@@ -234,30 +319,63 @@ class Trainer:
                     state[table] = self.shard(state[table])
             self.optimizer.load_state_dict(state)
 
+    def _gather(self, tensors: dict) -> Optional[dict]:
+        """The whole tensors of `tensors` (named as the model's parameters)
+        on the host of rank 0 of the model's copy, in the reference naming:
+        each tp split joined over its tp group, each expert tensor over its
+        ep group, each stage's layers over the pp group, in that order, so
+        that each gather runs among the ranks that hold the previous one's
+        result. Collective over `layout.model`; None on its other ranks."""
+        if not self.split:
+            return {n: t.detach() for n, t in tensors.items()} if self.is_main else None
+        c = self.layout.coords
+        items, stages, at = [], None, 0
+        for n, t in tensors.items():
+            t, axes = t.detach(), self.split_axes(n)
+            if "tp" in axes:
+                parts = gather_list(t, self.tp)
+                t = None if parts is None else tp_join(parts, *self.tp_splits[n])
+            if "ep" in axes and c["tp"] == 0:
+                parts = gather_list(t, self.ep)
+                t = None if parts is None else torch.cat(parts)
+            if "pp" in axes:
+                if c["tp"] or c["ep"]:
+                    continue
+                parts = gather_list(t, self.pp)
+                if parts is None:
+                    continue
+                if stages is None:  # the stages' layers go where the first one's begin
+                    stages, at = [[] for _ in parts], len(items)
+                per = self.opt.num_layers // self.pp.size
+                i, rest = layer_index(n) - self.pp.rank * per, n.split(".", 4)[4]
+                for p, x in enumerate(parts):
+                    stages[p].append((f"{LAYER_PREFIX}{p * per + i}.{rest}", x))
+                continue
+            items.append((n, t))
+        if not self.is_main:
+            return None
+        if stages is not None:
+            items[at:at] = [kv for stage in stages for kv in stage]
+        return dict(items)
+
     def checkpoint_parts(self, with_optimizer: bool = True) -> tuple:
         """(weights, optimizer, EMA) for a save, each with `state_dict()`
-        (the EMA a dict): the live model and optimizer, or under ep every
-        expert tensor gathered into its full [E, ...] on the host of the ep
-        group's rank 0 (collective over the ep groups of dp group 0, whose
-        rank 0 writes; the others return what nobody writes)."""
+        (the EMA a dict): the live model and optimizer, or when pp, tp or
+        ep split the model every tensor gathered whole on rank 0's host
+        (collective over the ranks of dp group 0 and sp rank 0, whose rank
+        0 writes; the others return what nobody writes)."""
         optimizer = self.optimizer if with_optimizer else None
-        if self.ep is None:
+        if not self.split:
             return self.model, optimizer, self.ema
         if not self.first_group:
             return _Saved({}), None, None
-
-        def full(tensors: Optional[dict]) -> Optional[dict]:
-            if tensors is None:
-                return None
-            return {n: (gather_to_first(t, self.ep) if is_expert_param(n) else t.detach())
-                    for n, t in tensors.items()}
-
-        weights = _Saved(full(self.model.state_dict()))
-        ema = full(self.ema)
+        weights = _Saved(self._gather(self.model.state_dict()) or {})
+        ema = None if self.ema is None else self._gather(self.ema)
         if optimizer is not None:
             state = dict(optimizer.state_dict())
             for table in ("mu", "nu", "acc"):
-                state[table] = full(state[table])
+                if state[table] is not None:
+                    state[table] = self._gather(state[table])
             optimizer = _Saved(state)
         return weights, optimizer, ema
 
@@ -290,11 +408,11 @@ class Trainer:
             return batch
         T = np.asarray(batch["labels"]).shape[1]
         longest = max(int(t) for t in all_gather(
-            torch.tensor([T], device=self.device), self.dp.world))
+            torch.tensor([T], device=self.device), self.dp.data))
         return pad_to_length(batch, longest - T, self.opt.pad_token_id)
 
     @staticmethod
-    def _summed(out: dict, group: Optional[SequenceParallel]) -> dict:
+    def _summed(out: dict, group: Optional[Group]) -> dict:
         """Host floats of the metrics in `out`, summed over `group`."""
         keys = [k for k in METRICS if k in out]
         vals = torch.stack([out[k].detach().float() for k in keys])
@@ -329,7 +447,10 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict:
         """The whole model on the whole batch: no sp context (the eval mesh
-        dump reads every position's logits)."""
+        dump reads every position's logits); under pp its rows padded to the
+        microbatches, the padding's logits after the batch's."""
+        if self.pp is not None:
+            batch = pad_rows(batch, self.pp.microbatches)
         return self.forward(batch, train=False)
 
     def train_epoch(self, loader, epoch: int,
@@ -419,6 +540,8 @@ class Trainer:
             raise ValueError("use_ema needs --ema_decay > 0")
         total, n = 0.0, 0
         for batch in loader:
+            if self.pp is not None:
+                batch = pad_rows(batch, self.pp.microbatches)
             total += self.eval_loss(batch, use_ema)
             n += 1
         avg = total / max(n, 1)

@@ -42,6 +42,16 @@ ways. tools/export_reference_ckpt.py:export_lmm leaves the tower out, so a
 JAX image checkpoint crosses over through `state_dict_from_flax` (which
 keeps it), or gets its tower through `--resume2` (`overlay_checkpoint`).
 
+The JAX package's stacked layer layout (`--scan_layers`, set by
+`--pp_size` > 1: one `layers_scanned/layer` subtree of [L, ...] leaves in
+place of `layers_{i}`) crosses over both ways too: `state_dict_from_flax`
+reads either layout, and `flax_from_state_dict(sd, scan_layers=True)`
+writes the stacked one, through the port's copies of the JAX converters
+(`stack_layer_params`, `unstack_layer_params`, `normalize_layer_layout`,
+edgerunner_tpu/parallel/pipeline.py:168-230), anchored, as there, on the
+decoder's `embed_positions`, so that CLIP's and the DiT's `layers_{i}` are
+left alone. The port's own files keep the per-layer naming at every pp.
+
 `tolerant_merge` is the non-strict load (edgerunner_tpu/train/checkpoint.py:
 99-130): it copies the entries whose name and shape match, realigns
 position embeddings of another length by `--align_posemb`, keeps the
@@ -72,6 +82,7 @@ import numpy as np
 import torch
 
 from edgerunner_tpu_torch.models.clip_vit import clip_state_from_hf, init_clip_tower
+from edgerunner_tpu_torch.models.layers import normal_
 from edgerunner_tpu_torch.models.moe import EXPERT_PARAMS
 from edgerunner_tpu_torch.models.point_encoder import point_freq_basis
 
@@ -135,10 +146,83 @@ def _shape_opt(sd, prefix, tree):
         k += 1
 
 
+_SCANNED = "layers_scanned"
+
+
+def _tree_map(fn, *trees):
+    """fn over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _find_layer_parent(tree, key_sub: str):
+    """(the decoder's dict holding `key_sub` entries, those keys), found
+    depth first and anchored on its sibling 'embed_positions' entry (CLIP
+    and the DiT name their blocks layers_{i} too); (None, []) if none."""
+    if not isinstance(tree, dict):
+        return None, []
+    keys = [k for k in tree if k == key_sub or (key_sub == "layers_" and k.startswith(
+        "layers_") and k[len("layers_"):].isdigit())]
+    if keys and "embed_positions" in tree:
+        return tree, keys
+    for v in tree.values():
+        parent, found = _find_layer_parent(v, key_sub)
+        if parent is not None:
+            return parent, found
+    return None, []
+
+
+def stack_layer_params(tree: dict) -> dict:
+    """The per-layer `layers_{i}` subtrees -> one `layers_scanned/layer`
+    subtree of stacked [L, ...] leaves; everything else as it is. A new
+    tree (the leaves of the rest shared)."""
+    tree = _tree_map(lambda x: x, tree)
+    parent, keys = _find_layer_parent(tree, "layers_")
+    if parent is None:
+        raise ValueError("no layers_{i} subtrees found")
+    subtrees = [parent.pop(k) for k in sorted(keys, key=lambda k: int(k.split("_")[-1]))]
+    parent[_SCANNED] = {"layer": _tree_map(lambda *xs: np.stack([np.asarray(x) for x in xs]),
+                                           *subtrees)}
+    return tree
+
+
+def unstack_layer_params(tree: dict) -> dict:
+    """The stacked `layers_scanned/layer` subtree -> `layers_{i}` subtrees."""
+    tree = _tree_map(lambda x: x, tree)
+    parent, _ = _find_layer_parent(tree, _SCANNED)
+    if parent is None:
+        raise ValueError("no layers_scanned subtree found")
+    stacked = parent.pop(_SCANNED)["layer"]
+    first = stacked
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    for i in range(np.asarray(first).shape[0]):
+        parent[f"layers_{i}"] = _tree_map(lambda x: np.asarray(x)[i], stacked)
+    return tree
+
+
+def has_scanned_layers(tree: dict) -> bool:
+    return _find_layer_parent(tree, _SCANNED)[0] is not None
+
+
+def normalize_layer_layout(tree: dict, scan_layers: bool) -> dict:
+    """A parameter tree in the layout `scan_layers` asks for; the tree
+    itself when it is in it already or holds no decoder layers (a partial
+    checkpoint)."""
+    if scan_layers and not has_scanned_layers(tree):
+        parent, _ = _find_layer_parent(tree, "layers_")
+        return stack_layer_params(tree) if parent is not None else tree
+    if not scan_layers and has_scanned_layers(tree):
+        return unstack_layer_params(tree)
+    return tree
+
+
 def state_dict_from_flax(tree) -> dict:
     """The JAX package's LMM parameter tree (numpy leaves, with or without
-    the top-level 'params') -> {reference name: numpy array}."""
-    params = tree.get("params", tree)
+    the top-level 'params'; per-layer or stacked) -> {reference name: numpy
+    array}."""
+    params = normalize_layer_layout(tree.get("params", tree), False)
     sd: dict = {}
     if "image_encoder" in params:
         sd.update(clip_state_dict_from_flax(params["image_encoder"], "image_encoder."))
@@ -277,18 +361,24 @@ def tolerant_merge(model_state: dict, ckpt_state: dict, align_posemb: str = "rig
     return merged
 
 
-def overlay_checkpoint(model, path: str, align_posemb: str = "right", log=print):
-    """Merge the `.safetensors` file `path` over the model's weights with
-    `tolerant_merge`, which logs every missing, mismatched and unexpected
-    entry. Entries in HuggingFace CLIPVisionModel's naming (`vision_model.*`,
-    e.g. the reference's laion/CLIP-ViT-H-14) are the tower's: they land
-    under `image_encoder.`, without the entries the tower never reads."""
+def overlay_state(path: str) -> dict:
+    """{name: array} of the `.safetensors` file `path` in the port's naming.
+    Entries in HuggingFace CLIPVisionModel's naming (`vision_model.*`, e.g.
+    the reference's laion/CLIP-ViT-H-14) are the tower's: they land under
+    `image_encoder.`, without the entries the tower never reads."""
     ckpt = read_safetensors(path)
     hf = {k: v for k, v in ckpt.items() if k.startswith("vision_model.")}
     if hf:
         ckpt = {k: v for k, v in ckpt.items() if k not in hf}
         ckpt.update(clip_state_from_hf(hf, "image_encoder."))
-    merge_checkpoint(model, ckpt, align_posemb, log=log)
+    return ckpt
+
+
+def overlay_checkpoint(model, path: str, align_posemb: str = "right", log=print):
+    """Merge the `.safetensors` file `path` (`overlay_state`) over the
+    model's weights with `tolerant_merge`, which logs every missing,
+    mismatched and unexpected entry."""
+    merge_checkpoint(model, overlay_state(path), align_posemb, log=log)
 
 
 def _unlinear(tree, sd, prefix):
@@ -321,10 +411,11 @@ def _unpoint_encoder(sd, p):
     return tree
 
 
-def flax_from_state_dict(sd: dict) -> dict:
+def flax_from_state_dict(sd: dict, scan_layers: bool = False) -> dict:
     """The inverse of `state_dict_from_flax`: {reference name: array} -> the
     JAX package's LMM parameter tree {'params': ...} (the point basis, a
-    fixed table rather than a weight, has no place in it)."""
+    fixed table rather than a weight, has no place in it), in the stacked
+    layer layout with `scan_layers`."""
     params: dict = {}
     if "image_encoder.vision_model.pre_layrnorm.weight" in sd:
         params["image_encoder"] = flax_from_clip_state_dict(sd, "image_encoder.")
@@ -361,7 +452,7 @@ def flax_from_state_dict(sd: dict) -> dict:
     while f"mesh_decoder.mtp_{k}.weight" in sd:
         params["mesh_decoder"][f"mtp_{k}"] = _unlinear({}, sd, f"mesh_decoder.mtp_{k}")
         k += 1
-    return {"params": params}
+    return {"params": normalize_layer_layout(params, scan_layers)}
 
 
 def write_safetensors(path: str, tensors: dict):
@@ -502,20 +593,20 @@ def flax_from_mdit_state_dict(sd: dict) -> dict:
 
 
 @torch.no_grad()
-def init_mdit_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+def init_mdit_weights(model: torch.nn.Module, seed: int, draw_device=None) -> torch.nn.Module:
     """Random MDiT weights from `seed`, at the JAX initialisers' scales: the
     DiT's, proj_cond's and the point encoder's projections N(0, 0.02) (the
     package's Dense), the CLIP tower at flax's defaults (`init_clip_tower`),
     the DiT's pos_embed and scale_shift_tables N(0, dim^-0.5), the point
-    queries N(0, hidden^-0.5), zero biases, unit LayerNorms. Draws on the
-    weights' own device."""
-    device = next(model.parameters()).device
+    queries N(0, hidden^-0.5), zero biases, unit LayerNorms. Draws on
+    `draw_device` (default: the weights' own)."""
+    device = draw_device or next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     for name, mod in model.named_modules():
         if name.startswith("image_encoder"):
             continue
         if isinstance(mod, torch.nn.Linear):
-            mod.weight.normal_(0.0, 0.02, generator=gen)
+            normal_(mod.weight, 0.0, 0.02, gen)
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, torch.nn.LayerNorm) and mod.weight is not None:
@@ -523,7 +614,7 @@ def init_mdit_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
             mod.bias.zero_()
     for name, p in model.named_parameters():
         if name.endswith(("pos_embed", "scale_shift_table", "query_embed")):
-            p.normal_(0.0, p.shape[-1] ** -0.5, generator=gen)
+            normal_(p, 0.0, p.shape[-1] ** -0.5, gen)
     init_clip_tower(model.image_encoder, gen)
     return model
 

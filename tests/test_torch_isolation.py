@@ -97,15 +97,29 @@ def test_validate_accepts_dp_size_and_refuses_the_training_options_not_ported_ye
 
     import dataclasses
 
-    # tp, pp and scan_layers are the next slice's, MoE under sp too; the JAX
-    # package's asserts (config.py:436-452) are ValueErrors
-    for change in (dict(dp_size=0), dict(dp_size=-2), dict(tp_size=2), dict(pp_size=2),
-                   dict(scan_layers=True), dict(moe_experts=4, sp_size=2),
+    # the JAX package's asserts (config.py:428-452, trainer.py:125-145) are
+    # ValueErrors: sp with tp or pp, layers or a batch that do not divide
+    # into the stages or microbatches; MoE under dp x pp is the port's one
+    # refusal of a combination the JAX package trains
+    for change in (dict(dp_size=0), dict(dp_size=-2), dict(tp_size=0), dict(pp_size=0),
+                   dict(sp_size=2, tp_size=2), dict(sp_size=2, pp_size=2),
+                   dict(pp_size=5), dict(pp_size=2, batch_size=3),
+                   dict(pp_size=2, pp_microbatches=4, batch_size=2),
+                   dict(pp_size=2, moe_experts=4, dp_size=2),
                    dict(moe_experts=2, moe_top_k=3), dict(ep_size=2),
                    dict(moe_experts=3, ep_size=2), dict(lora_rank=8, w_quant=True),
                    dict(lora_rank=8, moe_experts=4), dict(lora_rank=-1)):
         with pytest.raises(ValueError):
             validate(dataclasses.replace(config_defaults["ArAE"], **change))
+    # tp, pp with the stacked layout and MoE under sp are ported; pp sets
+    # scan_layers, as the JAX validate does (config.py:435)
+    for ok in (dict(tp_size=2), dict(tp_size=2, dp_size=2), dict(pp_size=2),
+               dict(pp_size=2, pp_microbatches=2, batch_size=4), dict(pp_size=2, tp_size=2),
+               dict(scan_layers=True), dict(moe_experts=4, sp_size=2),
+               dict(moe_experts=4, sp_size=2, dp_size=2), dict(moe_experts=4, pp_size=2),
+               dict(moe_experts=4, pp_size=2, ep_size=2, dp_size=1)):
+        validate(dataclasses.replace(config_defaults["ArAE"], **ok))
+    assert validate(dataclasses.replace(config_defaults["ArAE"], pp_size=2)).scan_layers
     # the weight EMA is ported: main and main_dit keep one; --resume2 is
     # ported: main and infer overlay it on the ArAE (a pretrained CLIP tower);
     # dp is ported: main and main_dit train under torchrun, infer and serve
@@ -172,7 +186,7 @@ def test_validate_accepts_sp_size_and_dp_size_and_refuses_tp_pp_and_dp_0():
     for ok in (dict(sp_size=1), dict(sp_size=2), dict(sp_size=4), dict(dp_size=2),
                dict(sp_size=2, dp_size=2)):
         validate(dataclasses.replace(config_defaults["ArAE"], **ok))
-    for change in (dict(sp_size=0), dict(tp_size=2), dict(pp_size=2), dict(dp_size=0),
+    for change in (dict(sp_size=0), dict(sp_size=2, pp_size=2), dict(dp_size=0),
                    dict(sp_size=2, tp_size=2), dict(sp_size=2, dp_size=0)):
         with pytest.raises(ValueError):
             validate(dataclasses.replace(config_defaults["ArAE"], **change))

@@ -179,5 +179,5 @@ def test_a_group_of_one_rank_is_no_sp():
     assert ring_shift([x], one)[0] is x
     all_reduce_([x], one)
     assert torch.equal(x, torch.arange(6.0))
-    t = Trainer(LMM(Options(**KW)), Options(**KW), total_steps=10, sp=one)
+    t = Trainer(LMM(Options(**KW)), Options(**KW), total_steps=10, layout=None)
     assert t.sp is None and t.is_main

@@ -34,12 +34,12 @@ def lmm_step(rank, R, tmp_path, kw, state, batch, dp_size, sp_size):
     from edgerunner_tpu_torch.train.trainer import Trainer
     from edgerunner_tpu_torch.weights import load_state
 
-    dp, sp = make_layout(torch.device("cpu"), dp_size, sp_size)
+    layout = make_layout(torch.device("cpu"), dp=dp_size, sp=sp_size)
     model = LMM(Options(**kw))
     load_state(model, state)
     for layer in model.mesh_decoder.model.layers:
         layer.dropout = 0.0
-    trainer = Trainer(model, Options(**kw), total_steps=10, sp=sp, dp=dp)
+    trainer = Trainer(model, Options(**kw), total_steps=10, layout=layout)
     trainer.init_state()
     return _step_out(trainer, trainer.train_step(_rows(batch, rank // sp_size, dp_size)))
 
@@ -54,14 +54,14 @@ def mdit_step(rank, R, tmp_path, kw, state, batch, draws):
     from edgerunner_tpu_torch.train.trainer import Trainer
     from edgerunner_tpu_torch.weights import load_state
 
-    dp, _ = make_layout(torch.device("cpu"), R, 1)
+    layout = make_layout(torch.device("cpu"), dp=R)
     model = MDiT(Options(**kw))
     load_state(model, state)
     mine = _rows(draws, rank, R)
     model.forward = functools.partial(
         model.forward, keep=torch.tensor(mine["uniform"] >= 0.1),
         noise=torch.tensor(mine["normal"]), t=torch.tensor(mine["randint"]).long())
-    trainer = Trainer(model, Options(**kw), total_steps=10, kind="dit", dp=dp)
+    trainer = Trainer(model, Options(**kw), total_steps=10, kind="dit", layout=layout)
     trainer.init_state()
     return _step_out(trainer, trainer.train_step(_rows(batch, rank, R)))
 

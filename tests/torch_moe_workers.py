@@ -1,6 +1,6 @@
 """Rank processes of the port's MoE parallelism tests, spawned by
 `torch_sp_workers.spawn` (gloo on the CPU, one process per rank). Each lays
-the world out as dp × ep (`make_ep_layout`, rank = d · ep + e) or dp alone,
+the world out as dp × ep (`make_layout`, rank = d · ep + e) or dp alone,
 takes its dp group's rows and runs one training step. This module imports
 torch and the port only, so the children load no JAX.
 """
@@ -31,19 +31,15 @@ def moe_step(rank, R, tmp_path, kw, state, batch, dp_size, ep_size, main_argv=No
     from edgerunner_tpu_torch.config import Options
     from edgerunner_tpu_torch.models.lmm import LMM
     from edgerunner_tpu_torch.models.moe import is_expert_param
-    from edgerunner_tpu_torch.parallel import make_ep_layout, make_layout
+    from edgerunner_tpu_torch.parallel import make_layout
     from edgerunner_tpu_torch.train.trainer import Trainer
     from edgerunner_tpu_torch.weights import load_state
 
-    dev = torch.device("cpu")
-    ep = None
-    if ep_size > 1:
-        dp, ep = make_ep_layout(dev, dp_size, ep_size)
-    else:
-        dp, _ = make_layout(dev, dp_size, 1)
+    layout = make_layout(torch.device("cpu"), dp=dp_size, ep=ep_size)
+    dp, ep = layout.dp, layout.ep
     opt = Options(**kw)
     model = LMM(opt, ep=ep)
-    trainer = Trainer(model, opt, total_steps=10, dp=dp, ep=ep)
+    trainer = Trainer(model, opt, total_steps=10, layout=layout)
     load_state(model, trainer.shard(state))
     for layer in model.mesh_decoder.model.layers:
         layer.dropout = 0.0

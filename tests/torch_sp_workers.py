@@ -9,6 +9,7 @@ tmp_path/rank{r}.npz, which `spawn` reads back. A rank that raises fails
 no JAX.
 """
 
+import gc
 import os
 
 import numpy as np
@@ -27,6 +28,9 @@ def _entry(rank, R, tmp_path, fn, args):
     try:
         out = fn(rank, R, tmp_path, *args)
     finally:
+        # the run's groups, held by objects in reference cycles, released
+        # before the process group is, and not at the interpreter's exit
+        gc.collect()
         dist.destroy_process_group()
     np.savez(os.path.join(tmp_path, f"rank{rank}.npz"), **out)
 
@@ -90,7 +94,7 @@ def ring_cases(rank, R, tmp_path, q, k, v, w):
 def _trainer(kw, state, R, dropout: bool):
     from edgerunner_tpu_torch.config import Options
     from edgerunner_tpu_torch.models.lmm import LMM
-    from edgerunner_tpu_torch.parallel import SequenceParallel
+    from edgerunner_tpu_torch.parallel import make_layout
     from edgerunner_tpu_torch.train.trainer import Trainer
     from edgerunner_tpu_torch.weights import load_state
 
@@ -99,8 +103,8 @@ def _trainer(kw, state, R, dropout: bool):
     if not dropout:
         for layer in model.mesh_decoder.model.layers:
             layer.dropout = 0.0
-    sp = SequenceParallel.world(torch.device("cpu")) if R > 1 else None
-    return Trainer(model, Options(**kw), total_steps=10, sp=sp)
+    layout = make_layout(torch.device("cpu"), sp=R) if R > 1 else None
+    return Trainer(model, Options(**kw), total_steps=10, layout=layout)
 
 
 def train_steps(rank, R, tmp_path, kw, state, batches, dropout, tag=""):
