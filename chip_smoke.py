@@ -3,7 +3,8 @@
 the port still builds, agrees with its plain versions, generates meshes
 from point clouds and from images (through the DiT's latents, and through
 the image-conditioned ArAE), serves them over HTTP and trains, also with
-the MoE decoder, expert parallelism and LoRA.
+the MoE decoder, expert parallelism and LoRA, and runs the checkpoint
+tools.
 
     python3 chip_smoke.py [--phases build,kernels,...]
 
@@ -64,21 +65,21 @@ Phases, one JSON line each:
              just before and read just after; row 0 is detokenised into a
              mesh with the port's metok copy.
 4. generate_q8  the same path over the int8 KV cache (--kv_quant true) with
-             a 512-token budget (--decode_bucket 512); its decode kernel's
+             a 256-token budget (--decode_bucket 256); its decode kernel's
              launches held exactly; a profiled segment.
 5. generate_q4  bench.py's quant_fast configuration (--kv_quant true
-             --kv_bits 4 --w_quant true, 40 rows) with a 512-token budget;
+             --kv_bits 4 --w_quant true, 40 rows) with a 256-token budget;
              row 7's launches held exactly; a profiled segment.
 6. parity    2 layers at full width in f32 (TF32 off for matmuls and cuDNN):
              the kernel path and the plain path decode greedily in lockstep
              on the same tokens, and must choose the same token at every
              step where the plain logits' top-2 gap is at least NEAR_TIE.
-7. parity_q4 the same over the int4 cache, 512 steps: per-row, kv_group 96,
+7. parity_q4 the same over the int4 cache, 256 steps: per-row, kv_group 96,
              kv_rotate.
 8. serve     the server as the README starts it (--test_batch_size 8), full
              width, bf16, random weights from seed 0: HTTP requests through
              `build_server` (JAX's JSON, a malformed body answered 400), then
-             the continuous-batching engine alone (8 requests of 512
+             the continuous-batching engine alone (8 requests of 256
              tokens) with the bf16 cache, with --kv_quant true --w_quant
              true and with --kv_quant true --kv_bits 4: tokens/s, ms per
              engine step, peak memory, a profiled segment, and exactly one
@@ -90,7 +91,7 @@ Phases, one JSON line each:
              `generate_tokens` and on the engine, over the bf16 and the int4
              cache: tokens accepted per verify pass, ms per pass, rows 9 and
              10 launched exactly once per layer and pass at T = 3; then f32
-             spec streams against vanilla streams up to near-ties (512 steps).
+             spec streams against vanilla streams up to near-ties (256 steps).
 11. train    the training path: `Trainer.train_step` at full ArAE width,
              bf16 autocast, gradient checkpointing and dropout on, on
              bench.py's train batch (2 rows of 6147 positions): one warm-up
@@ -205,7 +206,7 @@ Phases, one JSON line each:
              after the image's read writes a .ply.
 20. image_parity  2 decoder and 2 CLIP layers at full width in f32 (TF32
              off): the kernel path's greedy streams of two images against
-             the plain path's up to near-ties (512 steps), and one training
+             the plain path's up to near-ties (256 steps), and one training
              step's loss and gradients; no gradient reaches the frozen tower.
 21. image_train  `main default` as the CLI runs it, full width, batch 4,
              bf16 autocast, checkpointing, synthetic meshes with point-splat
@@ -219,7 +220,7 @@ Phases, one JSON line each:
              1.25) at full ArAE width, random weights from seed 0: the train
              phase's step (bf16 autocast, checkpointing; launches held to A 50
              and C 25 per step; loss_moe, s/it, peak memory, dropped
-             assignments), infer's greedy decode of 12 rows at 512 tokens in
+             assignments), infer's greedy decode of 12 rows at 256 tokens in
              bf16 (A 25, B 24 per step; tokens/s, ms per step, busy share),
              the engine with 8 slots and 4 requests of 256 tokens (D once per
              layer and step); then at 2 layers in f32 with capacity factor
@@ -246,7 +247,7 @@ Phases, one JSON line each:
              adapters (A and B held).
 25. tp       Megatron tensor parallelism with 2 ranks that share the card
              (gloo, pinned host staging): `main ArAE --tp_size 2` at full
-             width, 6 of the 24 decoder layers, for 3 steps (A and C held
+             width, 4 of the 24 decoder layers, for 2 steps (A and C held
              per step and rank at 8 of the 16 heads; s/it per rank, the
              bytes each kind of collective moved per step, peak memory per
              rank, the whole (replicated) weights bit-equal on both ranks,
@@ -254,7 +255,7 @@ Phases, one JSON line each:
              against one process: the loss, every gradient gathered whole,
              the global norm.
 26. pp       GPipe with 2 ranks that share the card: `main ArAE --pp_size 2
-             --pp_microbatches 2` the same way (each rank's 3 layers on 2
+             --pp_microbatches 2` the same way (each rank's 2 layers on 2
              microbatches, replayed; A and C held per step and rank), then
              the f32 step at 2 layers, one a stage, against one process.
 27. moe_sp   the MoE decoder under sequence parallelism with 2 ranks that
@@ -263,7 +264,25 @@ Phases, one JSON line each:
              step on each rank, every token routed among the whole
              sequence's), then the f32 step at 2 layers with capacity
              factor 0.5 on full rows against one process.
-The sp, dp and ep phases' full-width training runs 6 of the 24 layers
+28. moe_dp_pp  the MoE decoder under dp 2 x pp 2 with 4 ranks that share
+             the card: `main ArAE --moe_experts 4 --moe_top_k 2 --dp_size 2
+             --pp_size 2 --pp_microbatches 2` the same way (A and C held per
+             step and rank; the bytes of the rows the dp groups trade so
+             that each microbatch routes the JAX pipeline's rows), then the
+             f32 step at 2 layers with capacity factor 0.5 against one
+             process that runs the JAX pipeline's microbatches of the global
+             batch one after another (their losses, label counts and
+             gradients summed as the pipeline sums them), and that the
+             contiguous order's microbatches give another loss.
+29. tools    the checkpoint tools as their modules run: `spec_stats`,
+             `bench_spec` (verify passes at T = 4), `kv_quant_quality`
+             with the int8 cache, then the int4 cache and int8 weights,
+             on random weights at 768 wide, 2 layers, 4 rows and a
+             256-token budget; B, D bf16, D int8 and D int4 held exactly
+             to the decode steps and verify passes each ran, the JSON keys
+             to the JAX scripts'; `make_manifest` and `visualize_traversal`
+             (both color modes) on two procedural meshes.
+The sp, dp and ep phases' full-width training runs 4 of the 24 layers
 too (MULTI_RANK_LAYERS): a layer's kernel shapes are the same.
 
 Then one JSON line with every kernel's numbers, the card's name and power
@@ -305,33 +324,41 @@ GRAD_TOL = 2e-2          # train parity: gradient error over the tensor's larges
 PHASES = ("build", "kernels", "generate", "generate_q8", "generate_q4", "parity", "parity_q4",
           "serve", "serve_parity", "spec", "train", "train_parity", "train_extras", "sp", "dp",
           "dit", "dit_parity", "dit_train", "dit_train_parity", "image", "image_parity",
-          "image_train", "moe", "ep", "lora", "tp", "pp", "moe_sp")
+          "image_train", "moe", "ep", "lora", "tp", "pp", "moe_sp", "moe_dp_pp", "tools")
 EXTRAS_REMAT_STEPS = 3   # train_extras: timed steps per remat policy after one warm-up
 EXTRAS_FPS_CALLS = 3     # ... farthest-point sampling calls timed after one warm-up
 EXTRAS_MESHES = 32       # ... main ArAE on a loopback HTTP root of 32 meshes: 16 steps ...
 EXTRAS_EVAL_SAMPLES = 2  # ... then its generate eval of 2 held-out conditions ...
 EXTRAS_EVAL_FACES = 80   # ... at 80 faces (a 464-token budget in a CUT_BUCKET bucket)
+SHORT_BUCKET = 256       # the bucket of generate_q8, generate_q4, moe's decode, the serve
+                         # engine's requests and the PARITY_CUT_STEPS parities (from
+                         # CUT_BUCKET, for the moe_dp_pp and tools phases' time)
 CUT_BUCKET = 512         # the decode bucket of the paths whose budget is cut below the
                          # ArAE's 1024-token bucket, for the run's time on the card
-Q8_BUDGET = 512          # generate_q8: a shorter budget than the bf16 generate phase, for
-                         # time (the int8 path's decode is checked, not its length)
+Q8_BUDGET = 256          # generate_q8: a shorter budget than the bf16 generate phase, for
+                         # time (the int8 path's decode is checked, not its length; 512
+                         # before the moe_dp_pp and tools phases)
 Q4_ROWS = 40             # bench.py's quant_fast probe: int4 KV + int8 weights at batch 40 ...
 Q4_FULL_BUDGET = 4096    # ... and the headline's 4096-token budget (bench.py:464-469)
-Q4_BUDGET = 512          # generate_q4: that budget cut for time
-PARITY_CUT_STEPS = 512   # parity_q4 and spec's parity: steps, in CUT_BUCKET for time
+Q4_BUDGET = 256          # generate_q4: that budget cut for time (512 before the
+                         # moe_dp_pp and tools phases)
+PARITY_CUT_STEPS = 256   # parity_q4, spec's and image_parity's steps, in SHORT_BUCKET for
+                         # time (512 before the moe_dp_pp and tools phases)
 SERVE_FACES = (100, 200)  # the HTTP requests' face counts (budgets 1024 and 2048 tokens)
 SERVE_HTTP_REQUESTS = 10  # 8 at once, 2 more while they decode
 SERVE_BENCH_REQUESTS = 8  # into SERVE_ROWS slots (one wave, cut from two for the sp
                           # phase's time), EOS forbidden ...
-SERVE_BENCH_FACES = 80     # ... 512 tokens each in the serve phase's CUT_BUCKET (cut
-                           # from 1024 for the run's time; the cache stays 7680 rows)
+SERVE_BENCH_FACES = 38     # ... of a 254-token budget: 256 tokens in a SHORT_BUCKET
+                           # (cut from 1024, then from 512 for the moe_dp_pp and tools
+                           # phases' time; the cache stays 7680 rows)
 SERVE_BENCH_Q8_REQUESTS = 8  # one wave: the int8 + w_quant engine is slower
 SERVE_BENCH_Q4_REQUESTS = 8  # one wave over the int4 cache (--kv_quant true --kv_bits 4)
 SPEC_HEADS = 2           # --mtp_heads 2 --spec_decode true: verify passes at T = 3
 MTP_STD = 0.02           # the random draft heads' weights (the init's std)
 SPEC_ROWS = ROWS         # spec generate: the headline batch ...
-SPEC_BUDGET = 256        # ... and a budget cut for time in a CUT_BUCKET decode bucket (512
-                         # before the tp, pp and moe_sp phases)
+SPEC_BUDGET = 256        # ... and a budget cut for time in a SHORT_BUCKET decode bucket
+                         # (512 before the tp, pp and moe_sp phases; in a CUT_BUCKET
+                         # bucket before the moe_dp_pp and tools phases)
 PROFILE_STEPS = 4        # decode steps in a profiled segment (engine: cut from 16 for the sp
                          # phase's time, then from 8 for the tp, pp and moe_sp phases':
                          # the profiler's processing grows with them)
@@ -374,7 +401,8 @@ IMAGE_PROBE_STEPS = 3    # ... then timed steps at 4 rows of bench.py's train pr
 IMAGE_RAGGED_LEN = 3000  # the kernels' image training case: every other row cut to this
 MOE_EXPERTS, MOE_TOP_K = 4, 2  # moe, ep: --moe_experts 4 --moe_top_k 2 (the JAX tests' E, K)
 MOE_TRAIN_STEPS = 2      # moe: timed steps of the train phase's batch after one warm-up
-MOE_DECODE_BUDGET = CUT_BUCKET  # moe: infer's decode of ROWS rows, the budget cut for time
+MOE_DECODE_BUDGET = SHORT_BUCKET  # moe: infer's decode of ROWS rows, the budget cut for
+                                 # time (CUT_BUCKET before the moe_dp_pp and tools phases)
 MOE_SERVE_REQUESTS = 4   # moe: the engine, SERVE_ROWS slots, 4 requests ...
 MOE_SERVE_FACES = 38     # ... of 38 faces: a 254-token budget in a MOE_SERVE_BUCKET bucket
 MOE_SERVE_BUCKET = 256
@@ -384,17 +412,27 @@ EP_RANKS = 2             # ep: ranks sharing the card, 2 experts each
 EP_MAIN_SAMPLES = 4      # ep: main on 4 synthetic meshes, TRAIN_ROWS rows a step: 2 steps
 LORA_RANK, LORA_ALPHA = 8, 16.0  # lora: --lora_rank 8 --lora_alpha 16
 LORA_SAMPLES = 6         # lora: main on 6 synthetic meshes, TRAIN_ROWS rows a step: 3 steps
-LORA_DECODE_BUDGET = 128  # lora: the f32 decodes of ROWS rows (cut from 256 for the tp,
-#                          pp and moe_sp phases' time) ...
+LORA_DECODE_BUDGET = 64  # lora: the f32 decodes of ROWS rows (cut from 256 for the tp,
+#                          pp and moe_sp phases' time, from 128 for the moe_dp_pp and
+#                          tools phases') ...
 LORA_BF16_BUDGET = 64    # ... and the bf16 one's budget and bucket, cut for time
-MULTI_RANK_LAYERS = 6    # sp, dp and ep's full-width training (cut from 24 for the tp, pp
-#                          and moe_sp phases' time: a layer's kernel shapes do not change)
-#                          and the tp, pp and moe_sp phases' `main`
+MULTI_RANK_LAYERS = 4    # sp, dp and ep's full-width training (cut from 24 for the tp, pp
+#                          and moe_sp phases' time, from 6 for the moe_dp_pp and tools
+#                          phases': a layer's kernel shapes do not change) and the tp, pp,
+#                          moe_sp and moe_dp_pp phases' `main`
 TP_RANKS = 2             # tp: main ArAE --tp_size 2, 8 of the 16 heads a rank
 PP_RANKS, PP_MICROBATCHES = 2, 2  # pp: main ArAE --pp_size 2 --pp_microbatches 2
 MOE_SP_RANKS = 2         # moe_sp: the MoE ArAE at --sp_size 2
-LAYOUT_SAMPLES = 6       # tp, pp, moe_sp: main on 6 synthetic meshes, TRAIN_ROWS rows a
-#                          step: one warm-up and two timed steps, each row collated to
+MOE_DP_PP = (2, 2)       # moe_dp_pp: the MoE ArAE at --dp_size 2 --pp_size 2, 4 ranks
+TOOLS_SHAPE = ("--hidden_dim", "768", "--num_layers", "2", "--num_heads", "12",
+               "--max_seq_length", "4096")  # tools: random weights, heads of 64
+TOOLS_HEADS = 3          # ... 3 draft heads (the JAX record's): verify passes at T = 4
+TOOLS_ROWS = 4           # ... 4 rows ...
+TOOLS_FACES = 30         # ... of 30 faces: a 214-token budget in a TOOLS_BUCKET bucket
+TOOLS_BUCKET = 256
+LAYOUT_SAMPLES = 4       # tp, pp, moe_sp, moe_dp_pp: main on 4 synthetic meshes, TRAIN_ROWS
+#                          rows a step: one warm-up and one timed step (two before the
+#                          moe_dp_pp and tools phases), each row collated to
 #                          TRAIN_MESH_TOKENS (--collate_bucket): bench.py's 2 x 6147
 # shapes that straddle the flash kernels' 64-row tiles (B, N, M, H, D, causal,
 # kv_len, q_len), as tests/test_torch_attention.py and
@@ -1309,7 +1347,7 @@ def phase_parity_q4(dev):
     """`parity_run` over the int4 KV cache in three variants: per-row scales,
     one scale per head (kv_group 96 at hidden 1536) and rotated rows."""
     runs = {name: parity_run(dev, PARITY_CUT_STEPS, kv_quant=True, kv_bits=4,
-                             decode_bucket=CUT_BUCKET, **changes)
+                             decode_bucket=SHORT_BUCKET, **changes)
             for name, changes in (("per-row", {}), ("kv_group 96", {"kv_group": 96}),
                                   ("kv_rotate", {"kv_rotate": True}))}
     return {"ok": all(r["ok"] for r in runs.values()), **runs}
@@ -1465,7 +1503,7 @@ def phase_generate_q8(dev):
 
     opt, *_ = main_path_shapes()
     opt = dataclasses.replace(opt, generate_mode="greedy", kv_quant=True,
-                              decode_bucket=CUT_BUCKET)
+                              decode_bucket=SHORT_BUCKET)
     num_new = decode_shape_of(opt, Q8_BUDGET)[0]
     model = build_model(opt, dev, torch.bfloat16, SEED)
     run = timed_generate(model, opt, dev, ROWS, Q8_BUDGET)
@@ -1498,7 +1536,7 @@ def phase_generate_q4(dev):
 
     opt, *_ = main_path_shapes()
     opt = dataclasses.replace(opt, generate_mode="greedy", kv_quant=True, kv_bits=4,
-                              w_quant=True, decode_bucket=CUT_BUCKET)
+                              w_quant=True, decode_bucket=SHORT_BUCKET)
     num_new = decode_shape_of(opt, Q4_BUDGET)[0]
     model = load_model(opt, dev)
     run = timed_generate(model, opt, dev, Q4_ROWS, Q4_BUDGET)
@@ -1709,7 +1747,7 @@ def phase_serve(dev):
     from edgerunner_tpu_torch.serve_engine import engine_shape
 
     opt = dataclasses.replace(config_defaults["ArAE"], test_batch_size=SERVE_ROWS)
-    bench_opt = dataclasses.replace(opt, decode_bucket=CUT_BUCKET)
+    bench_opt = dataclasses.replace(opt, decode_bucket=SHORT_BUCKET)
     res = {"layers": opt.num_layers, "hidden": opt.hidden_dim, "dtype": "bfloat16",
            "generate_mode": opt.generate_mode, "cache_len": engine_shape(opt)[2],
            "card": card_line()}
@@ -1838,7 +1876,7 @@ def spec_parity(dev, cache: dict) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     opt = dataclasses.replace(config_defaults["ArAE"], num_layers=2, generate_mode="greedy",
                               mtp_heads=SPEC_HEADS, spec_decode=True,
-                              decode_bucket=CUT_BUCKET, **cache)
+                              decode_bucket=SHORT_BUCKET, **cache)
     model = set_draft_heads(build_model(opt, dev, torch.float32, SEED + 4), SEED + 4)
     points = np.random.default_rng(SEED + 4).normal(size=(2, opt.point_num, 3)).astype(
         np.float32)
@@ -1873,7 +1911,7 @@ def phase_spec(dev):
 
     base = dataclasses.replace(config_defaults["ArAE"], generate_mode="greedy",
                                test_batch_size=SERVE_ROWS, mtp_heads=SPEC_HEADS,
-                               spec_decode=True, decode_bucket=CUT_BUCKET)
+                               spec_decode=True, decode_bucket=SHORT_BUCKET)
     res = {"mtp_heads": SPEC_HEADS, "draft_std": MTP_STD, "card": card_line()}
     for name, cache, kernel in (
             ("bf16", {}, DA.fused_decode_attention_multi),
@@ -3677,16 +3715,17 @@ def counted_train_steps(steps: list, snapshot: dict, lse: bool = False):
     row 5, `sp_launch_counts`), the bytes that expert parallelism's ops
     summed and, under "bytes", what each kind of collective moved (the
     all-reduces, the tp ops' sums and gathers, the pipeline's sends and
-    broadcasts, the ring's shifts), and the batch's [rows, positions]
+    broadcasts, the ring's shifts, the rows that dp groups trade under dp
+    × pp with MoE), and the batch's [rows, positions]
     appended to `steps`, and the parameters before the first step copied
     into `snapshot`."""
     from edgerunner_tpu_torch.parallel import all_reduce_, ep_sum, reduce_from_tp, ring_shift
     from edgerunner_tpu_torch.parallel.pipeline import gpipe
-    from edgerunner_tpu_torch.train.trainer import Trainer
+    from edgerunner_tpu_torch.train.trainer import Trainer, jax_microbatch_rows
 
     original = Trainer.train_step
     counters = {"all_reduce": all_reduce_, "tp": reduce_from_tp, "pipeline": gpipe,
-                "ring": ring_shift, "ep": ep_sum}
+                "ring": ring_shift, "ep": ep_sum, "rows": jax_microbatch_rows}
 
     def counted_step(self, batch):
         if not snapshot:
@@ -4002,7 +4041,7 @@ def phase_image_parity(dev):
     image = dit_image()
     conds = np.stack([image, np.ascontiguousarray(image[:, ::-1])])
     stream = parity_run(dev, PARITY_CUT_STEPS, conds=conds, preset="default",
-                        clip_num_layers=2, decode_bucket=CUT_BUCKET)
+                        clip_num_layers=2, decode_bucket=SHORT_BUCKET)
     opt = image_options(num_layers=2, clip_num_layers=2, mixed_precision="no")
     kernel = init_weights(LMM(opt, device=dev), SEED + 5)
     plain = LMM(opt, device=dev, use_kernels=False)
@@ -4260,7 +4299,7 @@ def moe_decode(dev) -> tuple:
     busy share (a profiled segment). Returns (report, the model)."""
     from edgerunner_tpu_torch.ops.decode_attention import fused_decode_attention
 
-    opt = moe_options(generate_mode="greedy", decode_bucket=CUT_BUCKET)
+    opt = moe_options(generate_mode="greedy", decode_bucket=SHORT_BUCKET)
     model = build_model(opt, dev, torch.bfloat16, SEED)
     with moe_routes() as routes:
         run = timed_generate(model, opt, dev, ROWS, MOE_DECODE_BUDGET)
@@ -4798,10 +4837,109 @@ def layout_parity(dev, layout, opt, batch) -> dict:
     return res
 
 
+def microbatch_reference(model, opt, batch, groups: list, grad: bool) -> tuple:
+    """(loss, loss_moe, {name: gradient} or None) of one process's training
+    forward of the global `batch` cut into `groups` of rows, each forward
+    on its own (so routed as one group), combined as the pipeline combines
+    its microbatches: the cross-entropies weighted by their label counts
+    over the whole batch's, the kl terms (sums over rows) added, loss_moe
+    the mean over the microbatches (and layers) of each one's aux."""
+    from edgerunner_tpu_torch.train.state import frozen_param_keys, trainable_parameters
+
+    dev = next(model.parameters()).device
+    params = trainable_parameters(model, frozen_param_keys(opt, "arae"))
+    count = int((np.asarray(batch["labels"])[:, 1:] != -100).sum())
+    total, moe = 0.0, []
+    with torch.set_grad_enabled(grad):
+        for rows in groups:
+            b = {k: torch.as_tensor(np.asarray(v)[rows], device=dev) for k, v in batch.items()}
+            out = model(b["conds"], b["tokens"], b["labels"], b["num_faces"], b["lengths"],
+                        train=True)
+            labels = int((b["labels"][:, 1:] != -100).sum())
+            total = total + out["loss_ce"] * (labels / count) + opt.kl_weight * out["loss_kl"]
+            moe.append(out["loss_moe"])
+        loss_moe = torch.stack(moe).mean()
+        loss = total + opt.moe_aux_weight * loss_moe
+    grads = (dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+             if grad else None)
+    return float(loss.detach()), float(loss_moe.detach()), grads
+
+
+def moe_dp_pp_parity(dev, layout, opt, batch) -> dict:
+    """One training step at 2 layers, full width, f32 (TF32 off), dropout
+    and num-face dropout off, capacity factor MOE_PARITY_CF (tokens
+    dropped), under dp × pp with each dp group on its contiguous rows of
+    the global `batch` (each rank its shards of seed SEED + 2's weights),
+    against rank 0's one process (`microbatch_reference`) on the JAX
+    pipeline's microbatches, rows [m · B/M, (m + 1) · B/M) of the global
+    batch: the loss, loss_moe, every gradient the optimizer takes (gathered
+    whole) under train parity's rule, and the global norm. The same
+    reference on the microbatches of the contiguous order (each group's
+    own microbatch m together) must fall outside one of those tolerances:
+    the parity tells the two orders apart."""
+    from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+    from edgerunner_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    whole = init_weights(LMM(opt, device=dev), SEED + 2)
+    model = LMM(opt, device=dev, ep=layout.ep, tp=layout.tp, pp=layout.pp)
+    for m in (whole, model):
+        for layer in m.mesh_decoder.model.layers:
+            layer.dropout = 0.0
+    trainer = Trainer(model, opt, total_steps=1000, layout=layout)
+    model.load_state_dict(trainer.shard(whole.state_dict()))
+    seen, update = {}, trainer.optimizer.update
+
+    def capture(grads):
+        seen.update(grads)
+        return update(grads)
+
+    trainer.optimizer.update = capture
+    G, M = layout.dp.size, layout.pp.microbatches
+    out = trainer.train_step(rows_of(batch, layout.dp.rank, G))
+    grads = trainer._gather(seen) if trainer.first_group else None
+    res = {"layers": 2, "dtype": "float32", "tf32": False, "loss": out["loss"],
+           "loss_moe": out["loss_moe"], "grad_norm": out["grad_norm"],
+           "lengths": batch["lengths"].tolist()}
+    del model, trainer, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    if layout.world.rank != 0:
+        return res
+    B = len(batch["lengths"])
+    per, b = B // M, B // G
+    jax_rows = [list(range(m * per, (m + 1) * per)) for m in range(M)]
+    contiguous = [[g * b + m * (b // M) + j for g in range(G) for j in range(b // M)]
+                  for m in range(M)]
+    loss, loss_moe, want = microbatch_reference(whole, opt, batch, jax_rows, grad=True)
+    loss_c, moe_c, grads_c = microbatch_reference(whole, opt, batch, contiguous, grad=True)
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in want.values())))
+    worst, worst_name, _ = grad_err_over_tol({n: g.to(dev) for n, g in grads.items()}, want)
+    loss_err = abs(out["loss"] - loss) / abs(loss)
+    moe_err = abs(out["loss_moe"] - loss_moe) / abs(loss_moe)
+    norm_err = abs(out["grad_norm"] - norm) / norm
+    # the contiguous order's reference against the JAX order's
+    contiguous = {"rows": contiguous, "loss": loss_c,
+                  "loss_rel_diff": abs(loss_c - loss) / abs(loss),
+                  "loss_moe_rel_diff": abs(moe_c - loss_moe) / abs(loss_moe),
+                  "grad_worst_err_over_tol": grad_err_over_tol(grads_c, want)[0]}
+    told_apart = (contiguous["loss_rel_diff"] > 1e-5 or contiguous["loss_moe_rel_diff"] > 1e-5
+                  or contiguous["grad_worst_err_over_tol"] > 1.0)
+    res.update(microbatches_rows=jax_rows, loss_solo=loss, loss_rel_err=loss_err,
+               loss_moe_solo=loss_moe, loss_moe_rel_err=moe_err, grad_norm_solo=norm,
+               grad_norm_rel_err=norm_err, grad_tensors=len(want),
+               grad_worst_err_over_tol=worst, grad_worst_tensor=worst_name,
+               contiguous_order=contiguous, contiguous_order_told_apart=told_apart,
+               ok=bool(loss_err <= 1e-5 and moe_err <= 1e-5 and norm_err <= 1e-5
+                       and worst <= 1.0 and set(grads) == set(want) and told_apart))
+    return res
+
+
 def layout_run(dev, R: int, path: str, name: str) -> dict:
-    """This rank's tp, pp or moe_sp phase in the initialised world of R
-    ranks: `main` under the phase's layout (`layout_main`), then its f32
-    parity at 2 layers (`layout_parity`)."""
+    """This rank's tp, pp, moe_sp or moe_dp_pp phase in the initialised
+    world of R ranks: `main` under the phase's layout (`layout_main`), then
+    its f32 parity at 2 layers (`layout_parity`, `moe_dp_pp_parity`)."""
     from edgerunner_tpu_torch.config import config_defaults
     from edgerunner_tpu_torch.parallel import make_layout
     from edgerunner_tpu_torch.train.trainer import pad_for_sp
@@ -4818,6 +4956,31 @@ def layout_run(dev, R: int, path: str, name: str) -> dict:
         opt = dataclasses.replace(base, tp_size=R)
         layout = make_layout(dev, tp=R)
         batch = train_batch(opt, TRAIN_ROWS, lengths=[T, TRAIN_RAGGED_LEN])
+    elif name == "moe_dp_pp":
+        # as pp: a stage's L / pp layers on each of M microbatches, replayed,
+        # and the point encoder on every rank
+        dp, pp = MOE_DP_PP
+        calls = L // pp * PP_MICROBATCHES
+        want = {"flash_attention_fwd": 2 * calls + 2, "flash_attention_bwd": calls + 1}
+        out["main"] = layout_main(path, name, [
+            "--moe_experts", str(MOE_EXPERTS), "--moe_top_k", str(MOE_TOP_K), "--dp_size",
+            str(dp), "--pp_size", str(pp), "--pp_microbatches", str(PP_MICROBATCHES)], want)
+        opt = moe_options(num_layers=2, mixed_precision="no", batch_size=TRAIN_ROWS,
+                          dp_size=dp, pp_size=pp, pp_microbatches=PP_MICROBATCHES,
+                          scan_layers=True, moe_capacity_factor=MOE_PARITY_CF,
+                          nof_dropout_ratio=0.0)
+        layout = make_layout(dev, dp=dp, pp=pp, microbatches=PP_MICROBATCHES)
+        # the global batch: each group's rows ragged, and other label counts
+        # in each group after the rows are traded than before
+        batch = train_batch(opt, dp * TRAIN_ROWS, lengths=[T, TRAIN_RAGGED_LEN, T - 700, 4500])
+        out["describe"] = layout.describe()
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["parity"] = moe_dp_pp_parity(dev, layout, opt, batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["in_rank_s"] = time.perf_counter() - t0
+        return out
     elif name == "pp":
         # a stage's L / R layers on each of M microbatches, replayed in the
         # backward (checkpointing), and the point encoder on every rank
@@ -4855,7 +5018,8 @@ def layout_run(dev, R: int, path: str, name: str) -> dict:
 
 
 def layout_rank(rank, R, path, names):
-    """One rank of the world that the tp, pp and moe_sp phases share: joins
+    """One rank of the world that the tp, pp and moe_sp phases share (or of
+    moe_dp_pp's own): joins
     the group of R ranks through a file under `path`, runs `names` in turn
     (`layout_run`), and writes its results to path/rank{rank}.json."""
     import torch.distributed as dist
@@ -4876,14 +5040,16 @@ def layout_rank(rank, R, path, names):
         json.dump(out, f)
 
 
-LAYOUT_PHASES = ("tp", "pp", "moe_sp")
-LAYOUT_RANKS = {"tp": TP_RANKS, "pp": PP_RANKS, "moe_sp": MOE_SP_RANKS}
+LAYOUT_PHASES = ("tp", "pp", "moe_sp", "moe_dp_pp")
+LAYOUT_RANKS = {"tp": TP_RANKS, "pp": PP_RANKS, "moe_sp": MOE_SP_RANKS,
+                "moe_dp_pp": MOE_DP_PP[0] * MOE_DP_PP[1]}
 _LAYOUT_RUNS: dict = {}  # phase -> its ranks' results, from the world that ran it
 
 
 def layout_phase(name: str, wanted) -> dict:
-    """The tp, pp or moe_sp phase. The first of them that runs spawns one
-    world for every one of them in `wanted` (ranks that share the card:
+    """The tp, pp, moe_sp or moe_dp_pp phase. The first of them that runs
+    spawns one world for every one of them in `wanted` with its number of
+    ranks (ranks that share the card:
     gloo, pinned host staging; one process start and one CUDA start per
     rank for all), which runs them in turn; each phase then reports its
     ranks' results and, as its seconds, its own time in the ranks
@@ -4898,9 +5064,8 @@ def layout_phase(name: str, wanted) -> dict:
 
     world_s = None
     if name not in _LAYOUT_RUNS:
-        names = [n for n in LAYOUT_PHASES if n in wanted]
         R = LAYOUT_RANKS[name]
-        assert all(LAYOUT_RANKS[n] == R for n in names)
+        names = [n for n in LAYOUT_PHASES if n in wanted and LAYOUT_RANKS[n] == R]
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             mp.spawn(layout_rank, args=(R, tmp, names), nprocs=R, join=True)
@@ -4955,6 +5120,198 @@ def phase_moe_sp(wanted):
     return layout_phase("moe_sp", wanted)
 
 
+def phase_moe_dp_pp(wanted):
+    """The MoE decoder under dp × pp on the card: `main ArAE --moe_experts 4
+    --moe_top_k 2 --dp_size 2 --pp_size 2 --pp_microbatches 2` in 4 ranks,
+    each dp group's microbatches holding the JAX pipeline's rows (the rows
+    traded per step reported), then the f32 parity at 2 layers with
+    capacity factor MOE_PARITY_CF against the JAX pipeline's microbatches
+    in one process."""
+    return layout_phase("moe_dp_pp", wanted)
+
+
+def jax_script_keys(name: str) -> list:
+    """The keys of the JSON that the JAX package's tools/{name}.py writes:
+    its `result = {...}` literal, read from the source (not run)."""
+    import ast
+
+    with open(os.path.join(HERE, "tools", f"{name}.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(isinstance(t, ast.Name) and t.id == "result" for t in node.targets)):
+            return [k.value for k in node.value.keys]
+    raise ValueError(f"tools/{name}.py writes no result literal")
+
+
+@contextlib.contextmanager
+def decode_calls():
+    """The decode steps (`LMM.step`) by cache kind (kv_quant, kv_bits) and
+    the verify passes (`LMM.verify_step`) with their queries per row, made
+    inside."""
+    from edgerunner_tpu_torch.models.lmm import LMM
+
+    calls = {"steps": {}, "verify": 0, "verify_T": []}
+    step, verify = LMM.step, LMM.verify_step
+
+    def counted_step(self, *a, **kw):
+        kind = (bool(self.opt.kv_quant), self.opt.kv_bits if self.opt.kv_quant else 16)
+        calls["steps"][kind] = calls["steps"].get(kind, 0) + 1
+        return step(self, *a, **kw)
+
+    def counted_verify(self, token_ids, *a, **kw):
+        calls["verify"] += 1
+        if token_ids.shape[1] not in calls["verify_T"]:
+            calls["verify_T"].append(token_ids.shape[1])
+        return verify(self, token_ids, *a, **kw)
+
+    LMM.step, LMM.verify_step = counted_step, counted_verify
+    try:
+        yield calls
+    finally:
+        LMM.step, LMM.verify_step = step, verify
+
+
+def tool_run(fn, argv: list, layers: int) -> dict:
+    """One tool's `main` (or `run`) on the card: its result, seconds, and
+    every decode kernel's launches (zeroed just before, read just after)
+    against what its decode steps and verify passes make: B (bf16 cache),
+    D's int8 and int4 single-query kinds once per layer and step of their
+    cache, D's bf16 multi-query kind once per layer and verify pass."""
+    from edgerunner_tpu_torch.ops.flash_attention import flash_attention
+
+    for fn_ in (flash_attention, *decode_wrappers()):
+        fn_.launches = 0
+    with decode_calls() as calls:
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    got = {w.__name__: w.launches for w in decode_wrappers()}
+    want = {w.__name__: 0 for w in decode_wrappers()}
+    steps = calls["steps"]
+    want["fused_decode_attention"] = layers * steps.get((False, 16), 0)
+    want["fused_decode_attention_q8"] = layers * steps.get((True, 8), 0)
+    want["fused_decode_attention_q4"] = layers * steps.get((True, 4), 0)
+    want["fused_decode_attention_multi"] = layers * calls["verify"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"result": out[0] if isinstance(out, tuple) else out, "seconds": seconds,
+            "decode_steps": {f"kv{k[1]}" if k[0] else "bf16": n for k, n in steps.items()},
+            "verify_passes": calls["verify"], "verify_T": calls["verify_T"],
+            "launches": {"flash_attention_fwd": flash_attention.launches, **got},
+            "launches_expected": want, "launches_ok": got == want}
+
+
+def tool_meshes(root: str) -> dict:
+    """Two procedural meshes, an .obj and a .ply in a subfolder: {relpath:
+    faces}."""
+    from edgerunner_tpu_torch.data._procgen import icosphere
+    from edgerunner_tpu_torch.data.mesh_io import save_obj, save_ply
+
+    v, f = icosphere(2)
+    box_v = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], [0, 0, 1], [1, 0, 1],
+                      [1, 1, 1], [0, 1, 1]], np.float32)
+    box_f = np.array([[0, 1, 2], [0, 2, 3], [0, 4, 5], [0, 5, 1], [1, 5, 6], [1, 6, 2],
+                      [2, 6, 7], [2, 7, 3], [3, 7, 4], [3, 4, 0], [4, 7, 6], [4, 6, 5]])
+    os.makedirs(os.path.join(root, "sub"), exist_ok=True)
+    save_obj(os.path.join(root, "sphere.obj"), np.asarray(v, np.float32), f)
+    save_ply(os.path.join(root, "sub", "box.ply"), box_v, box_f)
+    return {"sphere.obj": len(f), os.path.join("sub", "box.ply"): len(box_f)}
+
+
+def phase_tools(dev):
+    """The checkpoint tools as `python -m edgerunner_tpu_torch.<tool>` runs
+    them, on the card: random weights (seed SEED + 5, draft heads drawn) at
+    TOOLS_SHAPE written as a `.safetensors` file, the ArAE preset's decode
+    bucket cut to TOOLS_BUCKET for the run's time; `spec_stats` and
+    `bench_spec` with TOOLS_HEADS heads, `kv_quant_quality --mode kv` (the
+    int8 cache) and `--mode both --kv_bits 4` (the int4 cache and int8
+    weights), TOOLS_ROWS rows of TOOLS_FACES faces, EOS allowed. Each
+    tool's decode kernels held exactly to the steps and passes it ran
+    (`tool_run`), bench_spec's verify passes at T = 1 + TOOLS_HEADS, each
+    JSON's keys to the JAX script's (bench_spec's and one more,
+    tokens_per_pass); then `make_manifest` and `visualize_traversal`
+    (order and type coloring) on two procedural meshes."""
+    import tempfile
+
+    from edgerunner_tpu_torch import (
+        bench_spec,
+        kv_quant_quality,
+        make_manifest,
+        spec_stats,
+        visualize_traversal,
+    )
+    from edgerunner_tpu_torch import config as tconfig
+    from edgerunner_tpu_torch.models.lmm import LMM, init_weights
+    from edgerunner_tpu_torch.tool_common import tool_options
+    from edgerunner_tpu_torch.weights import reference_state_dict, write_safetensors
+
+    layers = int(TOOLS_SHAPE[TOOLS_SHAPE.index("--num_layers") + 1])
+    res = {"card": card_line(), "shape": list(TOOLS_SHAPE), "rows": TOOLS_ROWS,
+           "faces": TOOLS_FACES, "bucket": TOOLS_BUCKET}
+    preset = tconfig.config_defaults["ArAE"]
+    tconfig.config_defaults["ArAE"] = dataclasses.replace(preset, decode_bucket=TOOLS_BUCKET)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            import argparse
+
+            shape = argparse.Namespace(**{k[2:]: int(v) for k, v in
+                                          zip(TOOLS_SHAPE[::2], TOOLS_SHAPE[1::2])})
+            opt = tool_options(shape, mtp_heads=TOOLS_HEADS)
+            model = set_draft_heads(init_weights(LMM(opt, device=dev), SEED + 5), SEED + 5)
+            weights = os.path.join(tmp, "weights.safetensors")
+            write_safetensors(weights, reference_state_dict(model))
+            del model
+            common = ["--resume", weights, "--batch", str(TOOLS_ROWS), "--faces",
+                      str(TOOLS_FACES), *TOOLS_SHAPE]
+            heads = ["--mtp_heads", str(TOOLS_HEADS)]
+            runs = {"spec_stats": (spec_stats.main, [*common, *heads]),
+                    "bench_spec": (bench_spec.run, [*common, *heads, "--repeats", "1"]),
+                    "kv8": (kv_quant_quality.main, [*common, "--mode", "kv"]),
+                    "kv4_w": (kv_quant_quality.main, [*common, "--mode", "both",
+                                                      "--kv_bits", "4"])}
+            for name, (fn, argv) in runs.items():
+                res[name] = tool_run(fn, [*argv, "--out", os.path.join(tmp, f"{name}.json")],
+                                     layers)
+            root = os.path.join(tmp, "meshes")
+            faces = tool_meshes(root)
+            t0 = time.perf_counter()
+            with open(make_manifest.main([root])) as f:
+                manifest = json.load(f)
+            plys = {}
+            for mode in ("order", "type"):
+                out = visualize_traversal.main([os.path.join(root, "sphere.obj"),
+                                                os.path.join(tmp, f"{mode}.ply"),
+                                                "--mode", mode])
+                with open(out, "rb") as f:
+                    data = f.read()
+                plys[mode] = {"bytes": len(data),
+                              "header_ok": data.startswith(b"ply\nformat binary_little_endian")}
+            res["host_tools"] = {"seconds": time.perf_counter() - t0, "manifest": manifest,
+                                 "manifest_ok": manifest == faces, "ply": plys}
+    finally:
+        tconfig.config_defaults["ArAE"] = preset
+    keys = {}
+    for name, script in (("spec_stats", "spec_stats"), ("bench_spec", "bench_spec"),
+                         ("kv8", "kv_quant_quality"), ("kv4_w", "kv_quant_quality")):
+        want = jax_script_keys(script) + (["tokens_per_pass"] if script == "bench_spec" else [])
+        keys[name] = list(res[name]["result"]) == want
+    res["keys_equal_jax_scripts"] = keys
+    spec, bench = res["spec_stats"]["result"], res["bench_spec"]
+    res["ok"] = bool(
+        all(res[n]["launches_ok"] for n in runs) and all(keys.values())
+        and res["host_tools"]["manifest_ok"]
+        and all(p["header_ok"] and p["bytes"] > 1000 for p in plys.values())
+        and len(spec["head_match_rates"]) == TOOLS_HEADS
+        and bench["verify_T"] == [1 + TOOLS_HEADS] and bench["verify_passes"] > 0
+        and res["spec_stats"]["decode_steps"].get("bf16", 0) > 0
+        and res["kv8"]["decode_steps"].get("kv8", 0) > 0
+        and res["kv4_w"]["decode_steps"].get("kv4", 0) > 0
+        and all(len(res[n]["result"]["rows"]) == TOOLS_ROWS for n in ("kv8", "kv4_w")))
+    return res
+
+
 def kernels_line(results):
     """One entry per kernel: main-path numbers from this run; launches from
     the path that runs it, each counted from 0 over its run: the generate
@@ -4974,7 +5331,11 @@ def kernels_line(results):
     engine), expert parallelism (A and C per step and rank of `main` under
     ep), LoRA (A and C per step of `main`, A and B in its bf16 decode) and
     `main` under tp, pp and MoE × sp (A and C per step and rank, the ring's
-    row 5 per step on each rank), with A and C at the tp shapes."""
+    row 5 per step on each rank), with A and C at the tp shapes, `main`
+    with MoE under dp × pp (A and C per step and rank) and the checkpoint
+    tools (A in each tool's prefills and spec_stats' teacher-forced pass,
+    B in their bf16 decodes, D bf16 in bench_spec's verify passes at T =
+    4, D's int8 and int4 kinds in kv_quant_quality's quantised decodes)."""
     kern, gen, train, serve, spec, sp, dp = (results[k] for k in (
         "kernels", "generate", "train", "serve", "spec", "sp", "dp"))
     dp_train_step = dp["ranks"][0]["train"]["launches_per_step"][-1]
@@ -4992,6 +5353,9 @@ def kernels_line(results):
     tp_step, pp_step, moe_sp_step = (results[k]["ranks"][0]["main"]["launches_per_step"][-1]
                                      for k in ("tp", "pp", "moe_sp"))
     moe_sp_ranks = [rk["main"]["launches_per_step"][-1] for rk in results["moe_sp"]["ranks"]]
+    moe_dp_pp_step = results["moe_dp_pp"]["ranks"][0]["main"]["launches_per_step"][-1]
+    tools = {k: results["tools"][k]["launches"] for k in ("spec_stats", "bench_spec", "kv8",
+                                                          "kv4_w")}
     gen_q8, gen_q4 = results["generate_q8"], results["generate_q4"]
     def case(cases, prefix):
         return next(c for c in cases if c["case"].startswith(prefix))
@@ -5067,7 +5431,11 @@ def kernels_line(results):
                                 "tp_main_per_step_and_rank": tp_step["flash_attention_fwd"],
                                 "pp_main_per_step_and_rank": pp_step["flash_attention_fwd"],
                                 "moe_sp_main_per_step_and_rank":
-                                    moe_sp_step["flash_attention_fwd"]},
+                                    moe_sp_step["flash_attention_fwd"],
+                                "moe_dp_pp_main_per_step_and_rank":
+                                    moe_dp_pp_step["flash_attention_fwd"],
+                                **{f"tools_{k}": v["flash_attention_fwd"]
+                                   for k, v in tools.items()}},
               tp_train_decoder_shape=sub(case(kern["flash"], "decoder train tp2")),
               tp_train_encoder_shape=sub(case(kern["flash"], "encoder train tp2")),
               encoder_shape=sub(case(kern["flash"], "encoder (main")),
@@ -5091,7 +5459,9 @@ def kernels_line(results):
                                 "generate_eval": extras["eval_launches"]["fused_decode_attention"],
                                 "moe_decode": moe["decode"]["launches"]["fused_decode_attention"],
                                 "lora_decode":
-                                    lora["decode_bf16"]["launches"]["fused_decode_attention"]},
+                                    lora["decode_bf16"]["launches"]["fused_decode_attention"],
+                                **{f"tools_{k}": v["fused_decode_attention"]
+                                   for k, v in tools.items()}},
               image_d64_shape=sub(case(kern["decode"], "image index"))),
         entry("flash_attention_bwd", "flash_bwd.cu", "edgerunner_tpu/ops/flash_attention.py:520",
               train["launches"]["flash_attention_bwd"], bwd, lengths=bwd["kv_len"],
@@ -5109,7 +5479,9 @@ def kernels_line(results):
                                 "tp_main_per_step_and_rank": tp_step["flash_attention_bwd"],
                                 "pp_main_per_step_and_rank": pp_step["flash_attention_bwd"],
                                 "moe_sp_main_per_step_and_rank":
-                                    moe_sp_step["flash_attention_bwd"]},
+                                    moe_sp_step["flash_attention_bwd"],
+                                "moe_dp_pp_main_per_step_and_rank":
+                                    moe_dp_pp_step["flash_attention_bwd"]},
               tp_train_decoder_shape=sub(case(kern["flash_bwd"], "decoder train tp2")),
               tp_train_encoder_shape=sub(case(kern["flash_bwd"], "encoder train tp2")),
               encoder_shape=sub(case(kern["flash_bwd"], "encoder train")),
@@ -5127,7 +5499,10 @@ def kernels_line(results):
                                           spec_generate=spec["generate_bf16"],
                                           spec_engine=spec["engine_bf16"]),
                                 "dp_engine_fleet": engine_fleet["fused_decode_attention_multi"],
-                                "moe_serve": moe["serve"]["launches"]["fused_decode_attention_multi"]},
+                                "moe_serve":
+                                    moe["serve"]["launches"]["fused_decode_attention_multi"],
+                                "tools_bench_spec_t4":
+                                    tools["bench_spec"]["fused_decode_attention_multi"]},
               t3_shape=sub(case(multi, "engine bf16 T=3")),
               f32_shape=sub(case(multi, "engine f32 T=1"))),
         entry("fused_decode_attention_q8_multi", "decode_attention_quant.cu",
@@ -5138,7 +5513,9 @@ def kernels_line(results):
         entry("fused_decode_attention_q8", "decode_attention_quant.cu",
               "edgerunner_tpu/ops/decode_attention_pallas.py:445",
               gen_q8["launches"]["fused_decode_attention_q8"],
-              case(multi, "generate q8 index"), index=case(multi, "generate q8 index")["index"]),
+              case(multi, "generate q8 index"), index=case(multi, "generate q8 index")["index"],
+              launches_by_path={"generate_q8": gen_q8["launches"]["fused_decode_attention_q8"],
+                                "tools_kv8": tools["kv8"]["fused_decode_attention_q8"]}),
         entry("fused_decode_attention_q4_multi", "decode_attention_quant.cu",
               "edgerunner_tpu/ops/decode_attention_pallas.py:824",
               bench_q4["launches"]["fused_decode_attention_q4_multi"],
@@ -5152,7 +5529,9 @@ def kernels_line(results):
         entry("fused_decode_attention_q4", "decode_attention_quant.cu",
               "edgerunner_tpu/ops/decode_attention_pallas.py:401",
               gen_q4["launches"]["fused_decode_attention_q4"],
-              case(multi, "generate q4 index"), index=case(multi, "generate q4 index")["index"]),
+              case(multi, "generate q4 index"), index=case(multi, "generate q4 index")["index"],
+              launches_by_path={"generate_q4": gen_q4["launches"]["fused_decode_attention_q4"],
+                                "tools_kv4_w": tools["kv4_w"]["fused_decode_attention_q4"]}),
         entry("flash_attention_lse", "flash_fwd.cu", "edgerunner_tpu/ops/flash_attention.py:1363",
               sp_launches("flash_attention_lse"), lse_main,
               launches_by_rank=[rk["train"]["launches"]["flash_attention_lse"]
@@ -5204,7 +5583,8 @@ def main(argv=None) -> int:
             "image_train": lambda: phase_image_train(dev), "moe": lambda: phase_moe(dev),
             "ep": lambda: phase_ep(dev), "lora": lambda: phase_lora(dev),
             "tp": lambda: phase_tp(wanted), "pp": lambda: phase_pp(wanted),
-            "moe_sp": lambda: phase_moe_sp(wanted)}
+            "moe_sp": lambda: phase_moe_sp(wanted),
+            "moe_dp_pp": lambda: phase_moe_dp_pp(wanted), "tools": lambda: phase_tools(dev)}
     results, ok = {}, True
     for name in PHASES:
         if name not in wanted:

@@ -408,11 +408,6 @@ def parse_cli(argv: Optional[List[str]] = None, prog: str = "edgerunner-tpu") ->
     return opt
 
 
-# the one combination of the JAX package's mesh that the port refuses
-MOE_DP_PP_REFUSED = ("moe_experts under dp x pp is not supported by the port: the JAX "
-                     "pipeline routes each microbatch's rows of every dp group together "
-                     "(its dp axis stays automatic inside the pipeline); train MoE under "
-                     "pp with --dp_size 1")
 # gradient-checkpointing policies: 'full' recomputes each decoder layer in
 # the backward pass, 'attn' keeps its attention output (models/shape_opt.py)
 REMAT_POLICIES = ("full", "attn")
@@ -441,9 +436,9 @@ def validate(opt: Options) -> Options:
     divide into the stages (:432-434), a batch that does not divide into
     the microbatches (trainer.py:141-145; the port's `batch_size` is per
     rank, so it is the rank's batch). `pp_size` > 1 sets `scan_layers`
-    (:435). One combination the JAX package trains is refused: MoE under dp
-    × pp, whose JAX microbatches route rows of several dp groups together
-    (pipeline.py:84-93)."""
+    (:435). MoE under dp × pp is taken: the trainer routes each of the JAX
+    pipeline's microbatches whole, whose rows come from several dp groups
+    (pipeline.py:84-93; train/trainer.py `jax_microbatch_rows`)."""
     if opt.cond_mode in ("point", "point_latent"):
         # 'point_latent' takes the latents that 'point' encodes: the same
         # condition tokens, and the DiT pipeline's frozen 'embed' encoder
@@ -479,8 +474,6 @@ def validate(opt: Options) -> Options:
         if opt.pp_microbatches < 0 or opt.batch_size % m:
             raise ValueError(f"batch_size ({opt.batch_size}, per rank) must be divisible by "
                              f"pp_microbatches ({m})")
-        if opt.moe_experts and opt.dp_size > 1:
-            raise ValueError(MOE_DP_PP_REFUSED)
         opt.scan_layers = True
     if opt.moe_experts:
         if opt.moe_top_k > opt.moe_experts:

@@ -77,7 +77,10 @@ microbatches (0: S) of its rows, which `--batch_size` must divide
 the port's checkpoints keep the per-layer naming at every pp). The
 weights of every layout are the one-process model's of the same seed,
 cut to the rank's shards; checkpoints hold whole tensors, gathered to
-rank 0, and load at any layout. MoE routes the whole batch under sp too.
+rank 0, and load at any layout. MoE routes the whole batch under sp too,
+and under dp × pp each of the JAX pipeline's microbatches whole, whose
+rows the dp groups trade before each step (train/trainer.py
+`jax_microbatch_rows`).
 LoRA fine-tuning (`--resume dense.safetensors --lora_rank 8
 --lora_alpha 16`) updates the adapters only;
 `python -m edgerunner_tpu_torch.merge_lora` folds them back. Rank 0 logs and writes the checkpoints; every dp group

@@ -11,7 +11,6 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from edgerunner_tpu_torch.config import MOE_DP_PP_REFUSED
 from edgerunner_tpu_torch.data.dataset import shard_items_for_host
 from edgerunner_tpu_torch.parallel import (
     DataParallel,
@@ -33,8 +32,6 @@ def run_ranks(opt, device: torch.device, module: str, train_fn):
              else int(os.environ.get("WORLD_SIZE", "1")))
     dp_size = dp_for_world(opt.dp_size, opt.sp_size, world, module, opt.ep_size,
                            opt.tp_size, opt.pp_size)
-    if opt.moe_experts and opt.pp_size > 1 and dp_size > 1:
-        raise ValueError(MOE_DP_PP_REFUSED)
     if world == 1:
         return train_fn(opt, device)
     device = rank_device(device.type)

@@ -57,7 +57,12 @@ the ep group. Saves gather the experts and their optimizer state into full
 [E, ...] tensors (`checkpoint_parts`), which load at any ep: each rank
 slices its share of a file's experts (`shard`). Under dp with MoE
 every group's rows are padded to the longest group's length first, so
-that the step routes one global batch, as the JAX step's has one length.
+that the step routes one global batch, as the JAX step's has one length;
+under dp × pp the groups then trade rows (`jax_microbatch_rows`), so that
+each microbatch routes the global rows of the JAX pipeline's microbatch,
+in its order. The eval paths (`eval_step`, `eval_loss`, `eval_epoch`)
+trade none: every dp group evaluates the whole batch outside the dp
+context, so its microbatches are the JAX pipeline's already.
 MoE's aux loss joins the metrics as loss_moe, in the JAX log's format.
 
 All of these, and tensor and pipeline parallelism, come as one `layout`
@@ -195,6 +200,37 @@ def pad_rows(batch: dict, multiple: int) -> dict:
             fill = np.full_like(fill, -100)
         out[k] = np.concatenate([v, fill], axis=0)
     return out
+
+
+def jax_microbatch_rows(batch: dict, dp, microbatches: int, device) -> dict:
+    """The rows of dp group `dp.rank` under dp × pp as the JAX pipeline
+    cuts the global batch (edgerunner_tpu/parallel/pipeline.py:43-93): its
+    body sees the B = G · b rows of the G groups in dp order and takes
+    microbatch m as rows [m · B/M, (m + 1) · B/M). So the group's local
+    microbatch m (its rows [m · b/M, (m + 1) · b/M)) takes the global rows
+    m · B/M + d · b/M + [0, b/M), and `route` (models/moe.py), which
+    queues a microbatch's tokens in (dp group, row) order over `dp.data`,
+    routes each JAX microbatch whole in JAX's row order. One all-gather of
+    every array over `dp.data` (the ranks that share this rank's pp, tp
+    and ep coordinates); `jax_microbatch_rows.bytes` counts the bytes that
+    this rank takes from the others. The loss and its label count are sums
+    over rows, so a step's sums do not change."""
+    G, d = dp.size, dp.rank
+    b = len(np.asarray(batch["labels"]))
+    per = b // microbatches
+    take = torch.tensor([m * G * per + d * per + i for m in range(microbatches)
+                         for i in range(per)])
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(np.ascontiguousarray(v), device=device)
+        parts = all_gather(v, dp.data)  # sp is 1 under pp: one part per dp group
+        jax_microbatch_rows.bytes += v.numel() * v.element_size() * (len(parts) - 1)
+        every = torch.cat(parts)
+        out[k] = every[take.to(every.device)].cpu().numpy()
+    return out
+
+
+jax_microbatch_rows.bytes = 0
 
 
 class Trainer:
@@ -403,13 +439,19 @@ class Trainer:
 
     def _dp_moe_batch(self, batch: dict) -> dict:
         """Under dp with MoE, this group's rows padded to the longest
-        group's length: the step routes one global batch."""
+        group's length: the step routes one global batch. Under dp × pp
+        with more than one microbatch, then the rows of JAX's microbatches
+        (`jax_microbatch_rows`)."""
         if self.dp is None or not self.opt.moe_experts:
             return batch
         T = np.asarray(batch["labels"]).shape[1]
         longest = max(int(t) for t in all_gather(
             torch.tensor([T], device=self.device), self.dp.data))
-        return pad_to_length(batch, longest - T, self.opt.pad_token_id)
+        batch = pad_to_length(batch, longest - T, self.opt.pad_token_id)
+        if self.pp is None or self.pp.microbatches == 1:
+            return batch
+        return jax_microbatch_rows({k: batch[k] for k in self.batch_keys}, self.dp,
+                                   self.pp.microbatches, self.device)
 
     @staticmethod
     def _summed(out: dict, group: Optional[Group]) -> dict:

@@ -16,8 +16,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "edgerunner_tpu")
 
 
 def _port_files():
+    """The port's package, its scripts under tools/ (tools/torch_*.py) and
+    chip_smoke.py, last."""
     files = sorted(glob.glob(os.path.join(ROOT, "edgerunner_tpu_torch", "**", "*.py"),
                              recursive=True))
+    files += sorted(glob.glob(os.path.join(ROOT, "tools", "torch_*.py")))
     return files + [os.path.join(ROOT, "chip_smoke.py")]
 
 
@@ -99,21 +102,20 @@ def test_validate_accepts_dp_size_and_refuses_the_training_options_not_ported_ye
 
     # the JAX package's asserts (config.py:428-452, trainer.py:125-145) are
     # ValueErrors: sp with tp or pp, layers or a batch that do not divide
-    # into the stages or microbatches; MoE under dp x pp is the port's one
-    # refusal of a combination the JAX package trains
+    # into the stages or microbatches
     for change in (dict(dp_size=0), dict(dp_size=-2), dict(tp_size=0), dict(pp_size=0),
                    dict(sp_size=2, tp_size=2), dict(sp_size=2, pp_size=2),
                    dict(pp_size=5), dict(pp_size=2, batch_size=3),
                    dict(pp_size=2, pp_microbatches=4, batch_size=2),
-                   dict(pp_size=2, moe_experts=4, dp_size=2),
                    dict(moe_experts=2, moe_top_k=3), dict(ep_size=2),
                    dict(moe_experts=3, ep_size=2), dict(lora_rank=8, w_quant=True),
                    dict(lora_rank=8, moe_experts=4), dict(lora_rank=-1)):
         with pytest.raises(ValueError):
             validate(dataclasses.replace(config_defaults["ArAE"], **change))
-    # tp, pp with the stacked layout and MoE under sp are ported; pp sets
-    # scan_layers, as the JAX validate does (config.py:435)
-    for ok in (dict(tp_size=2), dict(tp_size=2, dp_size=2), dict(pp_size=2),
+    # tp, pp with the stacked layout, MoE under sp and under dp x pp are
+    # ported; pp sets scan_layers, as the JAX validate does (config.py:435)
+    for ok in (dict(pp_size=2, moe_experts=4, dp_size=2),
+               dict(tp_size=2), dict(tp_size=2, dp_size=2), dict(pp_size=2),
                dict(pp_size=2, pp_microbatches=2, batch_size=4), dict(pp_size=2, tp_size=2),
                dict(scan_layers=True), dict(moe_experts=4, sp_size=2),
                dict(moe_experts=4, sp_size=2, dp_size=2), dict(moe_experts=4, pp_size=2),
@@ -237,3 +239,21 @@ def test_pipeline_server_without_a_card_or_device_cpu_raises():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="--device cpu"):
         serve.main(["ArAE", "--resume2", "dit.safetensors"])
+
+
+def test_checkpoint_tools_load_no_jax():
+    """The tools' modules and the trained-checkpoint script are covered by
+    the import scan above, and importing the modules loads no JAX."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    mods = ("spec_stats", "bench_spec", "kv_quant_quality", "make_manifest",
+            "visualize_traversal", "tool_common")
+    for mod in mods:
+        assert f"edgerunner_tpu_torch/{mod}.py" in files, mod
+    assert "tools/torch_trained_tools.py" in files and "tools/torch_dp_cards.py" in files
+    code = ("import sys; " + "; ".join(f"import edgerunner_tpu_torch.{m}" for m in mods)
+            + "; bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

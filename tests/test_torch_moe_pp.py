@@ -10,12 +10,20 @@ differ from one device's, and with 1 they are one device's. One
 `Trainer.train_step` over gloo CPU processes (tests/torch_layout_workers.py):
 pp 2 and pp 2 × ep 2 with 2 microbatches against the JAX pipeline on
 their meshes, pp 2 with 1 microbatch against one device and the port's
-one process (tests/layout_parity.py):
+one process (tests/layout_parity.py); dp 2 × pp 2 with 2 microbatches
+against the JAX pipeline on its mesh, whose microbatch m is rows [m ·
+B/M, (m + 1) · B/M) of the global batch: the whole of dp group 0's rows
+for m = 0, so the groups trade rows before the step
+(`jax_microbatch_rows`), and `make_batch`'s ragged rows give the groups
+other label counts after the trade as before it:
 
 - the loss, loss_moe, the gradients the optimizer takes (gathered whole)
   and the global norm;
 - every rank's whole weights (the embeddings, the condition encoder,
-  lm_head) bit-equal after the step.
+  lm_head) bit-equal after the step;
+- under dp 2 × pp 2 the held-out loss of the whole batch (`eval_epoch`,
+  every dp group on every row, no rows traded) against the JAX
+  objective's loss without its aux term.
 
 Tolerance: atol 1e-5, rtol 1e-4.
 """
@@ -23,6 +31,7 @@ Tolerance: atol 1e-5, rtol 1e-4.
 import functools
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import pytest
 
 from layout_parity import (
@@ -43,7 +52,8 @@ from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 MOE_KW = dict(KW, **MOE)
 CASES = {"pp2": (dict(MOE_KW, pp_microbatches=2), {"pp": 2}),
          "pp2_m1": (dict(MOE_KW, pp_microbatches=1), {"pp": 2}),
-         "pp2xep2": (dict(MOE_KW, pp_microbatches=2), {"pp": 2, "ep": 2})}
+         "pp2xep2": (dict(MOE_KW, pp_microbatches=2), {"pp": 2, "ep": 2}),
+         "dp2xpp2": (dict(MOE_KW, pp_microbatches=2), {"dp": 2, "pp": 2})}
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,3 +114,16 @@ def test_two_microbatches_route_otherwise():
     equality above is the per-microbatch routing's."""
     whole, split = objective("pp2_m1"), objective("pp2")
     assert abs(whole[0] - split[0]) > 5 * (TOL["atol"] + TOL["rtol"] * abs(whole[0]))
+
+
+def test_dp2xpp2_eval_loss_routes_the_jax_microbatches(runs):
+    """Before the step every rank's eval of the whole batch is the JAX
+    pipeline's loss on the dp 2 × pp 2 mesh without the aux term (the eval
+    step leaves loss_moe out)."""
+    from edgerunner_tpu.config import Options
+
+    kw, _ = CASES["dp2xpp2"]
+    loss, moe, _, _ = objective("dp2xpp2")
+    want = loss - Options(**kw).moe_aux_weight * moe
+    for res in runs["dp2xpp2"]:
+        np.testing.assert_allclose(float(res["dp2xpp2/eval"]), want, **TOL)

@@ -23,7 +23,7 @@ result a dense model's pipeline gives on any mesh:
   weights' held-out loss is the same at both (`--debug_eval`: residual
   dropout draws per microbatch under pp, so trained losses differ);
 - the refusals: the decode paths and `main --eval_mode generate` under the
-  stacked layout, `main_dit --pp_size`, MoE under dp × pp.
+  stacked layout, `main_dit --pp_size`; MoE under dp × pp is accepted.
 
 Tolerance: atol 1e-5, rtol 1e-4.
 """
@@ -235,7 +235,17 @@ def test_the_stacked_layout_is_refused_where_the_jax_package_refuses_it(monkeypa
         tmain.main(main_argv(str(tmp_path / "g"), "--pp_size", "2", "--eval_mode", "generate"))
     with pytest.raises(ValueError, match="--pp_size"):
         tmain_dit.main(["DiT", "--device", "cpu", "--pp_size", "2"])
-    # MoE under dp x pp: dp -1 takes world / pp = 2 here
+    # MoE under dp x pp is accepted (dp -1 takes world / pp = 2 here): main
+    # gets past validate and the layout's checks to joining the world
+    from edgerunner_tpu_torch.train import ranks
+
+    class Joined(Exception):
+        pass
+
+    def join(device):
+        raise Joined
+
+    monkeypatch.setattr(ranks, "init_distributed", join)
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(ValueError, match="dp x pp"):
+    with pytest.raises(Joined):
         tmain.main(main_argv(str(tmp_path / "m"), "--pp_size", "2", "--moe_experts", "4"))

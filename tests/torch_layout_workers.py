@@ -56,9 +56,13 @@ def layout_step(trainer, batch, tag: str) -> dict:
 
     trainer.optimizer.update = capture
     dp = trainer.dp
+    out = {}
+    if trainer.opt.moe_experts and dp is not None and trainer.pp is not None:
+        # MoE under dp x pp: the held-out loss of the whole batch first
+        out[f"{tag}/eval"] = np.float64(trainer.eval_epoch([batch], 0))
     m = trainer.train_step(_rows(batch, 0 if dp is None else dp.rank,
                                  1 if dp is None else dp.size))
-    out = {f"{tag}/metric/{k}": np.float64(v) for k, v in m.items()}
+    out.update({f"{tag}/metric/{k}": np.float64(v) for k, v in m.items()})
     if trainer.first_group:
         grads = trainer._gather(seen)
         params = trainer._gather(dict(trainer.model.named_parameters()))
