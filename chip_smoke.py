@@ -283,7 +283,12 @@ Phases, one JSON line each:
              to the JAX scripts'; `make_manifest` and `visualize_traversal`
              (both color modes) on two procedural meshes.
 The sp, dp and ep phases' full-width training runs 4 of the 24 layers
-too (MULTI_RANK_LAYERS): a layer's kernel shapes are the same.
+too (MULTI_RANK_LAYERS): a layer's kernel shapes are the same. The
+multi-rank phases (sp, dp, ep, tp, pp, moe_sp, moe_dp_pp) place rank r on
+cuda:r % cards: on one card their ranks share it (gloo, every collective
+staged through pinned host memory), on a machine with a card per rank they
+take NCCL (`choose_backend`); each reports its backend, and its checks
+are the same under both.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit from nvidia-smi, and last the result line. Exits non-zero, printing
@@ -2604,6 +2609,16 @@ def phase_train_extras(dev):
 
 # ---------------------------------------------------------------------- sp --
 
+def ranks_label(n: int) -> str:
+    """How this world's n ranks hold the cards: a card each (NCCL) or one
+    card shared (gloo, staged through pinned host memory)."""
+    import torch.distributed as dist
+
+    if dist.get_backend() == "nccl":
+        return f"{n} ranks, one card each (nccl)"
+    return f"{n} ranks sharing one card (gloo)"
+
+
 def param_checksum(params) -> int:
     """An exact fingerprint of f32 parameters: the sum of their bits as int64."""
     return int(sum(p.detach().view(torch.int32).long().sum().item() for p in params))
@@ -2723,7 +2738,7 @@ def sp_train(dev, sp) -> dict:
     res.update(
         warmup_s=steps[0]["s"], timed_steps=SP_TRAIN_STEPS,
         s_per_it=sum(st["s"] for st in steps[1:]) / SP_TRAIN_STEPS,
-        s_per_it_label=f"{sp.size} ranks sharing one card",
+        s_per_it_label=ranks_label(sp.size),
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
         ring_bytes_per_step=steps[-1]["ring_bytes"],
         allreduce_bytes_per_step=sum(p.numel() * p.element_size()
@@ -2848,6 +2863,7 @@ def phase_sp(dev):
             res[f"R{R}"] = {"seconds": time.perf_counter() - t0,
                             "backend": ranks[0]["backend"], "staged": ranks[0]["staged"],
                             "expected_backend": choose_backend(dev, R), "ranks": ranks}
+    res["backend"] = ",".join(sorted({res[f"R{R}"]["backend"] for R in SP_RING_RANKS}))
     ok = True
     for R in SP_RING_RANKS:
         ranks = res[f"R{R}"]["ranks"]
@@ -2932,7 +2948,7 @@ def dp_train(dev, layout) -> dict:
     res.update(
         warmup_s=steps[0]["s"], timed_steps=DP_TRAIN_STEPS,
         s_per_it=sum(st["s"] for st in steps[1:]) / DP_TRAIN_STEPS,
-        s_per_it_label=f"{dp.size} ranks sharing one card",
+        s_per_it_label=ranks_label(dp.size),
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
         allreduce_bytes_per_step=steps[-1]["allreduce_bytes"],
         gradient_bytes=sum(p.numel() * p.element_size() for p in trainer.params.values()),
@@ -3708,6 +3724,27 @@ def profile_dit_train_step(trainer, batch) -> dict:
             "top_kernels_ms": [(k[:60], ms) for k, ms in kernels[:16]]}
 
 
+def step_launches(layers: int, pp: int = 1, microbatches: int = 0, sp: int = 1,
+                  sp_rank: int = 0, dit: bool = False) -> dict:
+    """Kernel A's and C's launches (under sp also row 5's) in one training
+    step of `main` on a rank of its layout, with checkpointing (each
+    attention's forward replayed in the backward): every decoder layer's
+    attention and the point encoder's; under pp the stage's layers / pp
+    layers on each of its microbatches (pp of them unless given); under sp
+    row 5 on the decoder, r + 1 blocks on sp rank r, and A on the point
+    encoder alone. `dit`: `main_dit`'s step, the self and cross attention
+    of each of the MDiT's `layers` and the frozen point encoder's
+    forward. The keys are those `counted_train_steps` records."""
+    if dit:
+        return {"flash_attention_fwd": 2 * 2 * layers + 1, "flash_attention_bwd": 2 * layers}
+    if sp > 1:
+        return {"flash_attention_lse": 2 * layers * (sp_rank + 1),
+                "flash_attention_lse_bwd": layers * (sp_rank + 1),
+                "flash_attention_fwd": 2, "flash_attention_bwd": 1}
+    calls = layers // pp * (microbatches or pp) if pp > 1 else layers
+    return {"flash_attention_fwd": 2 * calls + 2, "flash_attention_bwd": calls + 1}
+
+
 @contextlib.contextmanager
 def counted_train_steps(steps: list, snapshot: dict, lse: bool = False):
     """`Trainer.train_step` patched inside: each step's seconds, metrics,
@@ -3797,7 +3834,7 @@ def phase_dit_train(dev):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         opt = trainer.opt
         L = opt.dit_num_layers
-        want = {"flash_attention_fwd": 2 * 2 * L + 1, "flash_attention_bwd": 2 * L}
+        want = step_launches(L, dit=True)
         timed = steps[1:]
         s_per_it = sum(st["s"] for st in timed) / max(len(timed), 1)
         losses = [st["loss"] for st in steps]
@@ -4457,7 +4494,7 @@ def ep_main(path: str) -> dict:
         p.shape[0] for n, p in trainer.params.items() if n.endswith("layers.0.moe.w1")),
         "ep_size": trainer.ep.size, "seconds": time.perf_counter() - t0,
         "steps": len(steps), "s_per_step": [st["s"] for st in steps],
-        "s_per_it": steps[-1]["s"], "s_per_it_label": f"{EP_RANKS} ranks sharing one card",
+        "s_per_it": steps[-1]["s"], "s_per_it_label": ranks_label(EP_RANKS),
         "ep_bytes_per_step": [st["ep_bytes"] for st in steps], "losses": losses,
         "loss_moe": [st["loss_moe"] for st in steps],
         "grad_norms": [st["grad_norm"] for st in steps],
@@ -4763,7 +4800,7 @@ def layout_main(path: str, name: str, flags: list, want: dict, lse: bool = False
            "seconds": time.perf_counter() - t0, "steps": len(steps),
            "s_per_step": [st["s"] for st in steps],
            "s_per_it": sum(st["s"] for st in timed) / len(timed),
-           "s_per_it_label": f"{trainer.world.size} ranks sharing one card, per rank",
+           "s_per_it_label": ranks_label(trainer.world.size) + ", per rank",
            "bytes_per_step": timed[-1]["bytes"], "losses": losses,
            "rows_positions_per_step": [st["rows_positions"] for st in steps],
            "loss_moe": [st.get("loss_moe") for st in steps],
@@ -4951,17 +4988,14 @@ def layout_run(dev, R: int, path: str, name: str) -> dict:
     T = train_positions(base)
     out = {}
     if name == "tp":
-        want = {"flash_attention_fwd": 2 * (L + 1), "flash_attention_bwd": L + 1}
+        want = step_launches(L)
         out["main"] = layout_main(path, name, ["--tp_size", str(R)], want)
         opt = dataclasses.replace(base, tp_size=R)
         layout = make_layout(dev, tp=R)
         batch = train_batch(opt, TRAIN_ROWS, lengths=[T, TRAIN_RAGGED_LEN])
     elif name == "moe_dp_pp":
-        # as pp: a stage's L / pp layers on each of M microbatches, replayed,
-        # and the point encoder on every rank
         dp, pp = MOE_DP_PP
-        calls = L // pp * PP_MICROBATCHES
-        want = {"flash_attention_fwd": 2 * calls + 2, "flash_attention_bwd": calls + 1}
+        want = step_launches(L, pp, PP_MICROBATCHES)
         out["main"] = layout_main(path, name, [
             "--moe_experts", str(MOE_EXPERTS), "--moe_top_k", str(MOE_TOP_K), "--dp_size",
             str(dp), "--pp_size", str(pp), "--pp_microbatches", str(PP_MICROBATCHES)], want)
@@ -4982,10 +5016,7 @@ def layout_run(dev, R: int, path: str, name: str) -> dict:
         out["in_rank_s"] = time.perf_counter() - t0
         return out
     elif name == "pp":
-        # a stage's L / R layers on each of M microbatches, replayed in the
-        # backward (checkpointing), and the point encoder on every rank
-        calls = L // R * PP_MICROBATCHES
-        want = {"flash_attention_fwd": 2 * calls + 2, "flash_attention_bwd": calls + 1}
+        want = step_launches(L, R, PP_MICROBATCHES)
         out["main"] = layout_main(path, name, ["--pp_size", str(R), "--pp_microbatches",
                                                str(PP_MICROBATCHES)], want)
         opt = dataclasses.replace(base, pp_size=R, pp_microbatches=PP_MICROBATCHES,
@@ -4993,9 +5024,7 @@ def layout_run(dev, R: int, path: str, name: str) -> dict:
         layout = make_layout(dev, pp=R, microbatches=PP_MICROBATCHES)
         batch = train_batch(opt, TRAIN_ROWS, lengths=[T, TRAIN_RAGGED_LEN])
     else:
-        want = {"flash_attention_lse": 2 * L * (rank + 1),
-                "flash_attention_lse_bwd": L * (rank + 1),
-                "flash_attention_fwd": 2, "flash_attention_bwd": 1}
+        want = step_launches(L, sp=R, sp_rank=rank)
         out["main"] = layout_main(path, name, [
             "--sp_size", str(R), "--moe_experts", str(MOE_EXPERTS), "--moe_top_k",
             str(MOE_TOP_K)], want, lse=True)

@@ -144,12 +144,16 @@ def all_gather(x: torch.Tensor, group) -> List[torch.Tensor]:
 @torch.no_grad()
 def gather_list(x: torch.Tensor, group) -> Optional[List[torch.Tensor]]:
     """The group's tensors `x` (same shape on each), in rank order, as CPU
-    tensors on the group's rank 0; None on the others."""
+    tensors on the group's rank 0; None on the others. `x` may lie on the
+    host (a tp split joined there, gathered next over pp or ep): under
+    NCCL, which moves device memory only, it goes to this rank's card."""
     if group.size == 1:
         return [x.detach().cpu()]
     buf = x.detach().contiguous()
     if group.staged or dist.get_backend(group.group) == "gloo":
         buf = buf.cpu()
+    elif buf.device.type == "cpu":
+        buf = buf.cuda()
     dst = dist.get_global_rank(group.group, 0)
     outs = [torch.empty_like(buf) for _ in range(group.size)] if group.rank == 0 else None
     dist.gather(buf, outs, dst=dst, group=group.group)

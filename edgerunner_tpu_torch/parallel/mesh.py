@@ -31,9 +31,11 @@ What each axis shards:
       (models/layers.py, models/shape_opt.py);
 * ep  the experts of every MoE layer (models/moe.py).
 
-The backend follows one rule for the whole world (`choose_backend`): NCCL
-when every rank has a card of its own, gloo when ranks share a card or run
-on the CPU (NCCL refuses two ranks on one device). Gloo moves host memory,
+The backend follows one rule (`choose_backend`), decided once by the ranks
+of each machine: NCCL when every rank on it has a card of its own (across
+torchrun's nodes too), gloo when ranks share a card or run on the CPU
+(NCCL refuses two ranks on one device). An NCCL failure fails the run:
+nothing falls back to gloo. Gloo moves host memory,
 so in a gloo group the collectives of CUDA tensors stage through pinned
 host buffers (parallel/collectives.py); the kernels still run on the card.
 
@@ -59,10 +61,19 @@ import torch.distributed as dist
 AXES = ("dp", "pp", "sp", "tp", "ep")
 
 
+def local_world_size(world_size: int) -> int:
+    """The ranks on this machine: torchrun's LOCAL_WORLD_SIZE, or the whole
+    world when it is unset (`torch.multiprocessing.spawn` in one process)."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+
+
 def choose_backend(device: torch.device, world_size: int) -> str:
-    """'nccl' when every rank has a card of its own, else 'gloo' (ranks that
-    share a card, or ranks on the CPU)."""
-    if device.type == "cuda" and world_size <= torch.cuda.device_count():
+    """'nccl' when every rank of this machine has a card of its own (its
+    `local_world_size` ranks at most its cards: `rank_device` gives local
+    rank r card r), else 'gloo' (ranks that share a card, or ranks on the
+    CPU). Decided per machine, so that `torchrun --nnodes N` takes NCCL
+    when each node has a card per rank."""
+    if device.type == "cuda" and local_world_size(world_size) <= torch.cuda.device_count():
         return "nccl"
     return "gloo"
 

@@ -8,14 +8,17 @@ torch_layout_workers.py), each pp rank holding its stage of the decoder's
 2 layers, against the JAX objective (tests/layout_parity.py) and the same step in
 one process: pp 2 with 2 and 4 microbatches, pp 2 with gradient
 checkpointing (each stage's tick replayed), dp 2 × pp 2 and pp 2 × tp 2
-(tests/test_pp.py:140-320). pp 2 and pp 2 × tp 2 are held to the JAX
-pipeline through `gpipe` on their meshes, the others to one device, whose
-result a dense model's pipeline gives on any mesh:
+(tests/test_pp.py:140-320), and LoRA (`lora_rank` 4, `lora_alpha` 8) at
+pp 2, its adapters split into the stages with their layers. pp 2 and
+pp 2 × tp 2 are held to the JAX pipeline through `gpipe` on their meshes,
+the others to one device, whose result a dense model's pipeline gives on
+any mesh (LoRA: the JAX LoRA step of tests/test_torch_lora.py):
 
 - the loss, the gradients the optimizer takes (every stage's layers
   gathered whole) and the global norm that clipping takes;
 - after the step every rank holds the same whole weights outside the
   stages (the embeddings, the condition encoder, lm_head), bit for bit;
+  under LoRA the base weights are bit-unchanged and every adapter moved;
 - a JAX stacked (`layers_scanned`) tree loads into the port, and the
   port's stack/unstack converters match the JAX package's;
 - `main` at pp 2 writes every layer whole in the per-layer naming, which
@@ -71,9 +74,12 @@ from torch_sp_workers import spawn
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 M2 = dict(KW, pp_microbatches=2)
+LORA = dict(KW, lora_rank=4, lora_alpha=8.0)
 CASES = {"pp2_m2": (M2, {"pp": 2}), "pp2_m4": (dict(KW, pp_microbatches=4), {"pp": 2}),
          "pp2_remat": (dict(M2, checkpointing=True), {"pp": 2}),
-         "dp2xpp2": (M2, {"dp": 2, "pp": 2}), "pp2xtp2": (M2, {"pp": 2, "tp": 2})}
+         "dp2xpp2": (M2, {"dp": 2, "pp": 2}), "pp2xtp2": (M2, {"pp": 2, "tp": 2}),
+         "lora_pp2": (dict(LORA, pp_microbatches=2), {"pp": 2})}
+ADAPTERS = (".lora_a", ".lora_b")
 # the cases held to their own JAX mesh; the others, whose dense layers give
 # one device's result on any mesh, to one device (one compile for all)
 ON_MESH = ("pp2_m2", "pp2xtp2")
@@ -90,17 +96,20 @@ def eval_losses(ws: str) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def _objective(name: str):
+def _objective(name: str, lora: bool = False):
     if name not in ON_MESH:  # one device: the same weights and batch
-        return jax_objective(KW, make_batch(), {})
+        return jax_objective(LORA if lora else KW, make_batch(), {})
     kw, sizes = CASES[name]
     return jax_objective(kw, make_batch(), sizes, kw["pp_microbatches"])
 
 
 def objective(name: str):
     """The JAX pipeline on the case's mesh, or one device (checkpointing
-    and the microbatches change no value of dense layers)."""
-    return _objective(name if name in ON_MESH else "one device")
+    and the microbatches change no value of dense layers), with LoRA's
+    adapters where the case has them."""
+    if name in ON_MESH:
+        return _objective(name)
+    return _objective("one device", "lora_rank" in CASES[name][0])
 
 
 @pytest.fixture(scope="module")
@@ -160,6 +169,20 @@ def test_gradients_gathered_whole_match_jax_and_one_process(runs, single, name):
 @pytest.mark.parametrize("name", list(CASES))
 def test_every_rank_holds_the_same_whole_weights_after_the_step(runs, name):
     assert check_same_replicated(runs[name], name) > 10
+
+
+def test_lora_under_pp_moves_the_adapters_and_leaves_the_base_bit_unchanged(runs):
+    before = state(CASES["lora_pp2"][0])
+    after = {k[len("lora_pp2/param/"):]: v for k, v in runs["lora_pp2"][0].items()
+             if k.startswith("lora_pp2/param/")}
+    adapters = [n for n in after if n.endswith(ADAPTERS)]
+    assert len(adapters) > 8 and {n.split(".")[3] for n in adapters
+                                  if ".layers." in n} == {"0", "1"}
+    for n, v in after.items():
+        if n.endswith(ADAPTERS):
+            assert not np.array_equal(v, before[n]), n
+        else:
+            np.testing.assert_array_equal(v, before[n], err_msg=n)
 
 
 def test_each_stage_holds_its_layers_under_their_global_names():

@@ -6,8 +6,11 @@ torch_layout_workers.py), each rank holding its tp share of the heads and
 MLP columns and its dp group's rows of a 4-row batch, against the JAX
 objective on a mesh of as many virtual devices (tests/layout_parity.py)
 and the same step in one process: tp 2, dp 2 × tp 2 (tests/test_train.py
-:147) and LoRA at tp 2 (tests/test_lora.py:132, its lora_b drawn non-zero
-so that both adapters take gradients):
+:147), LoRA at tp 2 (tests/test_lora.py:132, its lora_b drawn non-zero
+so that both adapters take gradients) and tp 2 with cond_mode 'image'
+(the tiny CLIP tower's heads and MLP columns split over tp, frozen as
+`main default` trains it, and trained; held to the JAX image LMM's step
+on one device, which a dense model gives on any mesh):
 
 - the loss, the gradients the optimizer takes (the shards gathered whole)
   and the global norm that clipping takes;
@@ -15,7 +18,8 @@ so that both adapters take gradients):
   bit for bit: Megatron's f and g leave their gradients alike;
 - which parameters a rank splits, and along which dimension, is what the
   JAX package's `param_shardings` gives on a tp mesh (the LMM, its LoRA
-  adapters and the MDiT with its towers);
+  adapters and the MDiT with its towers); a trained CLIP tower's split
+  weights are no rank's whole ones, and a frozen one stays bit-unchanged;
 - the MDiT's step at tp 2 (main_dit --tp_size) equals its one process;
 - `main` at tp 2 writes whole tensors, which load strictly at tp 1, and
   resumes at tp 2 and at tp 1 with the same losses (residual dropout draws
@@ -54,6 +58,7 @@ from edgerunner_tpu_torch.weights import (
     write_safetensors,
 )
 from layout_parity import (
+    FIELDS,
     KW,
     TINY,
     TOL,
@@ -70,8 +75,16 @@ from torch_sp_workers import spawn
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LORA = dict(KW, lora_rank=4, lora_alpha=8.0)
+# the image-conditioned ArAE: 28-pixel images in 14-pixel patches (4 + the
+# class token, + the num-face token), a CLIP tower 32 wide of 4 heads
+IMAGE = dict(KW, cond_mode="image", clip_image_size=28, clip_patch_size=14,
+             clip_hidden_dim=32, clip_intermediate_dim=64, clip_num_layers=2,
+             clip_num_heads=4, num_cond_tokens=6)
 CASES = {"tp2": (KW, {"tp": 2}), "lora_tp2": (LORA, {"tp": 2}),
-         "dp2xtp2": (KW, {"dp": 2, "tp": 2})}
+         "dp2xtp2": (KW, {"dp": 2, "tp": 2}),
+         "image_tp2": (dict(IMAGE, freeze_encoder=True), {"tp": 2}),
+         "image_tp2_trained": (dict(IMAGE, freeze_encoder=False), {"tp": 2})}
+TOWER = "image_encoder."
 DIT_KW = dict(cond_mode="point", point_latent_size=16, num_cond_tokens=17,
               point_hidden_dim=32, point_num_heads=4, point_latent_dim=8,
               dit_hidden_dim=32, dit_num_heads=4, dit_num_layers=2,
@@ -121,9 +134,63 @@ def write_tower(path: str) -> dict:
     return tower
 
 
+def image_batch(seed=0) -> dict:
+    """`make_batch`'s rows (ragged) with 64 × 64 images in place of the
+    points, resized inside the model."""
+    b = make_batch(seed=seed)
+    fewer = KW["num_cond_tokens"] - IMAGE["num_cond_tokens"]  # condition labels, all -100
+    images = np.random.default_rng(seed + 7).uniform(size=(len(b["labels"]), 64, 64, 3))
+    return {**b, "conds": images.astype(np.float32), "labels": b["labels"][:, fewer:],
+            "lengths": b["lengths"] - fewer}
+
+
+def batch_of(name: str) -> dict:
+    return image_batch() if name.startswith("image") else make_batch()
+
+
+@functools.lru_cache(maxsize=None)
+def _image_params():
+    """The image LMM's flax init (a frozen tower's is the same: freezing
+    only stops the gradient at the tower's output)."""
+    jm = JLMM(Options(**IMAGE))
+    b = image_batch()
+    rng = jax.random.PRNGKey(0)
+    p = jax.jit(jm.init)({"params": rng, "nof": rng, "dropout": rng},
+                         *(jnp.asarray(b[k]) for k in FIELDS))
+    return jax.tree.map(np.asarray, {"params": p["params"]})
+
+
+def weights(name: str) -> dict:
+    """The case's whole weights in the port's naming: the widened flax init
+    of `layout_parity`, or the image LMM's flax init."""
+    if name.startswith("image"):
+        return state_dict_from_flax(_image_params())
+    return state(CASES[name][0])
+
+
+def _image_objective(freeze: bool):
+    """(loss, None, grads by port name, global norm) of the JAX image LMM's
+    objective on one device; a frozen tower takes no gradient there."""
+    jm = JLMM(Options(**dict(IMAGE, freeze_encoder=freeze)))
+    b = {k: jnp.asarray(v) for k, v in image_batch().items()}
+
+    def loss_fn(q):
+        return jm.apply(q, *(b[k] for k in FIELDS), train=False)["loss"]
+
+    loss, g = jax.jit(jax.value_and_grad(loss_fn))(_image_params())
+    g = jax.tree.map(np.asarray, jax.device_get(g))
+    norm = float(np.sqrt(sum((x.astype(np.float64) ** 2).sum() for x in jax.tree.leaves(g))))
+    grads = state_dict_from_flax(g)
+    if freeze:
+        grads = {n: x for n, x in grads.items() if not n.startswith(TOWER)}
+    return float(loss), None, grads, norm
+
+
 @functools.lru_cache(maxsize=None)
 def objective(name: str):
     kw, sizes = CASES[name]
+    if name.startswith("image"):
+        return _image_objective(kw["freeze_encoder"])
     return jax_objective(kw, make_batch(), sizes)
 
 
@@ -138,8 +205,8 @@ def runs(tmp_path_factory):
     ws = str(tmp / "ws")
     tower_file = str(tmp / "clip_vision.safetensors")
     tower = write_tower(tower_file)
-    two = [(name, kw, state(kw), batch, sizes, "arae") for name, (kw, sizes) in CASES.items()
-           if len(sizes) == 1]
+    two = [(name, kw, weights(name), batch_of(name), sizes, "arae")
+           for name, (kw, sizes) in CASES.items() if len(sizes) == 1]
     two.append(("dit_tp2", DIT_KW, dit_state(), dit_inputs(), {"tp": 2}, "dit"))
     argv = [main_argv(ws, "--tp_size", "2", "--num_epochs", "1"),
             main_argv(ws + "_r", "--tp_size", "2", "--num_epochs", "2", "--resume",
@@ -166,8 +233,7 @@ def runs(tmp_path_factory):
 @pytest.fixture(scope="module")
 def single():
     """Each case's step in this process, no split."""
-    batch = make_batch()
-    return {name: layout_step(_trainer(kw, state(kw), {}), batch, name)
+    return {name: layout_step(_trainer(kw, weights(name), {}), batch_of(name), name)
             for name, (kw, _) in CASES.items()}
 
 
@@ -183,7 +249,9 @@ def test_loss_and_grad_norm_match_jax_and_one_process(runs, single, name):
 @pytest.mark.parametrize("name", list(CASES))
 def test_gradients_gathered_whole_match_jax_and_one_process(runs, single, name):
     _, _, grads, _ = objective(name)
-    assert check_grads(runs[name][0], name, grads) > 40
+    held = check_grads(runs[name][0], name, grads)
+    # a frozen tower leaves the LMM its 40 gradients
+    assert held == 40 if name == "image_tp2" else held > 40
     check_grads(single[name], name, grads)
 
 
@@ -273,6 +341,28 @@ def test_tp_slice_and_join_keep_each_group_of_columns(parts):
         np.testing.assert_array_equal(s.view(parts, 6, 2), groups[:, r * 6:(r + 1) * 6])
     assert torch.equal(tp_join(shards, 0, parts), x)
     np.testing.assert_array_equal(tp_slice(x.numpy(), 1, 2, 0, parts), shards[1].numpy())
+
+
+def test_an_image_tower_under_tp_is_split_as_jax_splits_it_and_frozen_bit_unchanged(runs):
+    """Trained, each tower weight that JAX's `param_shardings` splits over
+    tp is a rank's own shard, never among the whole ones that every rank
+    holds alike, and the tower's others are; frozen, the tower is
+    bit-unchanged by the step."""
+    mesh = make_mesh(1, 2, devices=jax.devices()[:2])
+    split = {n for n in _split_dims(_image_params(), mesh, state_dict_from_flax)
+             if n.startswith(TOWER)}
+    assert len(split) > 10
+    own = {k[len("image_tp2_trained/own/"):] for k in runs["image_tp2_trained"][1]
+           if k.startswith("image_tp2_trained/own/")}
+    tower_own = {n for n in own if n.startswith(TOWER)}
+    assert tower_own and not tower_own & split
+    before = weights("image_tp2")
+    after = {k[len("image_tp2/param/"):]: v for k, v in runs["image_tp2"][0].items()
+             if k.startswith("image_tp2/param/")}
+    tower = [n for n in after if n.startswith(TOWER)]
+    assert len(tower) > 10
+    for n in tower:
+        np.testing.assert_array_equal(after[n], before[n], err_msg=n)
 
 
 def test_tp2_checkpoints_load_strictly_at_tp1_and_resume(runs, tmp_path):
